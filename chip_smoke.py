@@ -2,19 +2,35 @@
 
     python3 chip_smoke.py
 
-Builds the dense intersector's CUDA kernels from `pbrt_tpu_torch/csrc`,
-holds each against its plain PyTorch version on the card at the shapes
-the main path gives it, renders the Cornell scene (256x256, Sobol, 4 spp,
-depth 5, 65,536 rays per pass) through the port's `render`, checks that
-the render launched both kernels six times per pass, compares a small
-render on the GPU with the same render on the CPU, and writes the .dat
-and EXR outputs.  Any failed check raises, so the exit code is non-zero;
-there is no fallback to the CPU.
+Builds the dense intersector's CUDA kernels from `pbrt_tpu_torch/csrc`
+and holds each against its plain PyTorch version on the card at the
+shapes the main paths give it: K1 and the static K2 on the Cornell
+scene's camera and bounce-1 batches, K1 and K2 motion on those of
+`pbrt_tpu_torch/scenes/cornell_motion.pbrt`.  Then it drives three paths,
+each with the kernels' launch counts set to 0 just before it and read
+just after:
+
+- the Cornell model (256x256, Sobol, 4 spp, depth 5, 65,536 rays per
+  pass) through the port's `render`: K1 and the static K2 six times per
+  pass;
+- the CLI's `run_job` on scenes/cornell_bench.pbrt (256x256, 2 spp), its
+  16x16-block means held against the reference binary's
+  (tests/data/ref_cornell_blocks.npz) at the thresholds of
+  tests/test_reference_parity.py;
+- the CLI's `run_job` on the motion scene (256x256, 4 spp, depth 5,
+  65,536 rays per pass): K1 and K2 motion six times per pass, the static
+  K2 never.
+
+It compares 32x32 renders of both scenes on the GPU with the same
+renders on the CPU, and writes the .dat, EXR and sidecar outputs.  Any
+failed check raises, so the exit code is non-zero; there is no fallback
+to the CPU or to a plain version.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}};
 the line before it lists every kernel with its launches, its largest
-difference from the plain version and both times.
+difference from the plain version, its times, its bound and what bounds
+it.
 """
 
 from __future__ import annotations
@@ -34,24 +50,46 @@ os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")
 
 import torch  # noqa: E402  (after the device mask)
 
-from pbrt_tpu_torch.film import film as filmmod
-from pbrt_tpu_torch.film import io as filmio
-from pbrt_tpu_torch.integrators import path
-from pbrt_tpu_torch.models import flagship
-from pbrt_tpu_torch.ops import cuda_kernels
-from pbrt_tpu_torch.ops import dense_intersect as dense
-from pbrt_tpu_torch.samplers.samplers import SamplerConfig
+from pbrt_tpu_torch.film import film as filmmod  # noqa: E402
+from pbrt_tpu_torch.film import io as filmio  # noqa: E402
+from pbrt_tpu_torch.integrators import path  # noqa: E402
+from pbrt_tpu_torch.models import flagship  # noqa: E402
+from pbrt_tpu_torch.ops import cuda_kernels  # noqa: E402
+from pbrt_tpu_torch.ops import dense_intersect as dense  # noqa: E402
+from pbrt_tpu_torch.parser.api import parse_scene  # noqa: E402
+from pbrt_tpu_torch.samplers.samplers import SamplerConfig  # noqa: E402
+from pbrt_tpu_torch.tools import pbrt as cli  # noqa: E402
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
+BENCH_SCENE = os.path.join(ROOT, "scenes", "cornell_bench.pbrt")
+MOTION_SCENE = os.path.join(ROOT, "pbrt_tpu_torch", "scenes",
+                            "cornell_motion.pbrt")
+REF_BLOCKS = os.path.join(ROOT, "tests", "data", "ref_cornell_blocks.npz")
 W = H = 256
 SPP = 4
+GATE_SPP = 2
 DEPTH = 5
 RAYS_PER_PASS = 65536
-T_SHARE = 0.99       # K2 lanes whose t is within 1e-5 relative of plain
+# K2 lanes whose t must lie within 1e-5 relative of the plain version's:
+# t = num/nd cancels on some lanes (PERF.md), so a share and not every
+# lane.  K2 motion rounds its Horner steps in another order than its plain
+# version (table entries first, or dot products first), but most of the
+# motion scene's triangles are static and Horner-exact, and the share was
+# 0.9985 (camera) and 0.9975 (bounce 1) on the H100, the static pair's
+# 0.9990 and 0.9978 (PERF.md): the same floor holds both.  Every lane of
+# both is held to its f32 rounding bound regardless.
+T_SHARE = 0.99
+F32_PEAK = 67e12     # FLOP/s, H100 SXM f32 outside the tensor cores
+HBM_BPS = 3.35e12    # B/s, H100 SXM HBM3
+K1_FLOPS = 28        # per (lane, chunk) slab test
+K2_FLOPS = {"dense_loop": 45, "dense_loop_motion": 177}   # per test
 KERNELS = {
     "dense_queue": ("pbrt_tpu_torch/csrc/dense_queue.cu",
                     "pbrt_tpu/ops/pallas_intersect.py:761"),
     "dense_loop": ("pbrt_tpu_torch/csrc/dense_loop.cu",
                    "pbrt_tpu/ops/pallas_intersect.py:329"),
+    "dense_loop_motion": ("pbrt_tpu_torch/csrc/dense_loop.cu",
+                          "pbrt_tpu/ops/pallas_intersect.py:329"),
 }
 
 
@@ -82,16 +120,29 @@ def time_ms(fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
+def bound(flops, nbytes):
+    """(least ms the card could take, what bounds it)."""
+    t_ops, t_bytes = flops / F32_PEAK, nbytes / HBM_BPS
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def nbytes(*xs):
+    return sum(x.numel() * x.element_size() for x in xs)
+
+
 def capture_batches(scene, camera, cfg, device):
-    """The (r16, tmax) batches the main path hands the dense kernels in
-    one pass: call 0 is the camera batch, call 1 the first trace_pair
-    (bounce-1 rays + bounce-0 shadow rays)."""
+    """The (r16, tmax, time) batches the main path hands the dense kernels
+    in one pass: call 0 is the camera batch, call 1 the first trace_pair
+    (bounce-1 rays + bounce-0 shadow rays).  time is None for static
+    scenes."""
     batches = []
     inner = dense.dense_intersect_loop
 
-    def record(r16, tmax, W_, cb):
-        batches.append((r16.clone(), tmax.clone()))
-        return inner(r16, tmax, W_, cb)
+    def record(r16, tmax, W_, cb, time=None):
+        batches.append((r16.clone(), tmax.clone(),
+                        None if time is None else time.clone()))
+        return inner(r16, tmax, W_, cb, time=time)
 
     dense.dense_intersect_loop = record
     try:
@@ -106,12 +157,35 @@ def capture_batches(scene, camera, cfg, device):
     return {"camera": batches[0], "bounce1": batches[1]}
 
 
-def compare_kernels(scene, batches, card):
-    """K1 and K2 against their plain versions on the same CUDA tensors."""
-    res = {k: {"max_abs_err": 0.0, "ms": {}, "plain_ms": {}}
-           for k in KERNELS}
+def k2_tests(r16, tmax, prim, chunk_list, n_active, chunk):
+    """Ray-triangle tests K2 makes on these inputs: every triangle of the
+    tile's active chunks for live closest-hit lanes and any-hit lanes
+    that miss; for any-hit lanes that hit, those up to the first accept
+    in chunk-list order."""
+    n_tiles, C = chunk_list.shape
+    dev = r16.device
+    ranks = torch.arange(C, dtype=torch.int64, device=dev).expand(n_tiles, C)
+    rank_of = torch.full((n_tiles, C), C, dtype=torch.int64, device=dev)
+    rank_of.scatter_(1, chunk_list.long(), torch.where(
+        ranks < n_active[:, None], ranks, C))
+    tile = torch.arange(r16.shape[0], device=dev) // dense.TILE
+    full = n_active.long()[tile] * chunk
+    p = prim.long().clamp(min=0)
+    upto = rank_of[tile, p // chunk] * chunk + p % chunk + 1
+    anyhit = r16[:, 12] > 0.5
+    tests = torch.where(anyhit & (prim >= 0), upto, full)
+    return int(torch.where(tmax > 0, tests, 0).sum())
+
+
+def compare_kernels(scene, batches, card, k2):
+    """K1 and a K2 (`k2`: "dense_loop" or "dense_loop_motion") against
+    their plain versions on the same CUDA tensors.  Returns
+    {kernel: {batch: record}}."""
+    motion = k2 == "dense_loop_motion"
     cb, Wt = scene.dense_cb, scene.dense_w
-    for name, (r16, tmax) in batches.items():
+    chunk = scene.dense_chunk
+    res = {"dense_queue": {}, k2: {}}
+    for name, (r16, tmax, tm) in batches.items():
         # --- K1: hits identical, near within 1e-6 relative ---
         hits, near = dense.tile_queue(r16, tmax, cb)
         hits_p, near_p = dense.tile_queue_plain(r16, tmax, cb)
@@ -120,84 +194,149 @@ def compare_kernels(scene, batches, card):
         rel = (err / near_p[hits].abs().clamp(min=1e-30)).max().item() \
             if err.numel() else 0.0
         check(rel <= 1e-6, f"K1 {name}: near rel err {rel}")
-        res["dense_queue"]["max_abs_err"] = max(
-            res["dense_queue"]["max_abs_err"],
-            err.max().item() if err.numel() else 0.0)
+        n_tiles, C = hits.shape
+        live_tiles = (tmax.reshape(n_tiles, -1) > 0).any(1)
+        k1_bound = bound(K1_FLOPS * int(live_tiles.sum()) * dense.TILE * C,
+                         nbytes(r16, tmax, cb, hits, near))
 
         # --- K2: same chunk lists into kernel and plain version ---
         key = torch.where(hits, near, float("inf"))
         cl = torch.sort(key, dim=1, stable=True).indices.to(torch.int32)
         na = hits.sum(1, dtype=torch.int32)
-        t_k, p_k = dense.loop_hits(r16, tmax, Wt, cl, na)
-        t_p, p_p = dense.loop_hits_plain(r16, tmax, Wt, cl, na)
+        if motion:
+            def run_k():
+                return dense.loop_hits_motion(r16, tmax, tm, Wt, cl, na)
+
+            def run_p():
+                return dense.loop_hits_motion_plain(r16, tmax, tm, Wt, cl,
+                                                    na)
+        else:
+            def run_k():
+                return dense.loop_hits(r16, tmax, Wt, cl, na)
+
+            def run_p():
+                return dense.loop_hits_plain(r16, tmax, Wt, cl, na)
+        t_k, p_k = run_k()
+        t_p, p_p = run_p()
         anyhit = r16[:, 12] > 0.5
         found_agree = ((p_k >= 0) == (p_p >= 0)).float().mean().item()
         prim_agree = (p_k == p_p).float().mean().item()
         closest = ~anyhit & (p_k == p_p) & (p_k >= 0)
         terr = (t_k - t_p)[closest].abs()
-        # t = num / (s0+s1+s2) cancels badly on some lanes (up to ~1e-3
-        # relative for short bounce hits), so no fixed bound holds between
-        # two f32 evaluations on every lane.  Every lane of both is held to
-        # the f32 rounding bound of the exact t of its winning triangle;
-        # the share of lanes where they agree within 1e-5 relative is held
-        # to at least T_SHARE.
-        t64, bound = dense.loop_t_reference(r16[closest], Wt, p_k[closest])
-        ratio_k = ((t_k[closest] - t64).abs() / (bound * t64.abs())).max()
-        ratio_p = ((t_p[closest] - t64).abs() / (bound * t64.abs())).max()
+        # t = num / (s0+s1+s2) cancels badly on some lanes, so no fixed
+        # bound holds between two f32 evaluations on every lane.  Every
+        # lane of both is held to the f32 rounding bound of the exact t of
+        # its winning triangle; the share of lanes where they agree within
+        # 1e-5 relative is held to a floor.
+        if motion:
+            t64, bnd = dense.loop_t_reference_motion(
+                r16[closest], tm[closest], Wt, p_k[closest])
+        else:
+            t64, bnd = dense.loop_t_reference(r16[closest], Wt,
+                                              p_k[closest])
+        ratio_k = ((t_k[closest] - t64).abs() / (bnd * t64.abs())).max()
+        ratio_p = ((t_p[closest] - t64).abs() / (bnd * t64.abs())).max()
         share = (terr <= 1e-5 * t_p[closest].abs()).double().mean().item()
         occ_same = torch.equal((p_k >= 0)[anyhit], (p_p >= 0)[anyhit])
-        print(f"K2 {name}: B={r16.shape[0]} any-hit lanes="
+        print(f"{k2} {name}: B={r16.shape[0]} any-hit lanes="
               f"{int(anyhit.sum())} found agree={found_agree:.6f} "
               f"prim agree={prim_agree:.6f} closest lanes compared="
               f"{int(closest.sum())} t within 1e-5 rel of plain={share:.6f} "
-              f"largest t err / f32 bound: kernel {ratio_k.item():.4f} "
-              f"plain {ratio_p.item():.4f} occluded identical={occ_same}")
-        check(found_agree >= 0.9999, f"K2 {name}: found agree {found_agree}")
-        check(prim_agree >= 0.999, f"K2 {name}: prim agree {prim_agree}")
-        check(ratio_k <= 1.0, f"K2 {name}: kernel t beyond the f32 bound")
-        check(ratio_p <= 1.0, f"K2 {name}: plain t beyond the f32 bound")
-        check(share >= T_SHARE, f"K2 {name}: only {share} of lanes within "
-              "1e-5")
-        check(occ_same, f"K2 {name}: occluded flags differ")
-        res["dense_loop"]["max_abs_err"] = max(
-            res["dense_loop"]["max_abs_err"],
-            terr.max().item() if terr.numel() else 0.0)
+              f"(floor {T_SHARE}) largest t err / f32 bound: kernel "
+              f"{ratio_k.item():.4f} plain {ratio_p.item():.4f} occluded "
+              f"identical={occ_same}")
+        check(found_agree >= 0.9999, f"{k2} {name}: found agree "
+              f"{found_agree}")
+        check(prim_agree >= 0.999, f"{k2} {name}: prim agree {prim_agree}")
+        check(ratio_k <= 1.0, f"{k2} {name}: kernel t beyond the f32 bound")
+        check(ratio_p <= 1.0, f"{k2} {name}: plain t beyond the f32 bound")
+        check(share >= T_SHARE, f"{k2} {name}: only {share} of lanes "
+              "within 1e-5")
+        check(occ_same, f"{k2} {name}: occluded flags differ")
+        tests = k2_tests(r16, tmax, p_k, cl, na, chunk)
+        k2_bytes = nbytes(r16, tmax, Wt, cl, na, t_k, p_k) + (
+            nbytes(tm) if motion else 0)
+        k2_bound = bound(K2_FLOPS[k2] * tests, k2_bytes)
 
-        res["dense_queue"]["ms"][name] = time_ms(
-            lambda: dense.tile_queue(r16, tmax, cb))
-        res["dense_queue"]["plain_ms"][name] = time_ms(
-            lambda: dense.tile_queue_plain(r16, tmax, cb))
-        res["dense_loop"]["ms"][name] = time_ms(
-            lambda: dense.loop_hits(r16, tmax, Wt, cl, na))
-        res["dense_loop"]["plain_ms"][name] = time_ms(
-            lambda: dense.loop_hits_plain(r16, tmax, Wt, cl, na), reps=5)
-        print(f"K1 {name}: B={r16.shape[0]} tiles={hits.shape[0]} "
+        res["dense_queue"][name] = dict(
+            max_abs_err=err.max().item() if err.numel() else 0.0,
+            ms=time_ms(lambda: dense.tile_queue(r16, tmax, cb)),
+            plain_ms=time_ms(lambda: dense.tile_queue_plain(r16, tmax, cb)),
+            bound=k1_bound)
+        res[k2][name] = dict(
+            max_abs_err=terr.max().item() if terr.numel() else 0.0,
+            ms=time_ms(run_k), plain_ms=time_ms(run_p, reps=5),
+            bound=k2_bound, tests=tests)
+        print(f"K1 {name}: B={r16.shape[0]} tiles={n_tiles} "
               f"active chunks/tile={na.float().mean().item():.2f} "
-              f"hits identical, near max rel err={rel:.3e} "
-              f"kernel {res['dense_queue']['ms'][name]:.4f} ms "
-              f"plain {res['dense_queue']['plain_ms'][name]:.4f} ms | "
-              f"K2 kernel {res['dense_loop']['ms'][name]:.4f} ms "
-              f"plain {res['dense_loop']['plain_ms'][name]:.4f} ms on {card}")
+              f"hits identical, near max rel err={rel:.3e} kernel "
+              f"{res['dense_queue'][name]['ms']:.4f} ms plain "
+              f"{res['dense_queue'][name]['plain_ms']:.4f} ms bound "
+              f"{k1_bound[0]:.5f} ms ({k1_bound[1]}) | {k2} kernel "
+              f"{res[k2][name]['ms']:.4f} ms plain "
+              f"{res[k2][name]['plain_ms']:.4f} ms, {tests} tests, bound "
+              f"{k2_bound[0]:.5f} ms ({k2_bound[1]}) on {card}")
     return res
 
 
-def compare_cpu(device):
-    """The same render at 32x32, 2 spp on CUDA and on the CPU."""
-    cfg = SamplerConfig("sobol", 0, 2)
-    imgs = []
-    for dev in (device, "cpu"):
-        scene, cam = flagship.cornell(device=dev)
-        film = path.render(scene, cam(32, 32),
-                           filmmod.make_film(32, 32, "gaussian", device=dev),
-                           cfg, 2, max_depth=DEPTH)
-        imgs.append(filmmod.develop_spectral(film).cpu().numpy())
-    g, c = (im.sum(-1) for im in imgs)
-    mean_rel = abs(g.mean() / c.mean() - 1.0)
-    close = (np.abs(g - c) <= 1e-2 * np.abs(c)).mean()
-    print(f"GPU vs CPU 32x32 2spp: mean {g.mean():.6f} vs {c.mean():.6f} "
-          f"(rel {mean_rel:.3e}), pixels within 1e-2 rel {close:.4f}")
-    check(mean_rel < 0.01, f"GPU/CPU image mean differs by {mean_rel}")
-    check(close >= 0.95, f"only {close} of pixels agree within 1e-2")
+def check_image(img, what):
+    check(bool(torch.isfinite(img).all()), f"{what}: non-finite values")
+    check(bool((img >= 0).all()), f"{what}: negative values")
+    check(img.mean().item() > 0, f"{what}: black image")
+
+
+def check_launches(counts, expect, what):
+    """expect: {kernel: exact count}; every kernel of the path launched."""
+    for k, n in expect.items():
+        check(counts[k] == n, f"{what}: {k} launched {counts[k]} times, "
+              f"expected {n}")
+
+
+def reference_gate(film, spp):
+    """16x16-block means of the render against the reference binary's,
+    at the thresholds of tests/test_reference_parity.py:108-118."""
+    d = np.load(REF_BLOCKS)
+    ref_blocks, k = d["blocks"], int(d["block"])
+    ours = film.raw.cpu().numpy() / spp
+    bo = ours.reshape(16, k, 16, k, 31).mean((1, 3))
+    lum_r, lum_o = ref_blocks.sum(-1), bo.sum(-1)
+    mask = lum_r > lum_r.mean() * 0.05
+    med = float(np.median(np.abs(lum_o - lum_r)[mask] / lum_r[mask]))
+    spec_r = ref_blocks.reshape(-1, 31)[mask.ravel()].mean(0)
+    spec_o = bo.reshape(-1, 31)[mask.ravel()].mean(0)
+    ratio = spec_o / np.maximum(spec_r, 1e-9)
+    flat = float(np.abs(ratio / ratio.mean() - 1.0).max())
+    return med, flat
+
+
+def compare_cpu(renders):
+    """Each (name, render(device) -> film) at 32x32 on CUDA and on the
+    CPU: image means within 1%, >= 95% of pixels within 1e-2."""
+    for name, render in renders:
+        g, c = (filmmod.develop_spectral(render(dev)).cpu().numpy().sum(-1)
+                for dev in ("cuda", "cpu"))
+        mean_rel = abs(g.mean() / c.mean() - 1.0)
+        close = (np.abs(g - c) <= 1e-2 * np.abs(c)).mean()
+        print(f"GPU vs CPU {name} 32x32 2spp: mean {g.mean():.6f} vs "
+              f"{c.mean():.6f} (rel {mean_rel:.3e}), pixels within 1e-2 "
+              f"rel {close:.4f}")
+        check(mean_rel < 0.01, f"{name}: GPU/CPU image mean differs by "
+              f"{mean_rel}")
+        check(close >= 0.95, f"{name}: only {close} of pixels agree "
+              "within 1e-2")
+
+
+def cornell_32(dev):
+    scene, cam = flagship.cornell(device=dev)
+    return path.render(scene, cam(32, 32),
+                       filmmod.make_film(32, 32, "gaussian", device=dev),
+                       SamplerConfig("sobol", 0, 2), 2, max_depth=DEPTH)
+
+
+def motion_32(dev):
+    job = parse_scene(MOTION_SCENE, device=dev)
+    job.film_width = job.film_height = 32
+    return cli.run_job(job, spp=2, max_depth=DEPTH)[0]
 
 
 def main():
@@ -206,6 +345,7 @@ def main():
     check(torch.cuda.device_count() == 1,
           f"chip_smoke drives one card; {torch.cuda.device_count()} are "
           "visible (set CUDA_VISIBLE_DEVICES to one)")
+    t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     # the plain versions' matmuls must be true f32 on the card
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -218,67 +358,135 @@ def main():
 
     _, build_s, log = cuda_kernels.build()
     cuda_kernels.library()
-    print(f"phase 2 build: {build_s:.2f} s (nvcc, sm_90a)")
+    print(f"phase 2 build: {build_s:.2f} s (one nvcc, sm_90a; kernels "
+          "dense_queue, dense_loop, dense_loop_motion)")
     for line in log.splitlines():
         if "registers" in line or "Compiling entry" in line:
             print("  ptxas: " + line.strip())
 
+    # --- phases 3-4: kernels against their plain versions ---
     scene, cam_ctor = flagship.cornell(device=device)
     camera = cam_ctor(W, H)
     cfg = SamplerConfig("sobol", 0, SPP)
     batches = capture_batches(scene, camera, cfg, device)
-    res = compare_kernels(scene, batches, card)
+    res = compare_kernels(scene, batches, card, "dense_loop")
+    mjob = parse_scene(MOTION_SCENE, device=device)
+    check(mjob.scene.dense_motion and mjob.scene.has_animated_quads,
+          "the motion scene did not parse as moving")
+    mcam = cli.build_camera(mjob, W, H, device)
+    mres = compare_kernels(mjob.scene,
+                           capture_batches(mjob.scene, mcam, cfg, device),
+                           card, "dense_loop_motion")
+    res["dense_loop_motion"] = mres["dense_loop_motion"]
+    res["dense_queue_motion"] = mres["dense_queue"]
     print("phase 3-4 kernels agree with their plain versions")
 
-    # warm-up render (allocator, cuBLAS, caches), then the counted one
+    passes = SPP * (-(-W * H // RAYS_PER_PASS))
+    launches = {k: 0 for k in KERNELS}
+
+    def run_path(what, fn, expect):
+        dense.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = dict(dense.LAUNCHES)
+        check_launches(counts, expect, what)
+        for k in KERNELS:
+            launches[k] += counts[k]
+        return out, counts
+
+    # --- phase 5: the Cornell model through render ---
     path.render(scene, camera, filmmod.make_film(W, H, "gaussian",
                                                  device=device),
                 cfg, 1, max_depth=DEPTH, max_rays_per_pass=RAYS_PER_PASS)
     torch.cuda.synchronize()
-    film = filmmod.make_film(W, H, "gaussian", device=device)
-    passes = SPP * (-(-W * H // RAYS_PER_PASS))
-    dense.reset_launch_counts()
     t0 = time.perf_counter()
-    film, n_rays = path.render(scene, camera, film, cfg, SPP,
-                               max_depth=DEPTH,
-                               max_rays_per_pass=RAYS_PER_PASS,
-                               count_rays=True)
-    torch.cuda.synchronize()
+    (film, n_rays), counts = run_path(
+        "Cornell render",
+        lambda: path.render(scene, camera,
+                            filmmod.make_film(W, H, "gaussian",
+                                              device=device),
+                            cfg, SPP, max_depth=DEPTH,
+                            max_rays_per_pass=RAYS_PER_PASS,
+                            count_rays=True),
+        {"dense_queue": (DEPTH + 1) * passes,
+         "dense_loop": (DEPTH + 1) * passes, "dense_loop_motion": 0})
     dt = time.perf_counter() - t0
-    launches = dict(dense.LAUNCHES)
-    img = filmmod.develop_spectral(film)
-    print(f"phase 5 render {W}x{H} {SPP} spp depth {DEPTH}: {passes} passes, "
-          f"{dt * 1e3 / passes:.2f} ms/pass, {n_rays} rays, "
-          f"{n_rays / dt:.4e} rays/s, launches {launches} on {card}")
-    for k in KERNELS:
-        check(launches[k] == (DEPTH + 1) * passes,
-              f"{k}: {launches[k]} launches, expected {(DEPTH + 1) * passes}")
-    check(bool(torch.isfinite(img).all()), "image has non-finite values")
-    check(bool((img >= 0).all()), "image has negative values")
-    check(img.mean().item() > 0, "image is black")
-    print(f"  image mean {img.mean().item():.6f}")
+    check_image(filmmod.develop_spectral(film), "Cornell render")
+    print(f"phase 5 Cornell render {W}x{H} {SPP} spp depth {DEPTH}: "
+          f"{passes} passes, {dt * 1e3 / passes:.2f} ms/pass, {n_rays} "
+          f"rays, {n_rays / dt:.4e} rays/s, launches {counts} on {card}")
 
-    compare_cpu(device)
-    print("phase 6 GPU and CPU renders agree")
+    # --- phase 6: the CLI on cornell_bench.pbrt against the reference ---
+    job = parse_scene(BENCH_SCENE, device=device)
+    gate_passes = GATE_SPP * (-(-W * H // (1 << 18)))
+    stats = {}
+    t0 = time.perf_counter()
+    (gfilm, _), counts = run_path(
+        "CLI reference gate",
+        lambda: cli.run_job(job, spp=GATE_SPP, stats=stats),
+        {"dense_queue": (DEPTH + 1) * gate_passes,
+         "dense_loop": (DEPTH + 1) * gate_passes, "dense_loop_motion": 0})
+    dt = time.perf_counter() - t0
+    med, flat = reference_gate(gfilm, GATE_SPP)
+    print(f"phase 6 CLI reference gate cornell_bench.pbrt {W}x{H} "
+          f"{GATE_SPP} spp: median rel err of lit 16x16 blocks {med:.4f} "
+          f"(< 0.08), band ratio flat within {flat:.4f} (< 0.05), "
+          f"{dt:.2f} s, {stats['rays']} rays, launches {counts} on {card}")
+    check(med < 0.08, f"reference gate: median block error {med}")
+    check(flat < 0.05, f"reference gate: band ratio off by {flat}")
+
+    # --- phase 7: the CLI on the motion scene, full width ---
+    cli.run_job(mjob, spp=1, max_depth=DEPTH,
+                max_rays_per_pass=RAYS_PER_PASS)
+    torch.cuda.synchronize()
+    stats = {}
+    t0 = time.perf_counter()
+    (mfilm, _), counts = run_path(
+        "motion render",
+        lambda: cli.run_job(mjob, spp=SPP, max_depth=DEPTH,
+                            max_rays_per_pass=RAYS_PER_PASS, stats=stats),
+        {"dense_queue": (DEPTH + 1) * passes, "dense_loop": 0,
+         "dense_loop_motion": (DEPTH + 1) * passes})
+    dt = time.perf_counter() - t0
+    check_image(filmmod.develop_spectral(mfilm), "motion render")
+    print(f"phase 7 motion render cornell_motion.pbrt {W}x{H} {SPP} spp "
+          f"depth {DEPTH}: {passes} passes, {dt * 1e3 / passes:.2f} "
+          f"ms/pass, {stats['rays']} rays, {stats['rays'] / dt:.4e} "
+          f"rays/s, launches {counts} on {card}")
+
+    compare_cpu([("Cornell", cornell_32), ("motion", motion_32)])
+    print("phase 8 GPU and CPU renders agree")
 
     with tempfile.TemporaryDirectory() as d:
-        dat = filmio.write_dat(os.path.join(d, "cornell.dat"), img)
-        filmio.write_exr(os.path.join(d, "cornell.exr"),
-                         filmmod.develop_rgb(film))
-        back, flag = filmio.read_dat(dat)
+        out = os.path.join(d, "motion.exr")
+        written = cli.write_outputs(mjob, mfilm, out, quiet=True)
+        back, flag = filmio.read_dat(os.path.join(d, "motion.dat"))
         check(flag == "v3" and np.array_equal(
-            back, img.cpu().numpy().astype(np.float64)), ".dat round trip")
-        print(f"phase 7 wrote {os.path.getsize(dat)} B .dat and "
-              f"{os.path.getsize(os.path.join(d, 'cornell.exr'))} B EXR; "
-              ".dat read back equal")
+            back, mfilm.raw.cpu().numpy().astype(np.float64)),
+            ".dat round trip")
+        print("phase 9 wrote " + ", ".join(
+            f"{os.path.basename(p)} {os.path.getsize(p)} B" for p in written)
+            + "; .dat read back equal")
 
-    print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[k], "max_abs_err": res[k]["max_abs_err"],
-         "ms": res[k]["ms"]["bounce1"], "plain_ms": res[k]["plain_ms"]
-         ["bounce1"], "ms_camera": res[k]["ms"]["camera"],
-         "plain_ms_camera": res[k]["plain_ms"]["camera"]}
-        for k, (src, rep) in KERNELS.items()]}))
+    rows = []
+    for k, (src, rep) in KERNELS.items():
+        r = res[k]
+        row = {"name": k, "route": "cuda", "source": src, "replaces": rep,
+               "launches": launches[k],
+               "max_abs_err": max(v["max_abs_err"] for v in r.values()),
+               "ms": r["bounce1"]["ms"], "plain_ms": r["bounce1"]["plain_ms"],
+               "bound_ms": r["bounce1"]["bound"][0],
+               "bound_by": r["bounce1"]["bound"][1], "library_ms": None,
+               "ms_camera": r["camera"]["ms"],
+               "plain_ms_camera": r["camera"]["plain_ms"],
+               "bound_ms_camera": r["camera"]["bound"][0]}
+        if k == "dense_queue":
+            m = res["dense_queue_motion"]
+            row.update(ms_motion_bounce1=m["bounce1"]["ms"],
+                       ms_motion_camera=m["camera"]["ms"])
+        rows.append(row)
+    print(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,6 +4,8 @@ pbrt_tpu.cameras.projective).
 The raster->camera chain is built on the host exactly as the reference's
 ProjectiveCamera constructor does (camera.h:86+); ray generation is a
 batched closed form, with thin-lens depth of field (perspective.cpp:69).
+A camera given a second cam_to_world keyframe interpolates its decomposed
+transform at each ray's time (camera motion blur).
 """
 
 from __future__ import annotations
@@ -14,9 +16,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from pbrt_tpu_torch.core import device as devmod
 from pbrt_tpu_torch.core import geometry as geom
 from pbrt_tpu_torch.core import sampling
 from pbrt_tpu_torch.core import transform as tfm
+
+ANIM_FIELDS = ("anim_t", "anim_q", "anim_s")
 
 
 @dataclass
@@ -28,15 +33,22 @@ class ProjectiveCamera:
     focal_distance: float = 1e6
     shutter_open: float = 0.0
     shutter_close: float = 1.0
+    # camera motion blur: the decomposed two-keyframe cam_to_world
+    # (transform.animated_pair); None for a static camera
+    anim_t: torch.Tensor = None      # [2,3]
+    anim_q: torch.Tensor = None      # [2,4]
+    anim_s: torch.Tensor = None      # [2,3,3]
 
     def to(self, device):
-        return dataclasses.replace(
-            self, cam_to_world=self.cam_to_world.to(device),
-            raster_to_camera=self.raster_to_camera.to(device),
-            camera_to_raster=self.camera_to_raster.to(device))
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+            if torch.is_tensor(getattr(self, f.name))})
 
 
-def _screen_window(width, height):
+def _screen_window(width, height, screen=None):
+    if screen is not None:
+        return tuple(screen)
     aspect = width / height
     if aspect > 1:
         return (-aspect, aspect, -1.0, 1.0)
@@ -44,10 +56,13 @@ def _screen_window(width, height):
 
 
 def make_perspective(cam_to_world: tfm.Transform, fov_deg, width, height,
-                     device="cpu"):
-    """Pinhole perspective camera (lens radius 0, shutter [0, 1]); cameras
-    with a thin lens come from camera_from_jax."""
-    x0, x1, y0, y1 = _screen_window(width, height)
+                     lens_radius=0.0, focal_distance=1e6, screen=None,
+                     shutter_open=0.0, shutter_close=1.0,
+                     cam_to_world1: tfm.Transform = None, device=None):
+    """Perspective camera on `device` (None: the first CUDA card), with an
+    optional thin lens and an optional second keyframe cam_to_world1."""
+    device = devmod.resolve(device)
+    x0, x1, y0, y1 = _screen_window(width, height, screen)
     raster_to_screen = (tfm.scale(width, height, 1.0)
                         * tfm.scale(1.0 / (x1 - x0), 1.0 / (y0 - y1), 1.0)
                         * tfm.translate(-x0, -y1, 0.0)).inverse()
@@ -56,21 +71,35 @@ def make_perspective(cam_to_world: tfm.Transform, fov_deg, width, height,
 
     def f32(m):
         return torch.as_tensor(np.asarray(m, np.float32), device=device)
+    anim = {}
+    if cam_to_world1 is not None and not np.allclose(cam_to_world1.m,
+                                                     cam_to_world.m):
+        anim = dict(zip(ANIM_FIELDS, map(f32, tfm.animated_pair(
+            cam_to_world.m, cam_to_world1.m))))
     return ProjectiveCamera(
         cam_to_world=f32(cam_to_world.m),
         raster_to_camera=f32(raster_to_camera.m),
-        camera_to_raster=f32(raster_to_camera.m_inv))
+        camera_to_raster=f32(raster_to_camera.m_inv),
+        lens_radius=float(lens_radius), focal_distance=float(focal_distance),
+        shutter_open=float(shutter_open), shutter_close=float(shutter_close),
+        **anim)
 
 
 def camera_from_jax(arrays: dict, device) -> ProjectiveCamera:
     """The port's camera for a pbrt_tpu perspective camera, given
-    {name: np.asarray(getattr(jax_camera, name))} for its fields."""
+    {name: np.asarray(getattr(jax_camera, name))} for its fields (the
+    anim_* fields may be absent or None for a static camera)."""
+    device = devmod.resolve(device)
+
+    def f32(k):
+        return torch.as_tensor(np.array(arrays[k], np.float32),
+                               device=device)
     return ProjectiveCamera(
-        **{k: torch.as_tensor(np.array(arrays[k], np.float32),
-                              device=device)
-           for k in ("cam_to_world", "raster_to_camera", "camera_to_raster")},
+        **{k: f32(k) for k in ("cam_to_world", "raster_to_camera",
+                               "camera_to_raster")},
         **{k: float(arrays[k]) for k in ("lens_radius", "focal_distance",
-                                         "shutter_open", "shutter_close")})
+                                         "shutter_open", "shutter_close")},
+        **{k: f32(k) for k in ANIM_FIELDS if arrays.get(k) is not None})
 
 
 def generate_rays(camera: ProjectiveCamera, pfilm, u_lens, u_time=None):
@@ -93,6 +122,13 @@ def generate_rays(camera: ProjectiveCamera, pfilm, u_lens, u_time=None):
     else:
         time = camera.shutter_open + u_time * (camera.shutter_close
                                                - camera.shutter_open)
-    wo = tfm.xform_point(camera.cam_to_world, o)
-    wd = geom.normalize(tfm.xform_vector(camera.cam_to_world, d))
+    if camera.anim_t is not None:
+        # camera motion blur: cam_to_world interpolated at each ray's time
+        m34 = tfm.interp_matrix(camera.anim_t, camera.anim_q,
+                                camera.anim_s, time)
+        wo = torch.einsum("bij,bj->bi", m34[..., :3], o) + m34[..., 3]
+        wd = geom.normalize(torch.einsum("bij,bj->bi", m34[..., :3], d))
+    else:
+        wo = tfm.xform_point(camera.cam_to_world, o)
+        wd = geom.normalize(tfm.xform_vector(camera.cam_to_world, d))
     return geom.Ray.make(wo, wd, time=time), torch.ones(B, device=dev)

@@ -100,6 +100,22 @@ def from_rgb_np(rgb, kind="reflectance"):
     return np.maximum(s, 0.0).astype(np.float32)
 
 
+def from_sampled(lambdas, values, n_sub=8):
+    """Piecewise-linear SPD (lambda, value) samples -> binned [31] spectrum:
+    the interpolant averaged over each bin, constant beyond the sampled
+    range (the reference's AverageSpectrumSamples)."""
+    lambdas = np.asarray(lambdas, dtype=np.float64).reshape(-1)
+    values = np.asarray(values, dtype=np.float64).reshape(-1)
+    order = np.argsort(lambdas)
+    lambdas, values = lambdas[order], values[order]
+    out = np.zeros(N_SPECTRAL_SAMPLES)
+    for i in range(N_SPECTRAL_SAMPLES):
+        lam = np.linspace(_EDGES[i], _EDGES[i + 1], n_sub * 4 + 1)
+        v = np.interp(lam, lambdas, values)
+        out[i] = np.trapezoid(v, lam) / (_EDGES[i + 1] - _EDGES[i])
+    return out
+
+
 def _xyz_matrix(s):
     return torch.as_tensor(np.stack([CIE_X, CIE_Y, CIE_Z], -1),
                            dtype=s.dtype, device=s.device)

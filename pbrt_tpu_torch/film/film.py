@@ -17,22 +17,26 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from pbrt_tpu_torch.core import device as devmod
 from pbrt_tpu_torch.core import spectrum as spec
 
 FILTER_TABLE_WIDTH = 16
 _RADIUS = {"box": (0.5, 0.5), "gaussian": (2.0, 2.0)}
-GAUSSIAN_ALPHA = 2.0
+FILTER_PARAMS = {"box": (), "gaussian": ("alpha",)}
 
 
-def filter_eval(name, x, y, rx, ry):
-    """Box or Gaussian filter at offsets (x, y) (numpy; the other reference
-    filters, and filter parameters, are not ported yet)."""
+def filter_eval(name, x, y, rx, ry, params=None):
+    """Box or Gaussian (parameter `alpha`, default 2) filter at offsets
+    (x, y) (numpy; the other reference filters are not ported yet)."""
+    params = params or {}
     if name == "box":
         return np.where((np.abs(x) <= rx) & (np.abs(y) <= ry), 1.0, 0.0)
     if name == "gaussian":
+        alpha = params.get("alpha", 2.0)
+
         def g(d, r):
-            return np.maximum(0.0, np.exp(-GAUSSIAN_ALPHA * d * d)
-                              - np.exp(-GAUSSIAN_ALPHA * r * r))
+            return np.maximum(0.0, np.exp(-alpha * d * d)
+                              - np.exp(-alpha * r * r))
         return g(x, rx) * g(y, ry)
     raise NotImplementedError(f"filter {name!r} is not ported yet")
 
@@ -61,12 +65,23 @@ class Film:
             filter_table=self.filter_table.to(device))
 
 
-def make_film(width, height, filter_name="box", device="cpu"):
-    rx, ry = _RADIUS[filter_name]
+def make_film(width, height, filter_name="box", radius=None, device=None,
+              **filter_params):
+    """An empty film on `device` (None: the first CUDA card) with the
+    named filter, its radius (rx, ry) (default: the reference's) and its
+    parameters."""
+    if filter_name not in _RADIUS:
+        raise NotImplementedError(f"filter {filter_name!r} is not ported yet")
+    unknown = set(filter_params) - set(FILTER_PARAMS[filter_name])
+    if unknown:
+        raise NotImplementedError(f"{filter_name} filter parameters "
+                                  f"{sorted(unknown)} are not ported")
+    device = devmod.resolve(device)
+    rx, ry = radius or _RADIUS[filter_name]
     ox = (np.arange(FILTER_TABLE_WIDTH) + 0.5) * rx / FILTER_TABLE_WIDTH
     oy = (np.arange(FILTER_TABLE_WIDTH) + 0.5) * ry / FILTER_TABLE_WIDTH
     X, Y = np.meshgrid(ox, oy, indexing="xy")
-    table = filter_eval(filter_name, X, Y, rx, ry)
+    table = filter_eval(filter_name, X, Y, rx, ry, filter_params)
     NS = spec.N_SPECTRAL_SAMPLES
     return Film(
         weighted=torch.zeros((height, width, NS), device=device),

@@ -1,10 +1,12 @@
 """Image output: the fork's ISET spectral .dat and an uncompressed EXR
-(port of pbrt_tpu.film.io's writers, byte for byte)."""
+(port of pbrt_tpu.film.io's writers, byte for byte), and an 8-bit sRGB
+PNG written with zlib (no imaging library)."""
 
 from __future__ import annotations
 
 import os
 import struct
+import zlib
 
 import numpy as np
 
@@ -69,3 +71,39 @@ def write_exr(path, rgb):
             for c in (2, 1, 0):          # channels alphabetical: B, G, R
                 f.write(np.ascontiguousarray(rgb[y, :, c]).tobytes())
     return path
+
+
+def _srgb_encode(x):
+    x = np.clip(x, 0.0, 1.0)
+    return np.where(x <= 0.0031308, 12.92 * x,
+                    1.055 * x ** (1 / 2.4) - 0.055)
+
+
+def write_png(path, rgb):
+    """rgb [H,W,3] linear -> 8-bit sRGB PNG (the JAX package's encoding,
+    written by hand: one IDAT, filter 0 on every row)."""
+    rgb = np.asarray(rgb.cpu() if hasattr(rgb, "cpu") else rgb)
+    img = (_srgb_encode(rgb) * 255 + 0.5).astype(np.uint8)
+    h, w = img.shape[:2]
+    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 6))
+                + chunk(b"IEND", b""))
+    return path
+
+
+def write_image(path, rgb):
+    """Extension dispatch (reference: imageio.cpp WriteImage): .exr or
+    .png; any other extension raises ValueError."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".exr":
+        return write_exr(path, rgb)
+    if ext == ".png":
+        return write_png(path, rgb)
+    raise ValueError(f"unsupported image extension {ext}")

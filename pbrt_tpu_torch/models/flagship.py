@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 
 from pbrt_tpu_torch.cameras import projective
+from pbrt_tpu_torch.core import device as devmod
 from pbrt_tpu_torch.core import spectrum as spec
 from pbrt_tpu_torch.core import transform as tfm
 from pbrt_tpu_torch.scene.ir import (SceneBuilder, MaterialSpec, MAT_MATTE,
@@ -34,9 +35,11 @@ def _uv_sphere(n_theta=24, n_phi=48):
     return pts, np.asarray(idx)
 
 
-def cornell(device="cpu"):
+def cornell(device=None):
     """Returns (scene, camera_ctor); camera_ctor(W, H) -> camera, both on
-    `device`.  The JAX package's tessellate=True build."""
+    `device` (None: the first CUDA card).  The JAX package's
+    tessellate=True build."""
+    device = devmod.resolve(device)
     b = SceneBuilder()
     white = b.add_material(MaterialSpec(type=MAT_MATTE,
                                         kd=_rgb(.73, .73, .73)))

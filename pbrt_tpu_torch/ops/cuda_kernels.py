@@ -57,4 +57,7 @@ def library():
     lib.pbrt_dense_queue.argtypes = [p, p, p, i, i, i, p, p, p]
     lib.pbrt_dense_loop.restype = ctypes.c_int
     lib.pbrt_dense_loop.argtypes = [p, p, p, p, p, i, i, i, i, p, p, p]
+    lib.pbrt_dense_loop_motion.restype = ctypes.c_int
+    lib.pbrt_dense_loop_motion.argtypes = [p, p, p, p, p, p, i, i, i, i, p,
+                                           p, p]
     return lib

@@ -3,15 +3,22 @@ of pbrt_tpu.ops.pallas_intersect).
 
 Triangles stay in BVH-leaf order and are cut into chunks of `chunk`
 triangles, each with an AABB.  Rays are cut into tiles of TILE lanes.
-Two kernels do the work, each with a plain PyTorch twin of the same
+Three kernels do the work, each with a plain PyTorch twin of the same
 contract:
 
-  K1 `tile_queue`  per (tile, chunk): does any live lane of the tile hit
-                   the chunk's AABB, and the least entry t among them
-                   (csrc/dense_queue.cu; replaces `_queue_kernel`).
-  K2 `loop_hits`   per ray: closest (or first, for any-hit lanes) hit
-                   over the triangles of its tile's active chunks
-                   (csrc/dense_loop.cu; replaces `_kernel_loop`).
+  K1 `tile_queue`        per (tile, chunk): does any live lane of the tile
+                         hit the chunk's AABB, and the least entry t among
+                         them (csrc/dense_queue.cu; replaces
+                         `_queue_kernel`).
+  K2 `loop_hits`         per ray: closest (or first, for any-hit lanes)
+                         hit over the triangles of its tile's active
+                         chunks (csrc/dense_loop.cu; replaces
+                         `_kernel_loop` with n_coef=1).
+  K2 `loop_hits_motion`  the same for scenes with moving meshes: every
+                         section entry is a cubic in the ray's shutter
+                         time, stored as four coefficient planes
+                         (csrc/dense_loop.cu; replaces `_kernel_loop`
+                         with n_coef=4).
 
 A ray's 16-vector is r = [d, (o-c)xd, o-c, 1/d, anyhit, 0, 0, 1]; a
 triangle's four sections s1|s2|num|s0 dot with it.  nd = s0+s1+s2, the ray
@@ -19,6 +26,10 @@ is inside iff the three edge sides share a sign bit, and t = num/nd is
 accepted when 1e-4 < t and (t, prim) is lexicographically below the
 lane's best.  Any-hit lanes park at t = -1 after their first accept (in
 their tile's chunk order, and in triangle order within a chunk).
+`dense_intersect_loop` runs K1, the chunk sort and K2; given a per-ray
+`time` it takes the motion K2.  Once any mesh of a scene moves, its whole
+table is the motion table (static triangles have zero higher planes), as
+in the JAX package.
 
 Each wrapper takes the plain version only for tensors on the CPU.  For
 CUDA tensors it launches the kernel or raises.
@@ -36,9 +47,14 @@ LOOP_ROWS = 22       # section rows K2 stages per triangle (dense_loop.cu)
 CHUNK = 128          # triangles per chunk for small scenes
 MAX_CHUNKS = 576     # larger scenes coarsen the chunk (pallas pick_chunking)
 F32_MAX = 3.4e38
+N_COEF = 4           # coefficient planes of the motion table (cubic in t)
+# time nodes the motion tables are fitted through (pallas_intersect.py:221)
+MOTION_NODES = np.array([0.0, 1.0 / 3.0, 2.0 / 3.0, 1.0])
+SMEM_DEFAULT = 48 * 1024     # shared memory a block gets without opting in
+SMEM_MAX = 232448            # what a Hopper block can opt in to
 
 #: kernel launches made by the wrappers (the plain versions never count)
-LAUNCHES = {"dense_queue": 0, "dense_loop": 0}
+LAUNCHES = {"dense_queue": 0, "dense_loop": 0, "dense_loop_motion": 0}
 
 
 def reset_launch_counts():
@@ -124,6 +140,64 @@ def build_dense_tables(v0, e1, e2, chunk=None):
     if P:
         verts = np.stack([v0 - center, v0 + e1 - center,
                           v0 + e2 - center], 1)
+        for c in range(C):
+            s0, s1 = c * chunk, min((c + 1) * chunk, P)
+            if s0 < P:
+                vv = verts[s0:s1].reshape(-1, 3)
+                cb[c, 0:3] = vv.min(0) - 1e-4
+                cb[c, 4:7] = vv.max(0) + 1e-4
+    return dict(W=W, chunk_bounds=cb, chunk=chunk,
+                center=center.astype(np.float32))
+
+
+def build_dense_tables_motion(v0, e1, e2, dmotion, chunk=None):
+    """Motion variant of build_dense_tables (pallas_intersect.py:225-296).
+
+    Vertices move linearly over the shutter: v0(t) = v0 + t*d0, e1(t) =
+    e1 + t*de1, e2(t) = e2 + t*de2 (dmotion [P,12] = d0|de1|de2|pad, the
+    scene's tri_motion).  Every section entry is then a cubic in t: the
+    table holds its four monomial coefficient planes, fitted exactly
+    through four time nodes at one per-triangle scale.  Returns dict: W
+    [C,16,N_COEF*4*chunk] f32, chunk-major and coefficient-major inside a
+    chunk (per row: plane k, then sections s1|s2|num|s0, each `chunk`
+    wide); chunk_bounds [C,8] grown to hold both keyframes; chunk; center.
+    """
+    v0 = np.asarray(v0, np.float64)
+    e1 = np.asarray(e1, np.float64)
+    e2 = np.asarray(e2, np.float64)
+    dm = np.asarray(dmotion, np.float64)
+    P = v0.shape[0]
+    if chunk is None:
+        chunk = pick_chunking(P)
+    Pp = max(((P + chunk - 1) // chunk) * chunk, chunk)
+    C = Pp // chunk
+    center = v0.mean(0) if P else np.zeros(3)
+    Wk = np.zeros((N_COEF, 4, 16, Pp), np.float64)
+    if P:
+        d0, de1, de2 = dm[:, 0:3], dm[:, 3:6], dm[:, 6:9]
+        snaps = [(v0 + t * d0, e1 + t * de1, e2 + t * de2)
+                 for t in MOTION_NODES]
+        mag = np.maximum.reduce([_plucker_scale(*sn, center)
+                                 for sn in snaps])
+        inv = (1.0 / mag)[:, None]
+        Wn = np.stack([_plucker_sections(*sn, center, inv)
+                       for sn in snaps])                   # [nodes,4,16,P]
+        A = np.linalg.inv(np.vander(MOTION_NODES, N_COEF, increasing=True))
+        Wk[:, :, :, :P] = np.einsum('kn,nsrp->ksrp', A, Wn)
+    W = np.ascontiguousarray(
+        Wk.astype(np.float32).reshape(N_COEF, 4, 16, C, chunk)
+        .transpose(3, 2, 0, 1, 4).reshape(C, 16, N_COEF * 4 * chunk))
+    cb = np.zeros((C, 8), np.float32)
+    cb[:, 0:3] = 1e30
+    cb[:, 4:7] = -1e30
+    if P:
+        pts = []
+        for t in (0.0, 1.0):
+            vt, e1t, e2t = v0 + t * dm[:, 0:3], e1 + t * dm[:, 3:6], \
+                e2 + t * dm[:, 6:9]
+            pts.append(np.stack([vt - center, vt + e1t - center,
+                                 vt + e2t - center], 1))
+        verts = np.concatenate(pts, 1)                     # [P,6,3]
         for c in range(C):
             s0, s1 = c * chunk, min((c + 1) * chunk, P)
             if s0 < P:
@@ -247,6 +321,11 @@ def tile_chunk_lists(r16, tmax, chunk_bounds):
     return chunk_list.to(torch.int32), hits.sum(1, dtype=torch.int32)
 
 
+def _smem_bytes(chunk, n_coef):
+    """Shared memory K2 stages per chunk: LOOP_ROWS rows of every plane."""
+    return LOOP_ROWS * n_coef * chunk * 4
+
+
 def loop_hits(r16, tmax, W, chunk_list, n_active):
     """K2: closest hit (any hit for lanes flagged in r16 lane 12) over the
     triangles of each tile's first n_active listed chunks.
@@ -258,29 +337,58 @@ def loop_hits(r16, tmax, W, chunk_list, n_active):
     any-hit lanes that hit."""
     if _on_cpu(r16, tmax, W, chunk_list, n_active):
         return loop_hits_plain(r16, tmax, W, chunk_list, n_active)
+    return _launch_loop("dense_loop", r16, tmax, None, W, chunk_list,
+                        n_active)
+
+
+def loop_hits_motion(r16, tmax, time, W, chunk_list, n_active):
+    """K2 for moving meshes: loop_hits with every section entry evaluated
+    at the lane's shutter time.
+
+    time [B] f32 in [0,1]; W [C,16,N_COEF*4*chunk] f32 (the coefficient
+    planes of build_dense_tables_motion).  The rest as loop_hits."""
+    if _on_cpu(r16, tmax, time, W, chunk_list, n_active):
+        return loop_hits_motion_plain(r16, tmax, time, W, chunk_list,
+                                      n_active)
+    return _launch_loop("dense_loop_motion", r16, tmax, time, W, chunk_list,
+                        n_active)
+
+
+def _launch_loop(name, r16, tmax, time, W, chunk_list, n_active):
     B = r16.shape[0]
+    n_coef = 1 if time is None else N_COEF
     C, _, cw = W.shape
-    chunk = cw // 4
+    chunk = cw // (4 * n_coef)
     if B == 0 or B % TILE:
-        raise ValueError(f"loop_hits: batch {B} is not a positive "
-                         f"multiple of {TILE}")
-    if LOOP_ROWS * chunk * 4 > 48 * 1024:
-        raise ValueError(f"loop_hits: a {chunk}-triangle chunk does not fit "
-                         "K2's 48 KB of shared memory (chunk <= 512)")
+        raise ValueError(f"{name}: batch {B} is not a positive multiple of "
+                         f"{TILE}")
+    smem = _smem_bytes(chunk, n_coef)
+    if smem > (SMEM_DEFAULT if time is None else SMEM_MAX):
+        raise ValueError(f"{name}: a {chunk}-triangle chunk needs {smem} B "
+                         "of shared memory, more than the kernel takes")
     n_tiles = B // TILE
     _check("r16", r16, torch.float32, (B, 16))
     _check("tmax", tmax, torch.float32, (B,))
-    _check("W", W, torch.float32, (C, 16, 4 * chunk))
+    _check("W", W, torch.float32, (C, 16, n_coef * 4 * chunk))
     _check("chunk_list", chunk_list, torch.int32, (n_tiles, C))
     _check("n_active", n_active, torch.int32, (n_tiles,))
     t = torch.empty(B, dtype=torch.float32, device=r16.device)
     prim = torch.empty(B, dtype=torch.int32, device=r16.device)
     from pbrt_tpu_torch.ops import cuda_kernels
-    err = cuda_kernels.library().pbrt_dense_loop(
-        _ptr(r16), _ptr(tmax), _ptr(W), _ptr(chunk_list), _ptr(n_active),
-        n_tiles, C, chunk, TILE, _ptr(t), _ptr(prim), _stream())
-    _raise_on(err, "dense_loop")
-    LAUNCHES["dense_loop"] += 1
+    lib = cuda_kernels.library()
+    if time is None:
+        err = lib.pbrt_dense_loop(
+            _ptr(r16), _ptr(tmax), _ptr(W), _ptr(chunk_list),
+            _ptr(n_active), n_tiles, C, chunk, TILE, _ptr(t), _ptr(prim),
+            _stream())
+    else:
+        _check("time", time, torch.float32, (B,))
+        err = lib.pbrt_dense_loop_motion(
+            _ptr(r16), _ptr(tmax), _ptr(time), _ptr(W), _ptr(chunk_list),
+            _ptr(n_active), n_tiles, C, chunk, TILE, _ptr(t), _ptr(prim),
+            _stream())
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
     return t, prim
 
 
@@ -292,9 +400,23 @@ def loop_hits_plain(r16, tmax, W, chunk_list, n_active):
     independent of the order chunks are visited.  Any-hit lanes keep the
     hit with the least (rank of its chunk in the tile's list, index in
     the chunk): the first accept the kernel meets."""
+    return _loop_plain(r16, tmax, None, W, chunk_list, n_active)
+
+
+def loop_hits_motion_plain(r16, tmax, time, W, chunk_list, n_active):
+    """K2 motion's plain version: per chunk, one [B,16] @ [16,16*chunk]
+    matmul gives the ray's dot with each coefficient plane, and a Horner
+    step per plane in the lane's time gives the sections; then as
+    loop_hits_plain.  (The kernel Horner-combines the table entries first
+    and dots once: the same polynomial in another rounding order.)"""
+    return _loop_plain(r16, tmax, time, W, chunk_list, n_active)
+
+
+def _loop_plain(r16, tmax, time, W, chunk_list, n_active):
     B = r16.shape[0]
+    n_coef = 1 if time is None else N_COEF
     C, _, cw = W.shape
-    chunk = cw // 4
+    chunk = cw // (4 * n_coef)
     n_tiles = B // TILE
     dev = r16.device
     ranks = torch.arange(C, dtype=torch.int32, device=dev).expand(n_tiles, C)
@@ -310,6 +432,11 @@ def loop_hits_plain(r16, tmax, W, chunk_list, n_active):
     for c in range(C):
         active = lane_rank[:, c] < C
         out = r16 @ W[c]
+        if time is not None:
+            planes = out.reshape(B, n_coef, 4 * chunk)
+            out = planes[:, n_coef - 1]
+            for k in range(n_coef - 2, -1, -1):
+                out = out * time[:, None] + planes[:, k]
         s1, s2 = out[:, 0:chunk], out[:, chunk:2 * chunk]
         num, s0 = out[:, 2 * chunk:3 * chunk], out[:, 3 * chunk:]
         nd = s0 + s1 + s2
@@ -333,6 +460,24 @@ def loop_hits_plain(r16, tmax, W, chunk_list, n_active):
     return t_best, prim
 
 
+def _gamma(k):
+    u = 2.0 ** -24
+    return k * u / (1 - k * u)
+
+
+def _t_and_bound(num_t, nd_t, k_num, k_nd):
+    """t = num/nd from the [n, m] exact terms of num and nd, and the
+    relative error bound of an f32 evaluation whose num and nd errors are
+    at most gamma_k * sum|terms|; the division adds one rounding."""
+    u = 2.0 ** -24
+    num, nd = num_t.sum(-1), nd_t.sum(-1)
+    d_num = _gamma(k_num) * num_t.abs().sum(-1) / num.abs()
+    d_nd = _gamma(k_nd) * nd_t.abs().sum(-1) / nd.abs()
+    bound = torch.where(d_nd < 1, (d_num + d_nd) / (1 - d_nd) * (1 + u) + u,
+                        float("inf"))
+    return num / nd, bound
+
+
 def loop_t_reference(r16, W, prim):
     """The exact t = num/nd of each ray [n,16] against its triangle `prim`
     [n] (>= 0) of the f32 table W, in f64, and the bound on the relative
@@ -350,35 +495,56 @@ def loop_t_reference(r16, W, prim):
     def terms(sec):                                        # [n,16] products
         return r * W[c, :, sec * chunk + j].double()
 
-    num_t = terms(2)
-    nd_t = torch.cat([terms(0), terms(1), terms(3)], -1)
-    num, nd = num_t.sum(-1), nd_t.sum(-1)
-    u = 2.0 ** -24
-
-    def gamma(k):
-        return k * u / (1 - k * u)
-
     # 16 products summed (the plain version's matmul) is 16 rounds deep;
     # adding the three sides takes two more
-    d_num = gamma(16) * num_t.abs().sum(-1) / num.abs()
-    d_nd = gamma(18) * nd_t.abs().sum(-1) / nd.abs()
-    bound = torch.where(d_nd < 1, (d_num + d_nd) / (1 - d_nd) * (1 + u) + u,
-                        float("inf"))
-    return num / nd, bound
+    return _t_and_bound(terms(2), torch.cat([terms(0), terms(1), terms(3)],
+                                             -1), 16, 18)
 
 
-def dense_intersect_loop(r16, tmax, W, chunk_bounds):
+def loop_t_reference_motion(r16, time, W, prim):
+    """loop_t_reference for the motion table: the exact section values are
+    sum_k u^k (r . W_k) with u the lane's f32 time, so the terms are
+    u^k r_i W_k,i over the four planes.  Either order of evaluation, the
+    plain version's (a 16-product dot per plane, then 3 Horner steps in
+    u) or the kernel's (3 Horner steps per table entry, then a 16-product
+    dot), errs by at most gamma_22 * sum|terms| per section (Horner's
+    gamma_6 on top of the dot's gamma_16), and nd's two additions make it
+    gamma_24."""
+    chunk = W.shape[2] // (4 * N_COEF)
+    p = prim.long()
+    c, j = p // chunk, p % chunk
+    r = r16.double()
+    upow = time.double()[:, None] ** torch.arange(
+        N_COEF, dtype=torch.float64, device=r16.device)     # [n, N_COEF]
+
+    def terms(sec):                              # [n, N_COEF*16] products
+        return torch.cat([r * W[c, :, k * 4 * chunk + sec * chunk + j]
+                          .double() * upow[:, k:k + 1]
+                          for k in range(N_COEF)], -1)
+
+    return _t_and_bound(terms(2), torch.cat([terms(0), terms(1), terms(3)],
+                                             -1), 22, 24)
+
+
+def dense_intersect_loop(r16, tmax, W, chunk_bounds, time=None):
     """Closest / any-hit query over the dense tables: K1, the front-to-back
-    chunk sort, then K2.  r16 [B,16], tmax [B].  Returns (t [B], prim [B]
-    int32), prim -1 on a miss; pads the batch to whole tiles with dead
-    lanes."""
+    chunk sort, then K2 (the motion K2 when a per-ray shutter `time` [B]
+    in [0,1] is given; W is then the motion table).  r16 [B,16], tmax [B].
+    Returns (t [B], prim [B] int32), prim -1 on a miss; pads the batch to
+    whole tiles with dead lanes."""
     B = r16.shape[0]
     Bp = -(-B // TILE) * TILE
     if Bp != B:
         r16 = torch.cat([r16, r16.new_zeros((Bp - B, 16))])
         tmax = torch.cat([tmax, tmax.new_full((Bp - B,), -1.0)])
+        if time is not None:
+            time = torch.cat([time, time.new_zeros(Bp - B)])
     r16 = r16.contiguous()
     tmax = tmax.contiguous()
     chunk_list, n_active = tile_chunk_lists(r16, tmax, chunk_bounds)
-    t, prim = loop_hits(r16, tmax, W, chunk_list, n_active)
+    if time is None:
+        t, prim = loop_hits(r16, tmax, W, chunk_list, n_active)
+    else:
+        t, prim = loop_hits_motion(r16, tmax, time.contiguous(), W,
+                                   chunk_list, n_active)
     return t[:B], prim[:B]

@@ -6,6 +6,12 @@ permutation; `make_hit` then re-solves the winner in f32 and gathers the
 surface record.  The search runs under `torch.no_grad()`: visibility is
 not differentiated (the JAX package's stop_gradient).
 
+Motion blur: in a scene with moving meshes (`dense_motion`) each ray's
+shutter time, clipped to [0,1], rides through the sort beside its origin
+and direction into the motion K2, and `make_hit` moves the winner's
+vertices to that time; moving spheres are intersected, and their normals
+taken, through the transform interpolated at the ray's time.
+
 Sphere area lights are not ported, so the JAX package's sphere-light
 exclusion for shadow rays (`nee_ignore_light`, `_shadow_anyhit`) reduces
 to "every shadow lane is an any-hit lane" and is folded into
@@ -21,6 +27,7 @@ import numpy as np
 import torch
 
 from pbrt_tpu_torch.core import geometry as geom
+from pbrt_tpu_torch.core import transform as tfm
 from pbrt_tpu_torch.ops import dense_intersect as dense
 from pbrt_tpu_torch.scene.ir import SceneData, PRIM_TRIANGLE
 
@@ -63,11 +70,34 @@ def _sphere_ts(params, oo, od):
             ok & ~(torch.abs(a) < 1e-12))
 
 
-def all_quadrics_test(scene: SceneData, o, d, tmax):
-    """Every sphere against every ray: (t [B], prim [B], hit [B])."""
-    w2o = scene.quad_w2o
-    oo = torch.einsum('qij,bj->bqi', w2o[:, :3, :3], o) + w2o[None, :, :3, 3]
-    od = torch.einsum('qij,bj->bqi', w2o[:, :3, :3], d)
+def _animated_quad_w2o(scene: SceneData, time, qi=None):
+    """World-to-object affines [B,Q,3,4] (or [B,3,4] for one quadric qi
+    [B] per ray) interpolated at each ray's time clipped to [0,1]: the
+    reference's AnimatedTransform per ray, over the default shutter."""
+    u = torch.clamp(time, 0.0, 1.0)
+    if qi is None:
+        u = u[:, None].expand(-1, scene.quad_params.shape[0])
+        at, aq, asc = (x[None] for x in (scene.quad_anim_t,
+                                          scene.quad_anim_q,
+                                          scene.quad_anim_s))
+    else:
+        at, aq, asc = (x[qi] for x in (scene.quad_anim_t, scene.quad_anim_q,
+                                       scene.quad_anim_s))
+    return tfm.affine_inverse(tfm.interp_matrix(at, aq, asc, u))
+
+
+def all_quadrics_test(scene: SceneData, o, d, tmax, time):
+    """Every sphere against every ray at its time: (t [B], prim [B], hit
+    [B])."""
+    if scene.has_animated_quads:
+        w34 = _animated_quad_w2o(scene, time)                  # [B,Q,3,4]
+        oo = torch.einsum('bqij,bj->bqi', w34[..., :3], o) + w34[..., 3]
+        od = torch.einsum('bqij,bj->bqi', w34[..., :3], d)
+    else:
+        w2o = scene.quad_w2o
+        oo = torch.einsum('qij,bj->bqi', w2o[:, :3, :3], o) \
+            + w2o[None, :, :3, 3]
+        od = torch.einsum('qij,bj->bqi', w2o[:, :3, :3], d)
     params = scene.quad_params[None, :, :]
     t0, t1, ok = _sphere_ts(params, oo, od)
 
@@ -122,13 +152,15 @@ def intersect(scene: SceneData, ray: geom.Ray, presorted=False,
     prim_init = torch.full(t_init.shape, -1, dtype=torch.int32,
                            device=t_init.device)
     if scene.n_quadrics > 0:
-        tq, qprim, qhit = all_quadrics_test(scene, o, d, t_init)
+        tq, qprim, qhit = all_quadrics_test(scene, o, d, t_init, ray.time)
         t_init = torch.where(qhit, tq, t_init)
         prim_init = torch.where(qhit, qprim, prim_init)
+    rtime = (torch.clamp(ray.time, 0.0, 1.0).to(torch.float32)
+             if scene.dense_motion else None)
     if presorted:
         r16 = dense.ray_vectors(o, d, scene.dense_center, anyhit=anyhit_mask)
         t, prim = dense.dense_intersect_loop(r16, t_init, scene.dense_w,
-                                             scene.dense_cb)
+                                             scene.dense_cb, time=rtime)
     else:
         key = _coherence_key(scene, o, d, t_init)
         if anyhit_mask is not None:
@@ -140,9 +172,9 @@ def intersect(scene: SceneData, ray: geom.Ray, presorted=False,
         r16 = dense.ray_vectors(
             o[order], d[order], scene.dense_center,
             anyhit=None if anyhit_mask is None else anyhit_mask[order])
-        t_s, prim_s = dense.dense_intersect_loop(r16, t_init[order],
-                                                 scene.dense_w,
-                                                 scene.dense_cb)
+        t_s, prim_s = dense.dense_intersect_loop(
+            r16, t_init[order], scene.dense_w, scene.dense_cb,
+            time=None if rtime is None else rtime[order])
         t = torch.empty_like(t_s)
         t[order] = t_s
         prim = torch.empty_like(prim_s)
@@ -169,12 +201,19 @@ def make_hit(scene: SceneData, ray: geom.Ray, t, prim, found) -> Hit:
 
     Triangle winners get an exact f32 Moller-Trumbore re-solve of t and
     the barycentrics, accepted when it stays within 1% of the kernel t
-    and its barycentrics are a valid simplex point."""
+    and its barycentrics are a valid simplex point.  Moving triangles are
+    solved at the ray's time."""
     P = scene.prim_type.shape[0]
     pid = torch.clamp(prim, 0, P - 1).long()
     is_tri = scene.prim_type[pid] == PRIM_TRIANGLE
     t = torch.where(found, t, 1.0)
     e1, e2, v0 = scene.tri_e1[pid], scene.tri_e2[pid], scene.tri_v0[pid]
+    if scene.has_animated_mesh:
+        dm = scene.tri_motion[pid]
+        u_t = torch.clamp(ray.time, 0.0, 1.0)[:, None]
+        v0 = v0 + u_t * dm[:, 0:3]
+        e1 = e1 + u_t * dm[:, 3:6]
+        e2 = e2 + u_t * dm[:, 6:9]
     pvec = geom.cross(ray.d, e2)
     det = geom.dot(e1, pvec)
     ok_det = torch.abs(det) > 1e-12
@@ -207,7 +246,8 @@ def make_hit(scene: SceneData, ray: geom.Ray, t, prim, found) -> Hit:
     if scene.n_quadrics > 0:
         qi = torch.clamp(scene.quad_idx[pid], 0,
                          scene.quad_params.shape[0] - 1).long()
-        w2o = scene.quad_w2o[qi, :3]
+        w2o = (_animated_quad_w2o(scene, ray.time, qi)
+               if scene.has_animated_quads else scene.quad_w2o[qi, :3])
         qparams = scene.quad_params[qi]
         ph = torch.einsum('bij,bj->bi', w2o[:, :, :3], p) + w2o[:, :, 3]
         ng_quad = geom.normalize(torch.einsum('bji,bj->bi',

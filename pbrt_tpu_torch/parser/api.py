@@ -1,0 +1,421 @@
+"""pbrt scene-API state machine (port of the parts of pbrt_tpu.parser.api
+that the ported slice renders; reference: src/core/api.{h,cpp}).
+
+Directives: Identity, Translate, Scale, Rotate, LookAt, Transform,
+ConcatTransform, ActiveTransform, TransformTimes (0 1 only),
+TransformBegin/End, Camera "perspective", Film "image", PixelFilter
+"box"/"gaussian", Sampler, Integrator, Include, WorldBegin/End,
+AttributeBegin/End, ReverseOrientation, Material "matte"/"plastic"/
+"mirror"/"glass" (constant parameters), AreaLightSource "diffuse", and
+Shape "trianglemesh"/"sphere".  Each keeps the JAX package's semantics,
+including the two-keyframe CTM that gives meshes and spheres motion blur.
+Every other directive, and every other kind of camera, film, filter,
+material, light or shape, raises NotImplementedError naming it: the
+parser never renders something other than what the scene asks for.
+"""
+
+from __future__ import annotations
+
+import copy
+import logging
+import os
+from dataclasses import dataclass
+
+import numpy as np
+
+from pbrt_tpu_torch.core import device as devmod
+from pbrt_tpu_torch.core import transform as tfm
+from pbrt_tpu_torch.parser.paramset import ParamSet, parse_param_list
+from pbrt_tpu_torch.parser.tokenizer import (TokenStream, tokenize,
+                                             tokenize_file, unquote)
+from pbrt_tpu_torch.scene import ir
+from pbrt_tpu_torch.scene.ir import MaterialSpec, SceneBuilder
+
+log = logging.getLogger("pbrt_tpu_torch")
+
+
+@dataclass
+class GraphicsState:
+    """reference: api.cpp:212+ GraphicsState (the ported attributes)."""
+    material_id: int = 0
+    area_light: dict | None = None
+    reverse_orientation: bool = False
+
+    def clone(self):
+        return copy.copy(self)
+
+
+@dataclass
+class RenderJob:
+    """Everything WorldEnd produced; consumed by the CLI and the tests."""
+    scene: object
+    camera_kind: str
+    camera_params: dict
+    cam_to_world: tfm.Transform
+    film_width: int
+    film_height: int
+    film_filename: str
+    film_scale: float
+    spectral_flag: bool
+    crop_window: tuple
+    filter_name: str
+    filter_params: dict
+    sampler_kind: str
+    spp: int
+    integrator_kind: str
+    integrator_params: dict
+    instance_names: dict
+    material_names: dict
+    max_sample_luminance: float = 1e30
+    # second camera keyframe (camera motion blur); None for a static camera
+    cam_to_world1: object = None
+
+
+def _unported(what):
+    return NotImplementedError(f"{what} is not ported to pbrt_tpu_torch")
+
+
+def _check_unused(ps: ParamSet, where):
+    for name in ps.unused():
+        log.warning('parameter "%s" unused in %s', name, where)
+
+
+class PbrtAPI:
+    """State machine; feed directives via parse_file / parse_string.  The
+    scene is built at WorldEnd on `device` (None: the first CUDA card)."""
+
+    def __init__(self, device=None):
+        self.device = devmod.resolve(device)
+        self.scene_dir = "."
+        self.ctm = [tfm.Transform(), tfm.Transform()]  # two time samples
+        self.active_bits = 3
+        self.transform_stack = []
+        self.graphics = GraphicsState()
+        self.graphics_stack = []
+        self.builder = SceneBuilder()
+        self.camera_kind = "perspective"
+        self.camera_params = ParamSet()
+        self.camera_to_world = tfm.Transform()
+        self.camera_to_world1 = None
+        self.film_params = ParamSet()
+        self.filter_name = "box"
+        self.filter_params = ParamSet()
+        self.sampler_kind = "halton"
+        self.sampler_params = ParamSet()
+        self.integrator_kind = "path"
+        self.integrator_params = ParamSet()
+        self.next_instance_id = 1
+        self.instance_names = {}
+        # the default material, id 0, as in the JAX package
+        self.graphics.material_id = self.builder.add_material(
+            MaterialSpec(type=ir.MAT_MATTE, kd=np.full(31, 0.5, np.float32),
+                         name="matte"))
+
+    def _apply(self, t: tfm.Transform):
+        for i in range(2):
+            if self.active_bits & (1 << i):
+                self.ctm[i] = self.ctm[i] * t
+
+    # ------------------------------------------------------------- parsing
+    def parse_file(self, path):
+        self.scene_dir = os.path.dirname(os.path.abspath(path))
+        return self._parse(TokenStream(tokenize_file(path), path))
+
+    def parse_string(self, text, scene_dir="."):
+        self.scene_dir = scene_dir
+        return self._parse(TokenStream(tokenize(text)))
+
+    def _parse(self, stream):
+        job = None
+        while True:
+            tok = stream.next()
+            if tok is None:
+                break
+            handler = getattr(self, "_d_" + tok, None)
+            if handler is None:
+                raise _unported(f"directive {tok!r}")
+            result = handler(stream)
+            if result is not None:
+                job = result
+        return job
+
+    # -------------------------------------------------------- transforms
+    def _d_Identity(self, s):
+        for i in range(2):
+            if self.active_bits & (1 << i):
+                self.ctm[i] = tfm.Transform()
+
+    def _d_Translate(self, s):
+        self._apply(tfm.translate(*(float(s.next()) for _ in range(3))))
+
+    def _d_Scale(self, s):
+        self._apply(tfm.scale(*(float(s.next()) for _ in range(3))))
+
+    def _d_Rotate(self, s):
+        self._apply(tfm.rotate(*(float(s.next()) for _ in range(4))))
+
+    def _d_LookAt(self, s):
+        v = [float(s.next()) for _ in range(9)]
+        # LookAt gives world-to-camera = inverse(cam_to_world)
+        self._apply(tfm.look_at(v[0:3], v[3:6], v[6:9]).inverse())
+
+    def _read_matrix(self, s):
+        if s.next() != "[":
+            raise ValueError("Transform expects [ 16 floats ]")
+        vals = []
+        while True:
+            tok = s.next()
+            if tok == "]":
+                break
+            vals.append(float(tok))
+        # pbrt matrices are column-major in the file
+        return tfm.Transform(np.asarray(vals).reshape(4, 4).T)
+
+    def _d_Transform(self, s):
+        t = self._read_matrix(s)
+        for i in range(2):
+            if self.active_bits & (1 << i):
+                self.ctm[i] = t
+
+    def _d_ConcatTransform(self, s):
+        self._apply(self._read_matrix(s))
+
+    def _d_ActiveTransform(self, s):
+        which = s.next()
+        if which not in ("StartTime", "EndTime", "All"):
+            raise ValueError(f"ActiveTransform {which!r}")
+        self.active_bits = {"StartTime": 1, "EndTime": 2, "All": 3}[which]
+
+    def _d_TransformTimes(self, s):
+        times = (float(s.next()), float(s.next()))
+        if times != (0.0, 1.0):
+            # motion is interpolated over the shutter [0, 1], as in the
+            # JAX package
+            raise _unported(f"TransformTimes {times[0]} {times[1]}")
+
+    def _d_TransformBegin(self, s):
+        self.transform_stack.append(
+            ([tfm.Transform(self.ctm[0].m), tfm.Transform(self.ctm[1].m)],
+             self.active_bits))
+
+    def _d_TransformEnd(self, s):
+        self.ctm, self.active_bits = self.transform_stack.pop()
+
+    # ------------------------------------------------------------ options
+    def _d_Camera(self, s):
+        self.camera_kind = unquote(s.next())
+        if self.camera_kind != "perspective":
+            raise _unported(f'Camera "{self.camera_kind}"')
+        self.camera_params = parse_param_list(s)
+        self.camera_to_world = self.ctm[0].inverse()
+        self.camera_to_world1 = (None if np.allclose(self.ctm[1].m,
+                                                     self.ctm[0].m)
+                                 else self.ctm[1].inverse())
+
+    def _d_Film(self, s):
+        name = unquote(s.next())
+        if name != "image":
+            raise _unported(f'Film "{name}"')
+        self.film_params = parse_param_list(s)
+
+    def _d_PixelFilter(self, s):
+        self.filter_name = unquote(s.next())
+        if self.filter_name not in ("box", "gaussian"):
+            raise _unported(f'PixelFilter "{self.filter_name}"')
+        self.filter_params = parse_param_list(s)
+
+    def _d_Sampler(self, s):
+        self.sampler_kind = unquote(s.next())
+        if self.sampler_kind != "sobol":
+            raise _unported(f'Sampler "{self.sampler_kind}"')
+        self.sampler_params = parse_param_list(s)
+
+    def _d_Integrator(self, s):
+        self.integrator_kind = unquote(s.next())
+        self.integrator_params = parse_param_list(s)
+
+    def _d_Include(self, s):
+        name = unquote(s.next())
+        path = name if os.path.isabs(name) else os.path.join(
+            self.scene_dir, name)
+        s.include(tokenize_file(path))
+
+    # -------------------------------------------------------- world block
+    def _d_WorldBegin(self, s):
+        self.ctm = [tfm.Transform(), tfm.Transform()]
+        self.active_bits = 3
+
+    def _d_AttributeBegin(self, s):
+        self.graphics_stack.append(self.graphics.clone())
+        self._d_TransformBegin(s)
+
+    def _d_AttributeEnd(self, s):
+        self.graphics = self.graphics_stack.pop()
+        self._d_TransformEnd(s)
+
+    def _d_ReverseOrientation(self, s):
+        self.graphics.reverse_orientation = \
+            not self.graphics.reverse_orientation
+
+    # ---------------------------------------------------------- materials
+    def _d_Material(self, s):
+        mname = unquote(s.next())
+        ps = parse_param_list(s)
+        self.graphics.material_id = self._make_material(mname, ps)
+
+    def _spectrum(self, ps, name, default):
+        if ps.find_texture(name) is not None:
+            raise _unported(f"texture parameter {name!r}")
+        return ps.find_one_spectrum(name, default)
+
+    def _float(self, ps, name, default):
+        if ps.find_texture(name) is not None:
+            raise _unported(f"texture parameter {name!r}")
+        return ps.find_one_float(name, default)
+
+    def _make_material(self, mname, ps):
+        """reference dispatch api.cpp:552-625 + materials/*.cpp defaults;
+        the JAX package's _make_material for the four ported kinds.
+        Returns the builder's material id."""
+        m = MaterialSpec(name=mname)
+        if ps.find_one_string("distribution", "ggx") != "ggx":
+            raise _unported("a microfacet distribution other than ggx")
+        if mname == "matte":
+            m.type = ir.MAT_MATTE
+            m.kd = self._spectrum(ps, "Kd", 0.5)
+            m.sigma = self._float(ps, "sigma", 0.0)
+        elif mname == "plastic":
+            m.type = ir.MAT_PLASTIC
+            m.kd = self._spectrum(ps, "Kd", 0.25)
+            m.ks = self._spectrum(ps, "Ks", 0.25)
+            m.rough_u = m.rough_v = self._float(ps, "roughness", 0.1)
+            m.remap_roughness = ps.find_one_bool("remaproughness", True)
+        elif mname == "mirror":
+            m.type = ir.MAT_MIRROR
+            m.kr = self._spectrum(ps, "Kr", 0.9)
+        elif mname == "glass":
+            m.type = ir.MAT_GLASS
+            m.kr = self._spectrum(ps, "Kr", 1.0)
+            m.kt = self._spectrum(ps, "Kt", 1.0)
+            m.eta = self._float(ps, "eta", self._float(ps, "index", 1.5))
+            if (self._float(ps, "uroughness", 0.0) > 0
+                    or self._float(ps, "vroughness", 0.0) > 0):
+                raise _unported('rough "glass"')
+            m.remap_roughness = ps.find_one_bool("remaproughness", True)
+        else:
+            raise _unported(f'Material "{mname}"')
+        if ps.find_texture("bumpmap") is not None:
+            raise _unported("bumpmap")
+        _check_unused(ps, f"material {mname}")
+        return self.builder.add_material(m)
+
+    # ------------------------------------------------------------- lights
+    def _d_AreaLightSource(self, s):
+        lname = unquote(s.next())
+        if lname not in ("diffuse", "area"):
+            raise _unported(f'AreaLightSource "{lname}"')
+        ps = parse_param_list(s)
+        L = ps.find_one_spectrum("L", 1.0) * ps.find_one_spectrum("scale",
+                                                                  1.0)
+        self.graphics.area_light = {
+            "L": L, "twosided": ps.find_one_bool("twosided", False)}
+        _check_unused(ps, f"area light {lname}")
+
+    # ------------------------------------------------------------- shapes
+    def _d_Shape(self, s):
+        sname = unquote(s.next())
+        if sname not in ("trianglemesh", "sphere"):
+            raise _unported(f'Shape "{sname}"')
+        ps = parse_param_list(s)
+        xf = self.ctm[0]
+        # a second CTM keyframe that differs gives the shape motion blur
+        xf1 = None if np.allclose(self.ctm[1].m, xf.m) else self.ctm[1]
+        g = self.graphics
+        light_id = -1
+        if g.area_light is not None:
+            light_id = self.builder.add_area_light(g.area_light["L"],
+                                                   g.area_light["twosided"])
+        inst = self.next_instance_id
+        self.next_instance_id += 1
+        self.instance_names[inst] = f"{sname}_{inst}"
+        common = dict(light_id=light_id, instance_id=inst,
+                      flip_normal=g.reverse_orientation,
+                      object_to_world1=xf1)
+        if sname == "trianglemesh":
+            verts = ps.find_points("P")
+            idx = ps.find_ints("indices")
+            if verts is None or idx is None:
+                raise ValueError('Shape "trianglemesh" needs "point P" and '
+                                 '"integer indices"')
+            uvs = ps.find_point2s("uv")
+            if uvs is None:
+                uvs = ps.find_point2s("st")
+            self.builder.add_triangle_mesh(
+                verts, idx.reshape(-1, 3), g.material_id,
+                normals=ps.find_points("N"), uvs=uvs, object_to_world=xf,
+                **common)
+        else:
+            r = ps.find_one_float("radius", 1.0)
+            params = (r, ps.find_one_float("zmin", -r),
+                      ps.find_one_float("zmax", r),
+                      np.radians(ps.find_one_float("phimax", 360.0)))
+            self.builder.add_quadric(ir.PRIM_SPHERE, xf, params,
+                                     g.material_id, **common)
+        _check_unused(ps, f"shape {sname}")
+
+    # ------------------------------------------------------------ finish
+    def _d_WorldEnd(self, s):
+        fp = self.film_params
+        crop = fp.find_floats("cropwindow")
+        filt_params = {}
+        if "alpha" in self.filter_params.items:
+            filt_params["alpha"] = self.filter_params.find_one_float(
+                "alpha", 2.0)
+        xw = self.filter_params.find_one_float("xwidth", -1.0)
+        yw = self.filter_params.find_one_float("ywidth", -1.0)
+        if xw > 0 or yw > 0:
+            filt_params["radius"] = (xw if xw > 0 else 2.0,
+                                     yw if yw > 0 else 2.0)
+        ip = self.integrator_params
+        cp = self.camera_params
+        sw = cp.find_floats("screenwindow")
+        return RenderJob(
+            scene=self.builder.build(device=self.device),
+            camera_kind=self.camera_kind,
+            camera_params={
+                "fov": cp.find_one_float("fov", 90.0),
+                "lensradius": cp.find_one_float("lensradius", 0.0),
+                "focaldistance": cp.find_one_float("focaldistance", 1e6),
+                "shutteropen": cp.find_one_float("shutteropen", 0.0),
+                "shutterclose": cp.find_one_float("shutterclose", 1.0),
+                "screenwindow": None if sw is None else tuple(sw)},
+            cam_to_world=self.camera_to_world,
+            cam_to_world1=self.camera_to_world1,
+            film_width=fp.find_one_int("xresolution", 1280),
+            film_height=fp.find_one_int("yresolution", 720),
+            film_filename=fp.find_one_string("filename", "pbrt.exr"),
+            film_scale=fp.find_one_float("scale", 1.0),
+            spectral_flag=fp.find_one_bool("spectralFlag", True),
+            max_sample_luminance=fp.find_one_float("maxsampleluminance",
+                                                   1e30),
+            crop_window=(0.0, 1.0, 0.0, 1.0) if crop is None else tuple(crop),
+            filter_name=self.filter_name, filter_params=filt_params,
+            sampler_kind=self.sampler_kind,
+            spp=self.sampler_params.find_one_int("pixelsamples", 16),
+            integrator_kind=self.integrator_kind,
+            integrator_params={
+                "maxdepth": ip.find_one_int("maxdepth", 5),
+                "rrthreshold": ip.find_one_float("rrthreshold", 1.0),
+                "lightsamplestrategy": ip.find_one_string(
+                    "lightsamplestrategy", "spatial")},
+            instance_names=self.instance_names,
+            material_names=self.builder.material_names)
+
+
+def parse_scene(path, device=None):
+    """Parse a .pbrt file into a RenderJob whose scene lies on `device`
+    (None: the first CUDA card) (reference: pbrtParseFile, api.h:91)."""
+    job = PbrtAPI(device).parse_file(path)
+    if job is None:
+        raise ValueError(f"{path}: no WorldEnd, nothing to render")
+    return job

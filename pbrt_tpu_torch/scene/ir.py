@@ -7,6 +7,11 @@ with only the columns the path tracer reads.  Per-primitive and
 per-material data are plain tables indexed per lane; the TPU package's
 one-gather packings (`shade_all`, `mat_packed`) are not carried over.
 
+Two-keyframe motion blur: a mesh given a second object-to-world keyframe
+moves its vertices linearly over the shutter (`tri_motion`), and the
+scene's dense table becomes the motion table (`dense_motion`); a sphere
+given one interpolates its decomposed transform per ray (`quad_anim_*`).
+
 `scene_from_jax` builds the same `SceneData` from the arrays of a
 `pbrt_tpu` scene, so tests can trace one scene through both packages.
 """
@@ -20,9 +25,11 @@ import numpy as np
 import torch
 
 from pbrt_tpu_torch.accel.bvh import build_bvh_order
+from pbrt_tpu_torch.core import device as devmod
 from pbrt_tpu_torch.core import spectrum as spec
-from pbrt_tpu_torch.core.transform import Transform
-from pbrt_tpu_torch.ops.dense_intersect import build_dense_tables
+from pbrt_tpu_torch.core.transform import Transform, animated_pair
+from pbrt_tpu_torch.ops.dense_intersect import (build_dense_tables,
+                                                build_dense_tables_motion)
 
 PRIM_TRIANGLE = 0
 PRIM_SPHERE = 1
@@ -36,18 +43,24 @@ MAT_MIRROR = 2
 MAT_GLASS = 3
 PORTED_MATERIALS = (MAT_MATTE, MAT_PLASTIC, MAT_MIRROR, MAT_GLASS)
 
+# animated meshes beyond this many primitives take the JAX package's BVH
+# fallback, which is not ported (pbrt_tpu/scene/ir.py:900)
+MAX_MOTION_PRIMS = 150_000
+
 # the columns scene_from_jax copies from a pbrt_tpu scene unchanged
-PRIM_COLUMNS = ("prim_type", "tri_v0", "tri_e1", "tri_e2", "tri_ns",
-                "tri_uv", "quad_idx", "prim_material", "prim_light",
-                "prim_flip_normal")
-QUAD_COLUMNS = ("quad_w2o", "quad_params", "quad_prim")
+PRIM_COLUMNS = ("prim_type", "tri_v0", "tri_e1", "tri_e2", "tri_motion",
+                "tri_ns", "tri_uv", "quad_idx", "prim_material",
+                "prim_light", "prim_instance", "prim_flip_normal")
+QUAD_COLUMNS = ("quad_w2o", "quad_params", "quad_prim", "quad_anim_t",
+                "quad_anim_q", "quad_anim_s")
 MAT_COLUMNS = ("mat_type", "mat_kd", "mat_ks", "mat_kr", "mat_kt",
                "mat_rough_u", "mat_rough_v", "mat_eta", "mat_sigma",
                "mat_remap_rough")
 LIGHT_COLUMNS = ("light_L", "light_two_sided", "light_area",
                  "light_tri_idx", "light_tri_cdf", "light_tri_packed")
 JAX_COLUMNS = PRIM_COLUMNS + QUAD_COLUMNS + MAT_COLUMNS + LIGHT_COLUMNS
-JAX_STATICS = ("n_lights", "n_quadrics", "clip_quadrics", "dense_chunk")
+JAX_STATICS = ("n_lights", "n_quadrics", "clip_quadrics", "dense_chunk",
+               "has_animated_mesh", "has_animated_quads", "dense_motion")
 
 
 @dataclass
@@ -58,16 +71,21 @@ class SceneData:
     tri_v0: torch.Tensor           # [P,3]
     tri_e1: torch.Tensor           # [P,3]
     tri_e2: torch.Tensor           # [P,3]
+    tri_motion: torch.Tensor       # [P,12] d0|de1|de2|pad: v0(t) = v0+t*d0
     tri_ns: torch.Tensor           # [P,3,3] vertex normals (0 => geometric)
     tri_uv: torch.Tensor           # [P,3,2]
     quad_idx: torch.Tensor         # [P] quadric table index (-1 for tris)
     prim_material: torch.Tensor    # [P]
     prim_light: torch.Tensor       # [P] area-light index or -1
+    prim_instance: torch.Tensor    # [P] id of the Shape (sidecar names)
     prim_flip_normal: torch.Tensor  # [P] bool
     # --- quadrics (full spheres, or clipped when clip_quadrics) ---
     quad_w2o: torch.Tensor         # [Q,4,4]
     quad_params: torch.Tensor      # [Q,4] radius, zmin, zmax, phimax
     quad_prim: torch.Tensor        # [Q] prim index of each quadric
+    quad_anim_t: torch.Tensor      # [Q,2,3] keyframe translations
+    quad_anim_q: torch.Tensor      # [Q,2,4] keyframe rotations (wxyz)
+    quad_anim_s: torch.Tensor      # [Q,2,3,3] keyframe scales
     # --- materials ---
     mat_type: torch.Tensor         # [M]
     mat_kd: torch.Tensor           # [M,31]
@@ -88,6 +106,7 @@ class SceneData:
     light_tri_packed: torch.Tensor  # [L*T,10] v0|e1|e2|flip
     # --- dense intersector tables (ops/dense_intersect.py) ---
     dense_w: torch.Tensor          # [C,16,4*chunk] f32 sections s1|s2|num|s0
+    #                                (motion: [C,16,N_COEF*4*chunk])
     dense_cb: torch.Tensor         # [C,8] chunk AABBs (centered coords)
     dense_center: torch.Tensor     # [3]
     # --- statics ---
@@ -95,6 +114,9 @@ class SceneData:
     n_quadrics: int = 0
     clip_quadrics: bool = False
     dense_chunk: int = 128
+    has_animated_mesh: bool = False
+    has_animated_quads: bool = False
+    dense_motion: bool = False     # dense_w is the motion table
 
     def to(self, device):
         return dataclasses.replace(self, **{
@@ -116,6 +138,7 @@ class MaterialSpec:
     eta: float = 1.5
     sigma: float = 0.0
     remap_roughness: bool = True
+    name: str = ""
 
     def spectrum(self, key):
         v = getattr(self, key)
@@ -128,8 +151,10 @@ class MaterialSpec:
 class SceneBuilder:
     """Host-side scene assembly -> SceneData."""
     materials: list = field(default_factory=list)
-    lights: list = field(default_factory=list)     # [31] radiance each
-    quads: list = field(default_factory=list)      # (o2w, w2o, params)
+    lights: list = field(default_factory=list)     # ([31] radiance, 2-sided)
+    quads: list = field(default_factory=list)      # (o2w, w2o, params, o2w1)
+    material_names: dict = field(default_factory=dict)
+    has_animated_mesh: bool = False
     _chunks: list = field(default_factory=list)
     _mesh_light_tris: dict = field(default_factory=dict)
     _n_prims: int = 0
@@ -139,80 +164,140 @@ class SceneBuilder:
             raise NotImplementedError(
                 f"material type {mspec.type} is not ported yet")
         self.materials.append(mspec)
-        return len(self.materials) - 1
+        mid = len(self.materials) - 1
+        if mspec.name:
+            self.material_names[mid] = mspec.name
+        return mid
 
-    def add_area_light(self, L) -> int:
-        """A one-sided diffuse area light with radiance L [31]; returns its
-        id, which a mesh takes as light_id."""
-        self.lights.append(np.asarray(L, np.float32))
+    def add_area_light(self, L, two_sided=False) -> int:
+        """A diffuse area light with radiance L [31]; returns its id, which
+        a mesh takes as light_id."""
+        self.lights.append((np.asarray(L, np.float32), bool(two_sided)))
         return len(self.lights) - 1
 
     def _add_chunk(self, F, tri_v, tri_ns, tri_uv, ptype, quad_ref,
-                   material_id, light_id, flip):
+                   material_id, light_id, instance_id, flip, tri_dv=None):
         self._chunks.append(dict(
             tri_v=tri_v, tri_ns=tri_ns, tri_uv=tri_uv,
+            tri_dv=np.zeros((F, 3, 3)) if tri_dv is None else tri_dv,
             prim_type=np.full(F, ptype, np.int32),
             quad_refs=np.full(F, quad_ref, np.int32),
             prim_material=np.full(F, material_id, np.int32),
             prim_light=np.full(F, light_id, np.int32),
+            prim_instance=np.full(F, instance_id, np.int32),
             prim_flip=np.full(F, flip, bool)))
         first = self._n_prims
         self._n_prims += F
         return first
 
     def add_triangle_mesh(self, vertices, indices, material_id,
-                          light_id=-1):
-        """World-space vertices [V,3], indices [F,3]; no vertex normals
-        and the default (0,0) (1,0) (1,1) uvs (per-vertex normals, uvs and
-        object transforms are not ported yet)."""
+                          normals=None, uvs=None, light_id=-1,
+                          instance_id=0, flip_normal=False,
+                          object_to_world: Transform = None,
+                          object_to_world1: Transform = None):
+        """Vertices [V,3] (object space when object_to_world is given),
+        indices [F,3], optional per-vertex normals [V,3] and uvs [V,2]
+        (default uvs (0,0) (1,0) (1,1)).
+
+        object_to_world1: the second keyframe (mesh motion blur): the
+        vertices move linearly from their object_to_world position to
+        this one over the shutter."""
         vertices = np.asarray(vertices, np.float64).reshape(-1, 3)
         indices = np.asarray(indices, np.int64).reshape(-1, 3)
+        if object_to_world is not None:
+            w_verts = object_to_world.apply_point(vertices)
+            w_norms = (None if normals is None else object_to_world
+                       .apply_normal(np.asarray(normals, np.float64)
+                                     .reshape(-1, 3)))
+            if object_to_world.swaps_handedness():
+                flip_normal = not flip_normal
+        else:
+            w_verts = vertices
+            w_norms = (None if normals is None
+                       else np.asarray(normals, np.float64).reshape(-1, 3))
         F = len(indices)
-        tri_uv = np.broadcast_to(np.array([[0., 0.], [1., 0.], [1., 1.]]),
-                                 (F, 3, 2)).copy()
-        first = self._add_chunk(F, vertices[indices], np.zeros((F, 3, 3)),
-                                tri_uv, PRIM_TRIANGLE, -1, material_id,
-                                light_id, False)
+        tri_dv = None
+        if object_to_world1 is not None:
+            tri_dv = (object_to_world1.apply_point(vertices)
+                      - w_verts)[indices]
+            self.has_animated_mesh = True
+        tri_ns = (w_norms[indices] if w_norms is not None
+                  else np.zeros((F, 3, 3)))
+        tri_uv = (np.asarray(uvs, np.float64).reshape(-1, 2)[indices]
+                  if uvs is not None else np.broadcast_to(
+                      np.array([[0., 0.], [1., 0.], [1., 1.]]),
+                      (F, 3, 2)).copy())
+        first = self._add_chunk(F, w_verts[indices], tri_ns, tri_uv,
+                                PRIM_TRIANGLE, -1, material_id, light_id,
+                                instance_id, flip_normal, tri_dv=tri_dv)
         if light_id >= 0:
             self._mesh_light_tris.setdefault(light_id, []).extend(
                 range(first, first + F))
         return first, F
 
-    def add_sphere(self, object_to_world: Transform, radius, material_id):
-        """A full sphere (clipped spheres are not ported yet)."""
+    def add_quadric(self, qtype, object_to_world: Transform, params,
+                    material_id, light_id=-1, instance_id=0,
+                    flip_normal=False, object_to_world1: Transform = None):
+        """params (radius, zmin, zmax, phimax radians); only spheres are
+        ported.  object_to_world1: the second keyframe (motion blur)."""
+        if qtype != PRIM_SPHERE:
+            raise NotImplementedError(
+                f"quadric type {qtype} is not ported yet (only spheres)")
+        if object_to_world.swaps_handedness():
+            flip_normal = not flip_normal
         qi = len(self.quads)
         self.quads.append((object_to_world.m.astype(np.float32),
                            object_to_world.m_inv.astype(np.float32),
-                           np.asarray((radius, -radius, radius, 2 * np.pi),
-                                      np.float32)))
+                           np.asarray(params, np.float32),
+                           None if object_to_world1 is None
+                           else object_to_world1.m.astype(np.float32)))
         first = self._add_chunk(1, np.zeros((1, 3, 3)), np.zeros((1, 3, 3)),
-                                np.zeros((1, 3, 2)), PRIM_SPHERE, qi,
-                                material_id, -1,
-                                object_to_world.swaps_handedness())
+                                np.zeros((1, 3, 2)), qtype, qi, material_id,
+                                light_id, instance_id, flip_normal)
         return first, qi
 
+    def add_sphere(self, object_to_world: Transform, radius, material_id,
+                   light_id=-1, zmin=None, zmax=None, phimax=2 * np.pi,
+                   **kw):
+        zmin = -radius if zmin is None else zmin
+        zmax = radius if zmax is None else zmax
+        return self.add_quadric(PRIM_SPHERE, object_to_world,
+                                (radius, zmin, zmax, phimax), material_id,
+                                light_id, **kw)
+
     def _concat(self):
-        keys = ("tri_v", "tri_ns", "tri_uv", "prim_type", "quad_refs",
-                "prim_material", "prim_light", "prim_flip")
+        keys = ("tri_v", "tri_ns", "tri_uv", "tri_dv", "prim_type",
+                "quad_refs", "prim_material", "prim_light", "prim_instance",
+                "prim_flip")
         return {k: np.concatenate([c[k] for c in self._chunks], 0)
                 for k in keys}
 
     def _prim_bounds(self, soa):
-        lo = soa["tri_v"].min(1).astype(np.float64)
-        hi = soa["tri_v"].max(1).astype(np.float64)
+        # moving triangles: the union of both keyframes; spheres: their
+        # first keyframe, as the JAX package bounds them
+        v1 = soa["tri_v"] + soa["tri_dv"]
+        lo = np.minimum(soa["tri_v"].min(1), v1.min(1)).astype(np.float64)
+        hi = np.maximum(soa["tri_v"].max(1), v1.max(1)).astype(np.float64)
         for i in np.nonzero(soa["prim_type"] != PRIM_TRIANGLE)[0]:
-            o2w, _, params = self.quads[soa["quad_refs"][i]]
+            o2w, _, params, _ = self.quads[soa["quad_refs"][i]]
             r = abs(float(params[0]))
+            zmin, zmax = float(params[1]), float(params[2])
             corners = np.array([[x, y, z] for x in (-r, r) for y in (-r, r)
-                                for z in (-r, r)])
+                                for z in (min(zmin, zmax), max(zmin, zmax))])
             wc = Transform(o2w.astype(np.float64)).apply_point(corners)
             lo[i], hi[i] = wc.min(0), wc.max(0)
         return lo, hi
 
-    def build(self, device="cpu") -> SceneData:
+    def build(self, device=None) -> SceneData:
+        """The SceneData on `device` (None: the first CUDA card)."""
+        device = devmod.resolve(device)
         P = self._n_prims
         if P == 0:
             raise ValueError("scene has no primitives")
+        if self.has_animated_mesh and P > MAX_MOTION_PRIMS:
+            raise NotImplementedError(
+                f"animated meshes over {MAX_MOTION_PRIMS} primitives take "
+                "the BVH path, which is not ported")
         soa = self._concat()
         lo, hi = self._prim_bounds(soa)
         order = build_bvh_order(lo, hi)
@@ -224,16 +309,33 @@ class SceneBuilder:
         tri_v0 = tri[:, 0]
         tri_e1 = tri[:, 1] - tri[:, 0]
         tri_e2 = tri[:, 2] - tri[:, 0]
+        tri_dv = reorder("tri_dv")
+        tri_motion = np.zeros((P, 12), np.float32)
+        tri_motion[:, 0:3] = tri_dv[:, 0]
+        tri_motion[:, 3:6] = tri_dv[:, 1] - tri_dv[:, 0]
+        tri_motion[:, 6:9] = tri_dv[:, 2] - tri_dv[:, 0]
 
         Q = max(len(self.quads), 1)
         q_w2o = np.tile(np.eye(4, dtype=np.float32), (Q, 1, 1))
         q_par = np.zeros((Q, 4), np.float32)
-        for i, (_, mi, par) in enumerate(self.quads):
+        q_at = np.zeros((Q, 2, 3), np.float32)
+        q_aq = np.tile(np.asarray([1, 0, 0, 0], np.float32), (Q, 2, 1))
+        q_as = np.tile(np.eye(3, dtype=np.float32), (Q, 2, 1, 1))
+        animated_quads = False
+        for i, (m, mi, par, m1) in enumerate(self.quads):
             q_w2o[i], q_par[i] = mi, par
+            moving = m1 is not None and not np.allclose(m1, m)
+            animated_quads |= moving
+            q_at[i], q_aq[i], q_as[i] = animated_pair(m, m1 if moving else m)
         q_prim = np.zeros(Q, np.int32)
         qref = reorder("quad_refs", np.int32)
         qmask = np.nonzero(qref >= 0)[0]
         q_prim[qref[qmask]] = qmask
+        # only full spheres skip the z/phi clip tests
+        clip_q = any(float(p[3]) < 2 * np.pi - 1e-5
+                     or float(p[1]) > -float(p[0]) + 1e-6
+                     or float(p[2]) < float(p[0]) - 1e-6
+                     for _, _, p, _ in self.quads)
 
         mats = self.materials or [MaterialSpec()]
 
@@ -271,18 +373,23 @@ class SceneBuilder:
         ltp[:, 3:6] = tri_e1[lt_safe] * lt_valid
         ltp[:, 6:9] = tri_e2[lt_safe] * lt_valid
         ltp[:, 9] = prim_flip[lt_safe].astype(np.float32) * lt_valid[:, 0]
-        light_L = (np.stack(self.lights) if self.lights
+        light_L = (np.stack([L for L, _ in self.lights]) if self.lights
                    else np.zeros((1, spec.N_SPECTRAL_SAMPLES), np.float32))
+        two_sided = np.zeros(Lc, bool)
+        two_sided[:len(self.lights)] = [ts for _, ts in self.lights]
 
         arrays = dict(
             prim_type=reorder("prim_type", np.int32),
             tri_v0=tri_v0, tri_e1=tri_e1, tri_e2=tri_e2,
+            tri_motion=tri_motion,
             tri_ns=reorder("tri_ns"), tri_uv=reorder("tri_uv"),
             quad_idx=qref,
             prim_material=reorder("prim_material", np.int32),
             prim_light=reorder("prim_light", np.int32),
+            prim_instance=reorder("prim_instance", np.int32),
             prim_flip_normal=prim_flip,
             quad_w2o=q_w2o, quad_params=q_par, quad_prim=q_prim,
+            quad_anim_t=q_at, quad_anim_q=q_aq, quad_anim_s=q_as,
             mat_type=np.asarray([m.type for m in mats], np.int32),
             mat_kd=mcol("kd"), mat_ks=mcol("ks"), mat_kr=mcol("kr"),
             mat_kt=mcol("kt"),
@@ -293,17 +400,25 @@ class SceneBuilder:
             mat_remap_rough=np.asarray([m.remap_roughness for m in mats],
                                        bool),
             light_L=light_L,
-            light_two_sided=np.zeros(Lc, bool),
+            light_two_sided=two_sided,
             light_area=l_area, light_tri_idx=lt_idx, light_tri_cdf=lt_cdf,
             light_tri_packed=ltp)
         statics = dict(n_lights=len(self.lights), n_quadrics=len(self.quads),
-                       clip_quadrics=False, dense_chunk=None)
+                       clip_quadrics=bool(clip_q), dense_chunk=None,
+                       has_animated_mesh=self.has_animated_mesh,
+                       has_animated_quads=animated_quads,
+                       dense_motion=self.has_animated_mesh)
         return _scene_from_arrays(arrays, statics, device)
 
 
 def _scene_from_arrays(arrays, statics, device):
-    dt = build_dense_tables(arrays["tri_v0"], arrays["tri_e1"],
-                            arrays["tri_e2"], chunk=statics["dense_chunk"])
+    if statics["dense_motion"]:
+        dt = build_dense_tables_motion(
+            arrays["tri_v0"], arrays["tri_e1"], arrays["tri_e2"],
+            arrays["tri_motion"], chunk=statics["dense_chunk"])
+    else:
+        dt = build_dense_tables(arrays["tri_v0"], arrays["tri_e1"],
+                                arrays["tri_e2"], chunk=statics["dense_chunk"])
     cols = {k: torch.as_tensor(np.array(arrays[k]), device=device)
             for k in JAX_COLUMNS}
     return SceneData(
@@ -314,7 +429,10 @@ def _scene_from_arrays(arrays, statics, device):
         n_lights=int(statics["n_lights"]),
         n_quadrics=int(statics["n_quadrics"]),
         clip_quadrics=bool(statics["clip_quadrics"]),
-        dense_chunk=int(dt["chunk"]))
+        dense_chunk=int(dt["chunk"]),
+        has_animated_mesh=bool(statics["has_animated_mesh"]),
+        has_animated_quads=bool(statics["has_animated_quads"]),
+        dense_motion=bool(statics["dense_motion"]))
 
 
 def scene_from_jax(arrays: dict, statics: dict, device) -> SceneData:
@@ -322,8 +440,9 @@ def scene_from_jax(arrays: dict, statics: dict, device) -> SceneData:
 
     arrays: {name: np.asarray(getattr(jax_scene, name))} for every name in
     JAX_COLUMNS; statics: the static fields named in JAX_STATICS.  The
-    dense tables are recomputed from tri_v0/e1/e2, since the JAX scene's
-    `dense_w` is the TPU's bf16x2 layout."""
+    dense tables (static, or motion when `dense_motion`) are recomputed
+    from tri_v0/e1/e2 and tri_motion, since the JAX scene's `dense_w` is
+    the TPU's bf16x2 layout."""
     for k in JAX_COLUMNS:
         if k not in arrays:
             raise KeyError(f"scene_from_jax needs array {k!r}")
@@ -336,4 +455,7 @@ def scene_from_jax(arrays: dict, statics: dict, device) -> SceneData:
     n_lights = int(statics["n_lights"])
     if np.any(np.asarray(arrays["light_tri_idx"])[:n_lights, 0] < 0):
         raise NotImplementedError("area lights on quadrics are not ported")
-    return _scene_from_arrays(arrays, statics, device)
+    if statics["has_animated_mesh"] and not statics["dense_motion"]:
+        raise NotImplementedError(
+            "animated meshes on the BVH path are not ported")
+    return _scene_from_arrays(arrays, statics, devmod.resolve(device))

@@ -1,0 +1,152 @@
+"""Renderer CLI of the port (port of pbrt_tpu.tools.pbrt; reference:
+src/main/pbrt.cpp).
+
+    python -m pbrt_tpu_torch.tools.pbrt scene.pbrt [--outfile x.exr]
+        [--spp N] [--maxdepth N] [--quick] [--quiet] [--cpu]
+
+Parses the scene (parser/api.py lists the ported directives; the others
+raise NotImplementedError), builds it on the first CUDA card, or on the
+CPU with --cpu only, renders it with the path integrator, and writes the
+RGB image (EXR or PNG by extension, else PNG), the ISET spectral
+`.dat` (the fork's spectralFlag, on by default) and the fork's metadata
+sidecars <out>_mesh.txt / <out>_materials.txt (api.cpp:1630-1689).
+Without a visible card and without --cpu it raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+from pbrt_tpu_torch.cameras import projective
+from pbrt_tpu_torch.core import device as devmod
+from pbrt_tpu_torch.film import film as filmmod
+from pbrt_tpu_torch.film import io as fio
+from pbrt_tpu_torch.integrators import dispatch
+from pbrt_tpu_torch.parser.api import parse_scene
+from pbrt_tpu_torch.samplers.samplers import SamplerConfig
+
+
+def build_camera(job, width, height, device=None):
+    """The job's perspective camera (thin lens, screen window and camera
+    motion included) on `device`."""
+    cp = job.camera_params
+    return projective.make_perspective(
+        job.cam_to_world, cp["fov"], width, height,
+        lens_radius=cp["lensradius"], focal_distance=cp["focaldistance"],
+        screen=cp["screenwindow"], shutter_open=cp["shutteropen"],
+        shutter_close=cp["shutterclose"], cam_to_world1=job.cam_to_world1,
+        device=device)
+
+
+def run_job(job, spp=None, max_depth=None, max_rays_per_pass=1 << 18,
+            stats=None):
+    """Render a RenderJob on its scene's device -> (film, camera).
+
+    spp / max_depth override the scene's; stats, a dict, receives the
+    rays traced under "rays" (closest-hit lanes + candidate shadow rays,
+    as the JAX package counts them)."""
+    if job.sampler_kind != "sobol":
+        raise NotImplementedError(
+            f'Sampler "{job.sampler_kind}" is not ported to pbrt_tpu_torch '
+            "(only sobol)")
+    device = job.scene.dense_w.device
+    W, H = job.film_width, job.film_height
+    camera = build_camera(job, W, H, device)
+    fp = dict(job.filter_params)
+    radius = fp.pop("radius", None)
+    film = filmmod.make_film(W, H, job.filter_name, radius=radius,
+                             device=device, **fp)
+    spp = spp or job.spp
+    cfg = SamplerConfig(kind="sobol", seed=0, spp=spp)
+    max_depth = max_depth or job.integrator_params["maxdepth"]
+    film, n_rays = dispatch.render_with_integrator(
+        job, camera, film, cfg, spp, max_depth,
+        max_rays_per_pass=max_rays_per_pass, count_rays=True)
+    if stats is not None:
+        stats["rays"] = n_rays
+    return film, camera
+
+
+def write_outputs(job, film, outfile=None, quiet=False):
+    """Write the image, the .dat and the sidecars; returns their paths."""
+    out = outfile or job.film_filename
+    rgb = np.maximum(filmmod.develop_rgb(film).cpu().numpy()
+                     * job.film_scale, 0.0)
+    written = []
+    try:
+        written.append(fio.write_image(out, rgb))
+    except ValueError:
+        written.append(fio.write_png(os.path.splitext(out)[0] + ".png", rgb))
+    if job.spectral_flag:
+        written.append(fio.write_dat(out, film.raw, scale=job.film_scale))
+    base = os.path.splitext(out)[0]
+    with open(base + "_mesh.txt", "w") as f:
+        for iid, name in sorted(job.instance_names.items()):
+            f.write(f"{iid} {name}\n")
+    with open(base + "_materials.txt", "w") as f:
+        for mid, name in sorted(job.material_names.items()):
+            f.write(f"{mid} {name}\n")
+    written += [base + "_mesh.txt", base + "_materials.txt"]
+    if not quiet:
+        for w in written:
+            print(f"wrote {w}")
+    return written
+
+
+def device_name(device):
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.get_device_name(device)
+    return "CPU"
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        prog="pbrt_tpu_torch",
+        description="spectral path tracer on an NVIDIA GPU "
+                    "(pbrt-compatible scenes)")
+    ap.add_argument("scene", help=".pbrt scene file")
+    ap.add_argument("--outfile", "-o", default=None)
+    ap.add_argument("--quick", action="store_true",
+                    help="reduce spp to 1 and depth to 3 (reference --quick)")
+    ap.add_argument("--quiet", action="store_true")
+    ap.add_argument("--spp", type=int, default=None)
+    ap.add_argument("--maxdepth", type=int, default=None)
+    ap.add_argument("--cpu", action="store_true",
+                    help="render on the CPU instead of the CUDA card")
+    args = ap.parse_args(argv)
+    logging.basicConfig(level=logging.WARNING if args.quiet
+                        else logging.INFO, format="%(message)s")
+    device = devmod.resolve("cpu" if args.cpu else None)
+
+    t0 = time.perf_counter()
+    job = parse_scene(args.scene, device=device)
+    if not args.quiet:
+        print(f"parsed + built scene in {time.perf_counter() - t0:.1f}s "
+              f"({job.scene.prim_type.shape[0]} prims, "
+              f"{job.scene.n_lights} lights"
+              f"{', motion blur' if job.scene.dense_motion else ''})")
+    stats = {}
+    t0 = time.perf_counter()
+    film, _ = run_job(job, spp=1 if args.quick else args.spp,
+                      max_depth=3 if args.quick else args.maxdepth,
+                      stats=stats)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+    if not args.quiet:
+        print(f"rendered in {dt:.1f}s ({stats['rays'] / dt:,.0f} rays/s on "
+              f"{device_name(device)})")
+    write_outputs(job, film, args.outfile, args.quiet)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

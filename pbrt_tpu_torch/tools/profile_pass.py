@@ -1,0 +1,94 @@
+"""Where the time of one render pass goes, on the card.
+
+    python -m pbrt_tpu_torch.tools.profile_pass scene.pbrt [--rays 65536]
+        [--maxdepth N] [--top 12]
+
+Parses the scene on the first CUDA card, traces one pass (sample 0 of
+the first `--rays` pixels, through `path.trace_paths`) three times
+unprofiled and once under torch.profiler, and prints: the wall time of
+each unprofiled pass; for the profiled one, its wall time, the device
+kernel events and their summed device time, the device's idle share
+(1 - device time / wall time), the launches of the dense kernels, and
+the kernels that took the most device time.  Needs a card: it raises
+without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+import time
+
+import torch
+from torch.autograd import DeviceType
+
+from pbrt_tpu_torch.core import device as devmod
+from pbrt_tpu_torch.integrators import path
+from pbrt_tpu_torch.ops import dense_intersect as dense
+from pbrt_tpu_torch.parser.api import parse_scene
+from pbrt_tpu_torch.samplers.samplers import SamplerConfig
+from pbrt_tpu_torch.tools import pbrt as cli
+
+
+def _device_us(e):
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="profile_pass")
+    ap.add_argument("scene")
+    ap.add_argument("--rays", type=int, default=65536)
+    ap.add_argument("--maxdepth", type=int, default=None)
+    ap.add_argument("--top", type=int, default=12)
+    args = ap.parse_args(argv)
+    device = devmod.resolve(None)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    job = parse_scene(args.scene, device=device)
+    W, H = job.film_width, job.film_height
+    camera = cli.build_camera(job, W, H, device)
+    cfg = SamplerConfig("sobol", 0, job.spp)
+    depth = args.maxdepth or job.integrator_params["maxdepth"]
+    ids = torch.arange(args.rays, device=device)
+
+    def one_pass():
+        ray, _, _, pid, sidx = path.camera_rays_for_pixels(camera, W, H,
+                                                           cfg, ids, 0)
+        path.trace_paths(job.scene, ray, pid, sidx, cfg, max_depth=depth)
+        torch.cuda.synchronize()
+
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        one_pass()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    dense.reset_launch_counts()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        one_pass()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+    dev_ms = sum(_device_us(e) for e in kernels) / 1e3
+    print(f"{args.scene}: {args.rays} rays, depth {depth}, on {card}")
+    print("unprofiled passes: " + ", ".join(f"{w:.2f} ms" for w in walls))
+    if not kernels:
+        print("profiled pass: no device time in the trace (not measured)")
+        return 1
+    print(f"profiled pass: {wall:.2f} ms wall, "
+          f"{sum(e.count for e in kernels)} device kernel events, "
+          f"{dev_ms:.2f} ms device time, idle share "
+          f"{1 - dev_ms / wall:.3f}, dense launches {dict(dense.LAUNCHES)}")
+    for e in sorted(kernels, key=_device_us, reverse=True)[:args.top]:
+        print(f"  {_device_us(e) / 1e3:9.3f} ms {e.count:6d} calls "
+              f"{100 * _device_us(e) / 1e3 / dev_ms:5.1f}%  {e.key[:90]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -10,7 +10,9 @@ version sum the same f32 products in different orders, so found agrees
 on >= 0.9999 of lanes and prim on >= 0.999 (ties and edge grazes), and
 on every closest-hit lane both t lie within the f32 rounding bound of
 the exact t (`loop_t_reference`): a fixed bound between the two does not
-hold where num/nd cancels.
+hold where num/nd cancels.  K2 motion is held to the same agreement and
+to the motion bound (`loop_t_reference_motion`), at 128-triangle chunks
+(45 KB of shared memory) and at 256 (90 KB, above the 48 KB default).
 """
 import numpy as np
 import pytest
@@ -84,3 +86,52 @@ def test_wrappers_reject_bad_inputs(device):
         dense.tile_queue(r16[:200], tmax[:200], cb)     # not whole tiles
     with pytest.raises(ValueError):
         dense.tile_queue(r16, tmax.cpu(), cb)           # mixed devices
+
+
+def _moving_soup_and_rays(device, chunk, n_tris=600, n_rays=4096, seed=4):
+    rs = np.random.RandomState(seed)
+    v0 = rs.rand(n_tris, 3) * 10 - 5
+    e1, e2 = rs.randn(2, n_tris, 3) * 0.5
+    dm = np.zeros((n_tris, 12))
+    dm[1::2, 0:3] = rs.randn(n_tris // 2, 3)
+    dm[1::2, 3:9] = rs.randn(n_tris // 2, 6) * 0.2
+    o = (rs.rand(n_rays, 3) * 14 - 7).astype(np.float32)
+    d = rs.randn(n_rays, 3).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    time = rs.rand(n_rays).astype(np.float32)
+    tab = dense.build_dense_tables_motion(v0, e1, e2, dm, chunk=chunk)
+    anyhit = torch.zeros(n_rays, dtype=torch.bool)
+    anyhit[1::2] = True
+    r16 = dense.ray_vectors(torch.from_numpy(o), torch.from_numpy(d),
+                            torch.from_numpy(tab["center"]), anyhit=anyhit)
+    tmax = torch.full((n_rays,), 3.0e38)
+    tmax[::5] = -1.0
+    return (r16.to(device), tmax.to(device),
+            torch.from_numpy(time).to(device),
+            torch.from_numpy(tab["W"]).to(device),
+            torch.from_numpy(tab["chunk_bounds"]).to(device))
+
+
+@pytest.mark.parametrize("chunk", [128, 256])
+def test_motion_kernel_matches_plain(device, chunk):
+    r16, tmax, time, W, cb = _moving_soup_and_rays(device, chunk)
+    before = dict(dense.LAUNCHES)
+    cl, na = dense.tile_chunk_lists(r16, tmax, cb)
+    t, p = dense.loop_hits_motion(r16, tmax, time, W, cl, na)
+    tp, pp = dense.loop_hits_motion_plain(r16, tmax, time, W, cl, na)
+    torch.cuda.synchronize()
+    assert ((p >= 0) == (pp >= 0)).float().mean() >= 0.9999
+    assert (p == pp).float().mean() >= 0.999
+    assert (p[tmax <= 0] == -1).all()
+    anyhit = r16[:, 12] > 0.5
+    assert torch.equal((p >= 0)[anyhit], (pp >= 0)[anyhit])
+    closest = ~anyhit & (p == pp) & (p >= 0)
+    assert closest.sum() > 100
+    t64, bound = dense.loop_t_reference_motion(r16[closest], time[closest],
+                                               W, p[closest])
+    for tt in (t, tp):
+        assert ((tt[closest].double() - t64).abs()
+                <= bound * t64.abs()).all()
+    assert dense.LAUNCHES["dense_loop_motion"] == \
+        before["dense_loop_motion"] + 1
+    assert dense.LAUNCHES["dense_loop"] == before["dense_loop"]

@@ -24,6 +24,7 @@ from pbrt_tpu_torch.models import flagship as tflag
 from pbrt_tpu_torch.ops import intersect as tisect
 
 N = 2048
+DEV = "cpu"
 
 
 def _jray(r):
@@ -49,7 +50,7 @@ def batch():
     random hemisphere directions plus shadow rays toward random points
     on the light."""
     js, _ = jflag.cornell(tessellate=True)
-    ts, _ = tflag.cornell()
+    ts, _ = tflag.cornell(device=DEV)
     rs = np.random.RandomState(12)
     eye = np.array([2.5, -4.5, 2.5], np.float32)
     tgt = np.stack([rs.uniform(0, 5, N), np.full(N, 5.0),

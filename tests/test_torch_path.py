@@ -30,12 +30,13 @@ from pbrt_tpu_torch.models import flagship as tflag
 from pbrt_tpu_torch.samplers.samplers import SamplerConfig as TCfg
 
 W = H = 32
+DEV = "cpu"
 
 
 @pytest.fixture(scope="module")
 def scenes():
     js, jcam = jflag.cornell(tessellate=True)
-    ts, tcam = tflag.cornell()
+    ts, tcam = tflag.cornell(device=DEV)
     return js, jcam(W, H), ts, tcam(W, H)
 
 
@@ -76,7 +77,7 @@ def test_render_matches_jax(scenes):
     spp = 2
     jf = jpath.render(js, jc, jfilm.make_film(W, H, "box"),
                       JCfg("sobol", 0, spp), spp, max_depth=5)
-    tf, n_rays = tpath.render(ts, tc, tfilm.make_film(W, H, "box"),
+    tf, n_rays = tpath.render(ts, tc, tfilm.make_film(W, H, "box", device=DEV),
                               TCfg("sobol", 0, spp), spp, max_depth=5,
                               count_rays=True)
     ji = np.asarray(jfilm.develop_spectral(jf))
@@ -97,7 +98,7 @@ def test_film_splat_matches_jax(name):
     w = rs.rand(512).astype(np.float32)
     jf = jfilm.add_samples(jfilm.make_film(W, H, name),
                            jnp.asarray(pf), jnp.asarray(L), jnp.asarray(w))
-    tf = tfilm.add_samples(tfilm.make_film(W, H, name),
+    tf = tfilm.add_samples(tfilm.make_film(W, H, name, device=DEV),
                            torch.from_numpy(pf), torch.from_numpy(L),
                            torch.from_numpy(w))
     for k in ("weighted", "weight", "raw"):

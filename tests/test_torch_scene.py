@@ -18,11 +18,13 @@ from pbrt_tpu_torch.models import flagship as tflag
 from pbrt_tpu_torch.ops import dense_intersect as tdense
 from pbrt_tpu_torch.scene import ir as tir
 
+DEV = "cpu"
+
 
 @pytest.fixture(scope="module")
 def scenes():
     js, jcam = jflag.cornell(tessellate=True)
-    ts, tcam = tflag.cornell()
+    ts, tcam = tflag.cornell(device=DEV)
     return js, jcam, ts, tcam
 
 
@@ -98,7 +100,7 @@ def test_small_scene_numpy_bvh_order_matches():
         b.add_triangle_mesh([[1, 1, 3], [2, 1, 3], [2, 2, 3]], [[0, 1, 2]],
                             m0, light_id=li)
         b.add_sphere(tfm.translate(2, 2, 1), 0.5, m1)
-        return b.build()
+        return b.build(device=DEV) if ir is tir else b.build()
     js = build(jir, jtfm)
     ts = build(tir, ttfm)
     _assert_scene_equal(ts, tir.scene_from_jax(*jax_arrays(js), "cpu"))
@@ -144,7 +146,7 @@ def test_dataclasses_move_between_devices(scenes):
                                        torch.arange(64), 0)[0].to("cpu")
     hit = tisect.intersect_full(ts, ray, presorted=True).to("cpu")
     mat = tbsdf.gather_materials(ts, hit.material).to("cpu")
-    film = tfilm.make_film(8, 8).to("cpu")
+    film = tfilm.make_film(8, 8, device=DEV).to("cpu")
     for obj in (cam, ray, hit, mat, film):
         for f in obj.__dataclass_fields__:
             v = getattr(obj, f)

@@ -21,11 +21,12 @@ from pbrt_tpu_torch.models import flagship as tflag
 
 N = 4096
 RTOL, ATOL = 1e-4, 1e-6
+DEV = "cpu"
 
 
 @pytest.fixture(scope="module")
 def scenes():
-    return jflag.cornell(tessellate=True)[0], tflag.cornell()[0]
+    return jflag.cornell(tessellate=True)[0], tflag.cornell(device=DEV)[0]
 
 
 def _unit(rs, n):
