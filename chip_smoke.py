@@ -22,9 +22,18 @@ just after:
   K2 never.
 
 It compares 32x32 renders of both scenes on the GPU with the same
-renders on the CPU, and writes the .dat, EXR and sidecar outputs.  Any
-failed check raises, so the exit code is non-zero; there is no fallback
-to the CPU or to a plain version.
+renders on the CPU, and writes the .dat, EXR and sidecar outputs.
+
+Phase 10 drives the kernel harnesses, again with the counts set to 0
+just before and read just after: `tools.ablate_k2` on the Cornell random
+rays (s1) and the cluster mesh with 1 and 8 chunks per tile (s2, s5),
+every ablation mode of K2 held to its plain version and `full` and
+`direct` to production K2 bit for bit; `tools.dissect_intersect` at
+B=2^18 on Cornell (s4), its stages composed equal to `intersect`; and
+`tools.dump_tile` on the 600-triangle case (s6 picks 0 1 2 2, s7 tile 0's
+real list), the dump against its plain version and its last running best
+equal to production K2's.  Any failed check raises, so the exit code is
+non-zero; there is no fallback to the CPU or to a plain version.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}};
@@ -58,6 +67,10 @@ from pbrt_tpu_torch.ops import cuda_kernels  # noqa: E402
 from pbrt_tpu_torch.ops import dense_intersect as dense  # noqa: E402
 from pbrt_tpu_torch.parser.api import parse_scene  # noqa: E402
 from pbrt_tpu_torch.samplers.samplers import SamplerConfig  # noqa: E402
+from pbrt_tpu_torch.tools import ablate_k2  # noqa: E402
+from pbrt_tpu_torch.tools import dissect_intersect  # noqa: E402
+from pbrt_tpu_torch.tools import dump_tile  # noqa: E402
+from pbrt_tpu_torch.tools import kernel_workloads as kw  # noqa: E402
 from pbrt_tpu_torch.tools import pbrt as cli  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -91,6 +104,24 @@ KERNELS = {
     "dense_loop_motion": ("pbrt_tpu_torch/csrc/dense_loop.cu",
                           "pbrt_tpu/ops/pallas_intersect.py:329"),
 }
+# the TPU harnesses K1 and K2 themselves stand in for
+ALSO_REPLACES = {
+    "dense_queue": "scripts/debug/dissect_queue2.py:56",
+    "dense_loop": "scripts/debug/micro_loop.py:91",
+}
+# K2's ablation modes (csrc/dense_loop.cu::LoopMode) and the tile dump:
+# each with the TPU harness whose question it answers
+HARNESSES = {
+    "dense_loop_ablate[empty]": "scripts/ablate_pick.py:59",
+    "dense_loop_ablate[stage]": "scripts/ablate_pick.py:59",
+    "dense_loop_ablate[sections]": "scripts/ablate_kernel_step.py:44",
+    "dense_loop_ablate[direct]": "scripts/ablate_loop.py:39",
+    "dense_tile_dump": "scripts/debug/dbg_dense_dump.py:49; "
+                       "scripts/debug/dbg_dense_full.py:45",
+}
+# f32 operations per ray-triangle test of each ablation mode
+ABLATE_FLOPS = {"empty": 0, "stage": 0, "sections": 42, "direct": 45}
+TINY_PICKS = [0, 1, 2, 2]
 
 
 def check(ok, what):
@@ -129,6 +160,27 @@ def bound(flops, nbytes):
 
 def nbytes(*xs):
     return sum(x.numel() * x.element_size() for x in xs)
+
+
+def loop_bytes(mode, r16, tmax, W, chunk_list, n_active, *outs):
+    """Bytes a static loop-kernel mode (production K2 is "full") must move,
+    each input read once: n_active and each tile's first n_active list
+    entries; tmax (but for stage, which never reads it); except for
+    empty, the LOOP_ROWS staged rows of each distinct listed chunk; the
+    ray columns the tests read (d, (o-c) x d, o-c: 9 floats, and the
+    any-hit flag where hits are taken); and the outputs."""
+    chunk = W.shape[2] // 4
+    on = (torch.arange(W.shape[0], device=n_active.device)
+          < n_active[:, None])
+    b = nbytes(n_active, *outs) + int(n_active.sum()) * 4
+    if mode != "stage":
+        b += nbytes(tmax)
+    if mode == "empty":
+        return b
+    b += (torch.unique(chunk_list[on]).numel() * dense.LOOP_ROWS * chunk
+          * 4)
+    cols = {"stage": 0, "sections": 9}.get(mode, 10)
+    return b + r16.shape[0] * cols * 4
 
 
 def capture_batches(scene, camera, cfg, device):
@@ -254,8 +306,8 @@ def compare_kernels(scene, batches, card, k2):
               "within 1e-5")
         check(occ_same, f"{k2} {name}: occluded flags differ")
         tests = k2_tests(r16, tmax, p_k, cl, na, chunk)
-        k2_bytes = nbytes(r16, tmax, Wt, cl, na, t_k, p_k) + (
-            nbytes(tm) if motion else 0)
+        k2_bytes = (nbytes(r16, tmax, tm, Wt, cl, na, t_k, p_k) if motion
+                    else loop_bytes("full", r16, tmax, Wt, cl, na, t_k, p_k))
         k2_bound = bound(K2_FLOPS[k2] * tests, k2_bytes)
 
         res["dense_queue"][name] = dict(
@@ -339,6 +391,102 @@ def motion_32(dev):
     return cli.run_job(job, spp=2, max_depth=DEPTH)[0]
 
 
+def phase10(scene, card):
+    """The kernel harnesses (s1-s7) through the tools' entry points, with
+    the counts set to 0 just before and read just after; then each
+    ablation mode and the tile dump against its plain version, timed, for
+    the kernels line.  Returns {"counts", "rows"}."""
+    dense.reset_launch_counts()
+    t0 = time.perf_counter()
+    abl = ablate_k2.run(ablate_k2.parse_args(
+        ["--workload", "cornell", "cluster", "--g", "1", "8", "--rounds",
+         "3", "--reps", "10"]), scene=scene)
+    dis = dissect_intersect.run(dissect_intersect.parse_args(
+        ["--scene", "cornell", "--batch", str(1 << 18), "--rounds", "3",
+         "--reps", "8"]), scenes={"cornell": scene})
+    dumps = [dump_tile.run(dump_tile.parse_args(
+        ["--picks"] + [str(c) for c in TINY_PICKS])),
+        dump_tile.run(dump_tile.parse_args(["--tile", "0"]))]
+    torch.cuda.synchronize()
+    counts = dict(dense.LAUNCHES)
+    dt = time.perf_counter() - t0
+    for k in ("dense_queue", "dense_loop", "dense_tile_dump",
+              *map(dense.ablate_kernel, ABLATE_FLOPS)):
+        check(counts[k] > 0, f"harnesses: {k} never launched")
+    check(counts["dense_loop_motion"] == 0, "harnesses: K2 motion launched")
+    (_, B), stage_ms = next(iter(dis.items()))
+    whole = kw.spread(stage_ms["intersect"])[0]
+    for d in dumps:
+        # dump_tile raises on any of these; held here again, and the tile
+        # must accept enough tests for the flags to say anything
+        check(d["k2_equal"] and d["bad"] == d["t_beyond"] == 0
+              and d["unexplained"] == 0, f"tile dump {d['picks']}: kernel "
+              "and plain part")
+        check(d["accepted"] >= 20
+              and d["accept_differ"] <= d["accepted"] // 10,
+              f"tile dump {d['picks']}: {d['accepted']} tests accepted, "
+              f"{d['accept_differ']} flags differ")
+    print(f"phase 10 kernel harnesses: ablate_k2 (cornell_random, cluster "
+          f"g=1, g=8), dissect_intersect (Cornell B={B}: intersect "
+          f"{whole:.4f} ms), dump_tile (picks {TINY_PICKS}, tile 0's list: "
+          + ", ".join(f"{d['accepted']} accepted, {d['accept_differ']} "
+                      "flags differ" for d in dumps)
+          + f") in {dt:.1f} s, launches {counts} on {card}")
+
+    # --- rows: each mode and the dump against its plain version, timed ---
+    wl = abl["cornell_random"]["workload"]
+    args = wl.args()
+    _, p_k2 = dense.loop_hits(*args)
+    live = int((wl.tmax > 0).sum())
+    tests = {"empty": 0, "stage": 0,
+             "sections": int((wl.n_active.repeat_interleave(dense.TILE)
+                              * (wl.tmax > 0)).sum()) * wl.chunk,
+             "direct": k2_tests(wl.r16, wl.tmax, p_k2, wl.chunk_list,
+                                wl.n_active, wl.chunk)}
+    rows = []
+    cluster = abl["cluster g=8"]["times"]
+    for m in ("empty", "stage", "sections", "direct"):
+        name = f"dense_loop_ablate[{m}]"
+        t_k, p_k = dense.loop_hits_ablate(m, *args)
+        b = bound(ABLATE_FLOPS[m] * tests[m], loop_bytes(m, *args, t_k, p_k))
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "pbrt_tpu_torch/csrc/dense_loop.cu",
+            "replaces": HARNESSES[name], "launches": counts[name],
+            "max_abs_err": max(r["errs"][m] for k, r in abl.items()
+                               if k != "sweep"),
+            "ms": kw.spread(abl["cornell_random"]["times"][m])[0],
+            "plain_ms": time_ms(lambda m=m: dense.loop_hits_ablate_plain(
+                m, *args), reps=3),
+            "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
+            "ms_cluster_g8": kw.spread(cluster[m])[0],
+            "workload": f"cornell_random, {wl.listed} listed chunks, "
+                        f"{live} live lanes"})
+    tiny = kw.tiny600(scene.dense_w.device)
+    picks = torch.tensor(TINY_PICKS, dtype=torch.int32,
+                         device=tiny.r16.device)
+    out = dense.tile_dump(tiny.r16, tiny.tmax, tiny.W, picks, 0)
+    n_tests = len(TINY_PICKS) * tiny.chunk * dense.TILE
+    # the ray columns the tests read, tmax, the picks, the staged rows of
+    # each distinct pick, the outputs
+    b = bound(45 * n_tests, dense.TILE * 11 * 4 + nbytes(picks, *out.values())
+              + len(set(TINY_PICKS)) * dense.LOOP_ROWS * tiny.chunk * 4)
+    rows.append({
+        "name": "dense_tile_dump", "route": "cuda",
+        "source": "pbrt_tpu_torch/csrc/dense_loop.cu",
+        "replaces": HARNESSES["dense_tile_dump"],
+        "launches": counts["dense_tile_dump"],
+        "max_abs_err": max(d["max_abs_err"] for d in dumps),
+        "ms": time_ms(lambda: dense.tile_dump(tiny.r16, tiny.tmax, tiny.W,
+                                              picks, 0)),
+        "plain_ms": time_ms(lambda: dense.tile_dump_plain(
+            tiny.r16[:dense.TILE], tiny.tmax[:dense.TILE], tiny.W, picks),
+            reps=5),
+        "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
+        "workload": f"tiny600 tile 0, picks {TINY_PICKS}"})
+    return {"counts": counts, "rows": rows}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible to torch")
@@ -359,7 +507,8 @@ def main():
     _, build_s, log = cuda_kernels.build()
     cuda_kernels.library()
     print(f"phase 2 build: {build_s:.2f} s (one nvcc, sm_90a; kernels "
-          "dense_queue, dense_loop, dense_loop_motion)")
+          "dense_queue, dense_loop (5 modes and the tile dump), "
+          "dense_loop_motion)")
     for line in log.splitlines():
         if "registers" in line or "Compiling entry" in line:
             print("  ptxas: " + line.strip())
@@ -468,6 +617,8 @@ def main():
             f"{os.path.basename(p)} {os.path.getsize(p)} B" for p in written)
             + "; .dat read back equal")
 
+    harness = phase10(scene, card)
+
     rows = []
     for k, (src, rep) in KERNELS.items():
         r = res[k]
@@ -484,7 +635,11 @@ def main():
             m = res["dense_queue_motion"]
             row.update(ms_motion_bounce1=m["bounce1"]["ms"],
                        ms_motion_camera=m["camera"]["ms"])
+        if k in ALSO_REPLACES:
+            row["also_replaces"] = ALSO_REPLACES[k]
+        row["launches_harnesses"] = harness["counts"][k]
         rows.append(row)
+    rows += harness["rows"]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

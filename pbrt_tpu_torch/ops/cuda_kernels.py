@@ -11,7 +11,9 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+import re
 import shutil
+import subprocess
 import time
 
 from pbrt_tpu_torch.native.build import build_shared_library
@@ -60,4 +62,42 @@ def library():
     lib.pbrt_dense_loop_motion.restype = ctypes.c_int
     lib.pbrt_dense_loop_motion.argtypes = [p, p, p, p, p, p, i, i, i, i, p,
                                            p, p]
+    lib.pbrt_dense_loop_ablate.restype = ctypes.c_int
+    lib.pbrt_dense_loop_ablate.argtypes = [i, p, p, p, p, p, i, i, i, i, p,
+                                           p, p]
+    lib.pbrt_dense_tile_dump.restype = ctypes.c_int
+    lib.pbrt_dense_tile_dump.argtypes = [p, p, p, p, i, i, i, p, p, p, p, p,
+                                         p]
     return lib
+
+
+def sass_counts():
+    """Instruction counts of each kernel in the built library, read from
+    `cuobjdump --dump-sass` (see parse_sass)."""
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    return parse_sass(subprocess.run(
+        [tool, "--dump-sass", build()[0]], capture_output=True, text=True,
+        check=True, timeout=300).stdout)
+
+
+_SASS_OP = re.compile(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)")
+
+
+def parse_sass(text):
+    """{function name: {opcode: count}} of a SASS listing: each opcode
+    without its modifiers (FFMA, BAR, STS, ...), and MUFU.RCP and
+    BAR.SYNC also by those names."""
+    counts, cur = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            cur = counts.setdefault(line.split("Function :")[1].strip(), {})
+            continue
+        m = _SASS_OP.search(line) if cur is not None else None
+        if m is None:
+            continue
+        full = m.group(1)
+        for name in {full.split(".")[0]} | {
+                n for n in ("MUFU.RCP", "BAR.SYNC") if full.startswith(n)}:
+            cur[name] = cur.get(name, 0) + 1
+    return counts

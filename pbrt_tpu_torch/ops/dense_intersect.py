@@ -20,6 +20,12 @@ contract:
                          (csrc/dense_loop.cu; replaces `_kernel_loop`
                          with n_coef=4).
 
+Two more serve the timing and debug tools (pbrt_tpu_torch/tools):
+`loop_hits_ablate` runs static K2 in an ablation mode (ABLATE_MODES; the
+mode template of csrc/dense_loop.cu), and `tile_dump` walks one ray tile
+over a list of chunks and returns every intermediate (the kDump
+instantiation of the same template).
+
 A ray's 16-vector is r = [d, (o-c)xd, o-c, 1/d, anyhit, 0, 0, 1]; a
 triangle's four sections s1|s2|num|s0 dot with it.  nd = s0+s1+s2, the ray
 is inside iff the three edge sides share a sign bit, and t = num/nd is
@@ -53,8 +59,21 @@ MOTION_NODES = np.array([0.0, 1.0 / 3.0, 2.0 / 3.0, 1.0])
 SMEM_DEFAULT = 48 * 1024     # shared memory a block gets without opting in
 SMEM_MAX = 232448            # what a Hopper block can opt in to
 
+#: K2's ablation modes, in the order of the kernel's mode ids
+#: (csrc/dense_loop.cu::LoopMode); "full" is production K2
+ABLATE_MODES = ("empty", "stage", "sections", "direct", "full")
+
+
+def ablate_kernel(mode):
+    """The LAUNCHES key of an ablation mode's kernel ("full" launches
+    production K2 and counts as dense_loop)."""
+    return "dense_loop" if mode == "full" else f"dense_loop_ablate[{mode}]"
+
+
 #: kernel launches made by the wrappers (the plain versions never count)
-LAUNCHES = {"dense_queue": 0, "dense_loop": 0, "dense_loop_motion": 0}
+LAUNCHES = {k: 0 for k in ("dense_queue", "dense_loop", "dense_loop_motion",
+                           *map(ablate_kernel, ABLATE_MODES[:-1]),
+                           "dense_tile_dump")}
 
 
 def reset_launch_counts():
@@ -354,7 +373,22 @@ def loop_hits_motion(r16, tmax, time, W, chunk_list, n_active):
                         n_active)
 
 
-def _launch_loop(name, r16, tmax, time, W, chunk_list, n_active):
+def loop_hits_ablate(mode, r16, tmax, W, chunk_list, n_active):
+    """Static K2 in an ablation mode, for tools/ablate_k2.py: the same
+    arguments as loop_hits, the outputs of loop_hits_ablate_plain.  "full"
+    is loop_hits itself."""
+    if mode not in ABLATE_MODES:
+        raise ValueError(f"unknown ablation mode {mode!r}: {ABLATE_MODES}")
+    if mode == "full":
+        return loop_hits(r16, tmax, W, chunk_list, n_active)
+    if _on_cpu(r16, tmax, W, chunk_list, n_active):
+        return loop_hits_ablate_plain(mode, r16, tmax, W, chunk_list,
+                                      n_active)
+    return _launch_loop(ablate_kernel(mode), r16, tmax, None, W, chunk_list,
+                        n_active, mode=mode)
+
+
+def _launch_loop(name, r16, tmax, time, W, chunk_list, n_active, mode=None):
     B = r16.shape[0]
     n_coef = 1 if time is None else N_COEF
     C, _, cw = W.shape
@@ -376,7 +410,12 @@ def _launch_loop(name, r16, tmax, time, W, chunk_list, n_active):
     prim = torch.empty(B, dtype=torch.int32, device=r16.device)
     from pbrt_tpu_torch.ops import cuda_kernels
     lib = cuda_kernels.library()
-    if time is None:
+    if mode is not None:
+        err = lib.pbrt_dense_loop_ablate(
+            ABLATE_MODES.index(mode), _ptr(r16), _ptr(tmax), _ptr(W),
+            _ptr(chunk_list), _ptr(n_active), n_tiles, C, chunk, TILE,
+            _ptr(t), _ptr(prim), _stream())
+    elif time is None:
         err = lib.pbrt_dense_loop(
             _ptr(r16), _ptr(tmax), _ptr(W), _ptr(chunk_list),
             _ptr(n_active), n_tiles, C, chunk, TILE, _ptr(t), _ptr(prim),
@@ -524,6 +563,224 @@ def loop_t_reference_motion(r16, time, W, prim):
 
     return _t_and_bound(terms(2), torch.cat([terms(0), terms(1), terms(3)],
                                              -1), 22, 24)
+
+
+# ---------------------------------------------------------------------------
+# K2's ablation modes and the tile dump (tools/ablate_k2.py, dump_tile.py)
+# ---------------------------------------------------------------------------
+
+def staged_offsets(chunk, device=None):
+    """[LOOP_ROWS] int64 offsets of the rows K2 stages, in a chunk's block
+    of W flattened to [16*4*chunk] (csrc/dense_loop.cu::staged_offset):
+    s1 rows 0-5, s2 rows 0-5, s0 rows 0-5, num rows 6-8 and 15."""
+    secs = [0] * 6 + [1] * 6 + [3] * 6 + [2] * 4
+    rows = list(range(6)) * 3 + [6, 7, 8, 15]
+    return torch.tensor([w * 4 * chunk + sec * chunk
+                         for sec, w in zip(secs, rows)], device=device)
+
+
+def loop_hits_ablate_plain(mode, r16, tmax, W, chunk_list, n_active):
+    """The plain version of each ablation mode (csrc/dense_loop.cu::
+    LoopMode), as (t [B] f32, prim [B] int32):
+
+      empty     (tmax, n_active of the lane's tile).
+      stage     (the f32 sum, in list order from 0, of the staged word
+                (LOOP_ROWS * lane) mod (LOOP_ROWS * chunk) of each listed
+                chunk, lane = ray index mod TILE; n_active): the kernel's
+                own additions, so equal bit for bit.
+      sections  (the least num + nd over the lane's tests, +inf on dead
+                lanes; n_active), one [TILE,16] @ [16,4*chunk] product per
+                listed chunk and tile.  Kernel and plain round differently:
+                both lie within sections_reference's bound.
+      direct, full  loop_hits_plain (direct is production K2's arithmetic
+                with sections read from device memory)."""
+    if mode not in ABLATE_MODES:
+        raise ValueError(f"unknown ablation mode {mode!r}: {ABLATE_MODES}")
+    if mode in ("direct", "full"):
+        return loop_hits_plain(r16, tmax, W, chunk_list, n_active)
+    B = r16.shape[0]
+    n_tiles = B // TILE
+    C, _, cw = W.shape
+    chunk = cw // 4
+    dev = r16.device
+    walked = n_active.repeat_interleave(TILE)
+    if mode == "empty":
+        return tmax.clone(), walked
+    n_steps = int(n_active.max()) if n_tiles else 0
+    on = [(k < n_active)[:, None] for k in range(n_steps)]
+    if mode == "stage":
+        word = (LOOP_ROWS * torch.arange(TILE, device=dev)) % (
+            LOOP_ROWS * chunk)
+        off = staged_offsets(chunk, dev)[word // chunk] + word % chunk
+        Wf = W.reshape(C, -1)
+        acc = torch.zeros((n_tiles, TILE), dtype=torch.float32, device=dev)
+        for k in range(n_steps):
+            v = Wf[chunk_list[:, k].long()[:, None], off[None, :]]
+            acc = torch.where(on[k], acc + v, acc)
+        return acc.reshape(B), walked
+    rt = r16.reshape(n_tiles, TILE, 16)
+    live = (tmax > 0).reshape(n_tiles, TILE)
+    acc = torch.full((n_tiles, TILE), float("inf"), device=dev)
+    for k in range(n_steps):
+        out = torch.bmm(rt, W[chunk_list[:, k].long()])
+        s1, s2, num, s0 = out.split(chunk, -1)
+        v = num + ((s0 + s1) + s2)
+        v = torch.where(torch.isnan(v), float("inf"), v).amin(-1)
+        acc = torch.where(on[k] & live, torch.fmin(acc, v), acc)
+    return acc.reshape(B), walked
+
+
+def sections_reference(r16, tmax, W, chunk_list, n_active):
+    """What the `sections` mode computes, exactly: per lane the least
+    num + nd over its tests in f64 from the f32 inputs, and the bound on
+    any f32 evaluation's distance from it.  Each num + nd is a sum of 22
+    f32 products; the plain version's products go through a 16-term dot
+    and three additions, the kernel's through fewer, so each lies within
+    gamma_19 * sum|terms| of its exact value, and the least of them within
+    the largest such bound over the lane's tests.  Returns (exact [B]
+    f64, +inf on dead lanes; bound [B] f64)."""
+    B = r16.shape[0]
+    n_tiles = B // TILE
+    chunk = W.shape[2] // 4
+    dev = r16.device
+    rt = r16.double().reshape(n_tiles, TILE, 16)
+    live = (tmax > 0).reshape(n_tiles, TILE)
+    exact = torch.full((n_tiles, TILE), float("inf"), dtype=torch.float64,
+                       device=dev)
+    mag = torch.zeros((n_tiles, TILE), dtype=torch.float64, device=dev)
+    for k in range(int(n_active.max()) if n_tiles else 0):
+        on = (k < n_active)[:, None] & live
+        Wk = W[chunk_list[:, k].long()].double()
+        v = torch.bmm(rt, Wk).reshape(n_tiles, TILE, 4, chunk).sum(2)
+        a = torch.bmm(rt.abs(), Wk.abs()).reshape(
+            n_tiles, TILE, 4, chunk).sum(2)
+        exact = torch.where(on, torch.minimum(exact, v.amin(-1)), exact)
+        mag = torch.where(on, torch.maximum(mag, a.amax(-1)), mag)
+    return exact.reshape(B), (_gamma(19) * mag).reshape(B)
+
+
+def tile_dump(r16, tmax, W, picks, tile):
+    """One ray tile of static K2 walked over the chunks `picks`, with
+    every intermediate (csrc/dense_loop.cu, kDump: K2's own body).
+
+    r16 [B,16], tmax [B]: the batch (the dump takes rays tile*TILE to
+    (tile+1)*TILE); W [C,16,4*chunk]; picks [n] int32 chunk ids, repeats
+    allowed (a tile's real list is chunk_list[tile, :n_active[tile]]).
+    Returns a dict: sections [n,4,chunk,TILE] f32 (s1, s2, s0, num), t
+    [n,chunk,TILE] f32 (num / nd), accepted [n,chunk,TILE] bool (the test
+    took the hit), best_t [n,TILE] f32 and best_prim [n,TILE] int32 (the
+    lane's running best after each pick; after the last, K2's result)."""
+    rt = r16[tile * TILE:(tile + 1) * TILE]
+    tt = tmax[tile * TILE:(tile + 1) * TILE]
+    if _on_cpu(rt, tt, W, picks):
+        return tile_dump_plain(rt, tt, W, picks)
+    C, _, cw = W.shape
+    chunk = cw // 4
+    n = picks.shape[0]
+    if rt.shape[0] != TILE or n == 0:
+        raise ValueError(f"tile_dump: tile {tile} is not a whole tile of "
+                         f"the batch, or no picks")
+    if _smem_bytes(chunk, 1) > SMEM_DEFAULT:
+        raise ValueError(f"tile_dump: a {chunk}-triangle chunk needs more "
+                         "shared memory than the kernel takes")
+    _check("r16", rt, torch.float32, (TILE, 16))
+    _check("tmax", tt, torch.float32, (TILE,))
+    _check("W", W, torch.float32, (C, 16, 4 * chunk))
+    _check("picks", picks, torch.int32, (n,))
+    if int(picks.min()) < 0 or int(picks.max()) >= C:
+        raise ValueError(f"tile_dump: picks must be chunk ids in [0, {C})")
+    dev = rt.device
+    out = dict(
+        sections=torch.empty((n, 4, chunk, TILE), dtype=torch.float32,
+                             device=dev),
+        t=torch.empty((n, chunk, TILE), dtype=torch.float32, device=dev),
+        accepted=torch.empty((n, chunk, TILE), dtype=torch.bool, device=dev),
+        best_t=torch.empty((n, TILE), dtype=torch.float32, device=dev),
+        best_prim=torch.empty((n, TILE), dtype=torch.int32, device=dev))
+    from pbrt_tpu_torch.ops import cuda_kernels
+    err = cuda_kernels.library().pbrt_dense_tile_dump(
+        _ptr(rt), _ptr(tt), _ptr(W), _ptr(picks), n, chunk, TILE,
+        *(_ptr(out[k]) for k in ("sections", "t", "accepted", "best_t",
+                                 "best_prim")), _stream())
+    _raise_on(err, "dense_tile_dump")
+    LAUNCHES["dense_tile_dump"] += 1
+    return out
+
+
+def tile_dump_plain(r16, tmax, W, picks):
+    """tile_dump's plain version on one tile's r16 [TILE,16] and tmax
+    [TILE]: per pick one [TILE,16] @ [16,4*chunk] product and the
+    epilogue of loop_hits_plain.  A test is accepted where the kernel,
+    walking the triangles in order, would take it: closest-hit lanes where
+    (t, prim) is below the running best before the pick and t below every
+    earlier hit of the same pick; any-hit lanes at their first hit below
+    tmax, after which they accept nothing."""
+    C, _, cw = W.shape
+    chunk = cw // 4
+    dev = r16.device
+    anyhit = r16[:, 12] > 0.5
+    t_best = tmax.clone()
+    prim = torch.full((TILE,), -1, dtype=torch.int32, device=dev)
+    done = ~(tmax > 0)
+    lane_j = torch.arange(chunk, device=dev)
+    inf = float("inf")
+    res = {k: [] for k in ("sections", "t", "accepted", "best_t",
+                           "best_prim")}
+    for c in picks.tolist():
+        out = r16 @ W[c]
+        s1, s2, num, s0 = out.split(chunk, -1)
+        nd = (s0 + s1) + s2
+        t = num / nd
+        sb0 = torch.signbit(s0)
+        inside = (sb0 == torch.signbit(s1)) & (sb0 == torch.signbit(s2))
+        p = c * chunk + lane_j
+        below = (t < t_best[:, None]) | ((t == t_best[:, None])
+                                          & (p < prim[:, None]))
+        hit = inside & (t > 1e-4) & below & ~done[:, None]
+        t_hit = torch.where(hit, t, inf)
+        earlier = torch.cat([torch.full((TILE, 1), inf, device=dev),
+                             torch.cummin(t_hit, 1).values[:, :-1]], 1)
+        j_first = torch.where(hit, lane_j, chunk).amin(1)
+        acc = torch.where(anyhit[:, None], lane_j == j_first[:, None],
+                          hit & (t < earlier))
+        t_c, j_c = t_hit.min(1)
+        took = hit.any(1)
+        j_win = torch.where(anyhit, j_first, j_c)
+        t_best = torch.where(took, torch.where(anyhit, -1.0, t_c), t_best)
+        prim = torch.where(took, (c * chunk + j_win).to(torch.int32), prim)
+        done = done | (took & anyhit)
+        res["sections"].append(torch.stack([s1.T, s2.T, s0.T, num.T]))
+        res["t"].append(t.T)
+        res["accepted"].append(acc.T)
+        res["best_t"].append(t_best)
+        res["best_prim"].append(prim)
+    return {k: torch.stack(v) for k, v in res.items()}
+
+
+def tile_dump_bounds(r16, W, picks):
+    """Per dumped entry, how far two f32 evaluations may lie apart: each
+    section [n,4,chunk,TILE] within 2 gamma_16 sum|r_i W_i| (each is a sum
+    of at most 16 f32 products, within gamma_16 sum|terms| of exact), and
+    t [n,chunk,TILE] within 2b / (1 - b) relative to either evaluation,
+    b being loop_t_reference's relative bound of each (both lie within
+    b |t| of the exact t, and each is at least (1 - b) |t|; inf where b
+    reaches 1).  r16 is the tile's [TILE,16]."""
+    chunk = W.shape[2] // 4
+    secs, trel = [], []
+    ra = r16.double().abs()
+    rd = r16.double()
+    for c in picks.tolist():
+        a = (ra @ W[c].double().abs()).split(chunk, -1)   # s1 s2 num s0
+        v = (rd @ W[c].double()).split(chunk, -1)
+        secs.append(torch.stack([a[0].T, a[1].T, a[3].T, a[2].T]))
+        nd, a_nd = v[0] + v[1] + v[3], a[0] + a[1] + a[3]
+        d_num = _gamma(16) * a[2] / v[2].abs()
+        d_nd = _gamma(18) * a_nd / nd.abs()
+        u = 2.0 ** -24
+        b = torch.where(d_nd < 1, (d_num + d_nd) / (1 - d_nd) * (1 + u) + u,
+                        float("inf"))
+        trel.append(torch.where(b < 1, 2 * b / (1 - b), float("inf")).T)
+    return 2 * _gamma(16) * torch.stack(secs), torch.stack(trel)
 
 
 def dense_intersect_loop(r16, tmax, W, chunk_bounds, time=None):

@@ -24,6 +24,20 @@ from pbrt_tpu_torch.core import transform as ttfm
 from pbrt_tpu_torch.core import geometry as tgeom
 from pbrt_tpu_torch.samplers import samplers as tsamp
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU tests run torch on one intra-op thread (imported by
+    every test_torch_* file).  Their tensors are small, and with several
+    test workers on the machine a multi-threaded op waits for threads
+    that the other workers' processes have descheduled, which made the
+    port's tests several times slower under six workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

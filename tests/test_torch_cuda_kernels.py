@@ -13,12 +13,23 @@ the exact t (`loop_t_reference`): a fixed bound between the two does not
 hold where num/nd cancels.  K2 motion is held to the same agreement and
 to the motion bound (`loop_t_reference_motion`), at 128-triangle chunks
 (45 KB of shared memory) and at 256 (90 KB, above the 48 KB default).
+K2's ablation modes: empty and stage equal their plain versions bit for
+bit, sections lies within `sections_reference`'s f32 bound, and direct
+and full equal production K2 bit for bit.  The tile dump's sections lie
+and t within the f32 bounds of two evaluations (`tile_dump_bounds`) of
+its plain version's, its accept flags differ only where two f32
+evaluations may round a test either way (`dump_tile.unexplained_accepts`:
+no such difference unexplained, at most a tenth of the accepted tests,
+of which there are at least 16), and its last running (t, prim) equals
+production K2's on the tile bit for bit; both at 128- and 256-triangle
+chunks.
 """
 import numpy as np
 import pytest
 import torch
 
 from pbrt_tpu_torch.ops import dense_intersect as dense
+from pbrt_tpu_torch.tools import dump_tile
 
 pytestmark = pytest.mark.cuda
 
@@ -135,3 +146,76 @@ def test_motion_kernel_matches_plain(device, chunk):
     assert dense.LAUNCHES["dense_loop_motion"] == \
         before["dense_loop_motion"] + 1
     assert dense.LAUNCHES["dense_loop"] == before["dense_loop"]
+
+
+def _static_case(device, chunk, n_tris=600, n_rays=2048, seed=5):
+    rs = np.random.RandomState(seed)
+    v0 = rs.rand(n_tris, 3) * 10 - 5
+    e1, e2 = rs.randn(2, n_tris, 3) * 0.5
+    o = (rs.rand(n_rays, 3) * 14 - 7).astype(np.float32)
+    d = rs.randn(n_rays, 3).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    tab = dense.build_dense_tables(v0, e1, e2, chunk=chunk)
+    anyhit = torch.zeros(n_rays, dtype=torch.bool)
+    anyhit[1::3] = True
+    r16 = dense.ray_vectors(torch.from_numpy(o), torch.from_numpy(d),
+                            torch.from_numpy(tab["center"]),
+                            anyhit=anyhit).to(device)
+    tmax = torch.full((n_rays,), 3.0e38)
+    tmax[::7] = -1.0
+    tmax = tmax.to(device)
+    W = torch.from_numpy(tab["W"]).to(device)
+    cl, na = dense.tile_chunk_lists(
+        r16, tmax, torch.from_numpy(tab["chunk_bounds"]).to(device))
+    return r16, tmax, W, cl, na
+
+
+@pytest.mark.parametrize("chunk", [128, 256])
+@pytest.mark.parametrize("mode", dense.ABLATE_MODES)
+def test_ablation_mode_matches_plain(device, chunk, mode):
+    r16, tmax, W, cl, na = _static_case(device, chunk)
+    key = dense.ablate_kernel(mode)
+    before = dense.LAUNCHES[key]
+    t, p = dense.loop_hits_ablate(mode, r16, tmax, W, cl, na)
+    assert dense.LAUNCHES[key] == before + 1
+    tp, pp = dense.loop_hits_ablate_plain(mode, r16, tmax, W, cl, na)
+    torch.cuda.synchronize()
+    if mode in ("empty", "stage"):
+        assert torch.equal(t, tp) and torch.equal(p, pp)
+    elif mode == "sections":
+        assert torch.equal(p, pp)
+        exact, bound = dense.sections_reference(r16, tmax, W, cl, na)
+        live = torch.isfinite(exact)
+        assert live.sum() > 1000 and torch.equal(torch.isfinite(t), live)
+        for x in (t, tp):
+            assert ((x[live].double() - exact[live]).abs()
+                    <= bound[live]).all()
+    else:
+        t2, p2 = dense.loop_hits(r16, tmax, W, cl, na)
+        assert torch.equal(t, t2) and torch.equal(p, p2)
+
+
+@pytest.mark.parametrize("chunk", [128, 256])
+def test_tile_dump_matches_plain_and_k2(device, chunk):
+    r16, tmax, W, cl, na = _static_case(device, chunk)
+    t2, p2 = dense.loop_hits(r16, tmax, W, cl, na)
+    T = dense.TILE
+    for tile in (0, 5):
+        picks = cl[tile, :int(na[tile])].contiguous()
+        rt, tt = r16[tile * T:(tile + 1) * T], tmax[tile * T:(tile + 1) * T]
+        got = dense.tile_dump(r16, tmax, W, picks, tile)
+        ref = dense.tile_dump_plain(rt, tt, W, picks)
+        torch.cuda.synchronize()
+        bound, t_rel = dense.tile_dump_bounds(rt, W, picks)
+        assert ((got["sections"] - ref["sections"]).abs().double()
+                <= bound).all()
+        gap = (got["t"] - ref["t"]).abs().double() / ref["t"].abs().double()
+        finite = torch.isfinite(gap)
+        assert (gap[finite] <= t_rel[finite]).all()
+        differ, unexplained = dump_tile.unexplained_accepts(
+            got, ref, tt, rt[:, 12] > 0.5, bound, t_rel)
+        n_accepted = int(ref["accepted"].sum())
+        assert n_accepted >= 16 and not unexplained.any()
+        assert int(differ.sum()) <= n_accepted // 10
+        assert torch.equal(got["best_t"][-1], t2[tile * T:(tile + 1) * T])
+        assert torch.equal(got["best_prim"][-1], p2[tile * T:(tile + 1) * T])

@@ -18,6 +18,7 @@ import torch
 from pbrt_tpu.ops import pallas_intersect as jdense
 from pbrt_tpu_torch.ops import dense_intersect as tdense
 from test_dense_kernel import _brute, _rays, _run_dense, _soup
+from test_torch_core import one_torch_thread  # noqa: F401  (autouse)
 
 BIG = 3.0e38
 

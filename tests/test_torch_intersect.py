@@ -22,6 +22,7 @@ from pbrt_tpu.ops import intersect as jisect
 from pbrt_tpu_torch.core import geometry as tgeom
 from pbrt_tpu_torch.models import flagship as tflag
 from pbrt_tpu_torch.ops import intersect as tisect
+from test_torch_core import one_torch_thread  # noqa: F401  (autouse)
 
 N = 2048
 DEV = "cpu"

@@ -33,6 +33,7 @@ from pbrt_tpu.integrators import path as jpath
 from pbrt_tpu.ops import intersect as jisect
 from pbrt_tpu.ops import pallas_intersect as jdense
 from pbrt_tpu.parser.api import parse_scene as jparse
+from pbrt_tpu.samplers import samplers as jsamp
 from pbrt_tpu.samplers.samplers import SamplerConfig as JCfg
 from pbrt_tpu.scene import ir as jir
 from pbrt_tpu_torch.cameras import projective as tproj
@@ -47,6 +48,7 @@ from pbrt_tpu_torch.samplers.samplers import SamplerConfig as TCfg
 from pbrt_tpu_torch.scene import ir as tir
 from test_torch_parser import (MOTION, assert_scene_equal, jax_arrays,
                                small_film)
+from test_torch_core import one_torch_thread  # noqa: F401  (autouse)
 
 DEV = "cpu"
 BIG = 3.0e38
@@ -306,11 +308,15 @@ def test_camera_motion_rays_match_jax():
     assert np.ptp(np.asarray(jr.o)[:, 0]) > 1.0
 
 
-def test_motion_render_matches_jax(tmp_path):
+def test_motion_render_matches_jax(tmp_path, monkeypatch):
     """cornell_motion.pbrt at 16x16, 2 spp, depth 5 through both
     packages' render: the same Sobol' samples, so almost every path is
     the same path.  Image mean within 1e-4 relative (measured 1.2e-7 on
-    the CPU)."""
+    the CPU).  The JAX sampler's sample_dim is jitted on its own, so that
+    tracing the render traces it once, not once per sample dimension (the
+    same function, the same bits)."""
+    monkeypatch.setattr(jpath, "sample_dim",
+                        jax.jit(jsamp.sample_dim, static_argnums=0))
     scene = small_film(MOTION, tmp_path)
     jj, tj = jparse(scene), tparse(scene, device=DEV)
     W = H = 16
@@ -331,9 +337,15 @@ def test_motion_render_matches_jax(tmp_path):
 
 def test_launch_counts_cover_the_motion_kernel():
     tdense.LAUNCHES["dense_loop_motion"] = 3
+    tdense.LAUNCHES["dense_loop_ablate[direct]"] = 2
     tdense.reset_launch_counts()
     assert tdense.LAUNCHES == {"dense_queue": 0, "dense_loop": 0,
-                               "dense_loop_motion": 0}
+                               "dense_loop_motion": 0,
+                               "dense_loop_ablate[empty]": 0,
+                               "dense_loop_ablate[stage]": 0,
+                               "dense_loop_ablate[sections]": 0,
+                               "dense_loop_ablate[direct]": 0,
+                               "dense_tile_dump": 0}
 
 
 def test_motion_wrapper_takes_plain_path_on_cpu_only():

@@ -26,6 +26,7 @@ from pbrt_tpu_torch.parser.api import PbrtAPI as TAPI
 from pbrt_tpu_torch.parser.api import parse_scene as tparse
 from pbrt_tpu_torch.scene import ir as tir
 from pbrt_tpu_torch.tools import pbrt as tcli
+from test_torch_core import one_torch_thread  # noqa: F401  (autouse)
 
 DEV = "cpu"
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -8,7 +8,15 @@ the two can pick different triangles at an edge or round a spawned
 origin differently, after which the path goes elsewhere.  Tolerances:
 image mean within 1%; >= 95% of pixels (and of per-ray radiances) within
 1e-2 relative; ray counts within 1%.
+
+pbrt_tpu's side is one `render` (2 spp, box film), traced and compiled
+once per module: the trace test's per-ray reference is the render's own
+sample-1 pass, captured from inside its compiled pass; and the JAX
+sampler's `sample_dim` is jitted on its own, so that tracing the render
+traces it once and not once per sample dimension (the same function, the
+same bits).
 """
+import functools
 import os
 
 import numpy as np
@@ -17,19 +25,21 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from pbrt_tpu.cameras import projective as jproj
 from pbrt_tpu.film import film as jfilm
 from pbrt_tpu.film import io as jio
 from pbrt_tpu.integrators import path as jpath
 from pbrt_tpu.models import flagship as jflag
+from pbrt_tpu.samplers import samplers as jsamp
 from pbrt_tpu.samplers.samplers import SamplerConfig as JCfg
 from pbrt_tpu_torch.film import film as tfilm
 from pbrt_tpu_torch.film import io as tio
 from pbrt_tpu_torch.integrators import path as tpath
 from pbrt_tpu_torch.models import flagship as tflag
 from pbrt_tpu_torch.samplers.samplers import SamplerConfig as TCfg
+from test_torch_core import one_torch_thread  # noqa: F401  (autouse)
 
 W = H = 32
+SPP = 2
 DEV = "cpu"
 
 
@@ -44,23 +54,43 @@ def _frac_close(a, b, rtol=1e-2):
     return (np.abs(a - b) <= rtol * np.abs(b)).mean()
 
 
-def test_trace_paths_matches_jax(scenes):
-    js, jc, ts, tc = scenes
-    ids = np.arange(W * H, dtype=np.uint32)
+@pytest.fixture(scope="module")
+def jax_render(scenes):
+    """pbrt_tpu's render (box film, SPP spp, depth 5) and, per sample
+    index, the per-ray (L, ray counters) of its pass, which the pass's
+    trace function hands out through a debug callback."""
+    js, jc, _, _ = scenes
+    passes = {}
 
-    @jax.jit
-    def jrun(pixel_ids):
-        ray, _, _, pid, sidx = jpath.camera_rays_for_pixels(
-            jc, W, H, JCfg("sobol", 0, 4), pixel_ids, 1,
-            jproj.generate_rays)
-        return jpath.trace_paths(js, ray, pid, sidx, JCfg("sobol", 0, 4),
-                                 max_depth=5, count_rays="full")
+    def store(s, L, n):
+        passes[int(s)] = (np.asarray(L), np.asarray(n))
 
-    jL, jn = (np.asarray(x) for x in jrun(jnp.asarray(ids)))
+    @functools.wraps(jpath.trace_paths)
+    def trace(scene, ray, pixel_id, sample_idx, cfg, **kw):
+        L, n = jpath.trace_paths(scene, ray, pixel_id, sample_idx, cfg,
+                                 count_rays="full", **kw)
+        jax.debug.callback(store, sample_idx[0], L, n)
+        return L
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jpath, "sample_dim",
+                   jax.jit(jsamp.sample_dim, static_argnums=0))
+        film = jpath.render(js, jc, jfilm.make_film(W, H, "box"),
+                            JCfg("sobol", 0, SPP), SPP, max_depth=5,
+                            trace_fn=trace)
+        jax.block_until_ready(film.weighted)
+    return film, passes
+
+
+def test_trace_paths_matches_jax(scenes, jax_render):
+    """The render's sample-1 pass: camera rays of every pixel through
+    trace_paths, per-ray radiance and ray counters."""
+    _, _, ts, tc = scenes
+    jL, jn = jax_render[1][1]
+    ids = np.arange(W * H, dtype=np.int64)
     ray, _, _, pid, sidx = tpath.camera_rays_for_pixels(
-        tc, W, H, TCfg("sobol", 0, 4), torch.from_numpy(ids.astype(np.int64)),
-        1)
-    tL, tn = tpath.trace_paths(ts, ray, pid, sidx, TCfg("sobol", 0, 4),
+        tc, W, H, TCfg("sobol", 0, SPP), torch.from_numpy(ids), 1)
+    tL, tn = tpath.trace_paths(ts, ray, pid, sidx, TCfg("sobol", 0, SPP),
                                max_depth=5, count_rays="full")
     tL, tn = tL.numpy(), tn.numpy()
     assert tL.shape == jL.shape == (W * H, 31)
@@ -72,11 +102,10 @@ def test_trace_paths_matches_jax(scenes):
     np.testing.assert_allclose(tn, jn, rtol=0.01)
 
 
-def test_render_matches_jax(scenes):
-    js, jc, ts, tc = scenes
-    spp = 2
-    jf = jpath.render(js, jc, jfilm.make_film(W, H, "box"),
-                      JCfg("sobol", 0, spp), spp, max_depth=5)
+def test_render_matches_jax(scenes, jax_render):
+    _, _, ts, tc = scenes
+    spp = SPP
+    jf = jax_render[0]
     tf, n_rays = tpath.render(ts, tc, tfilm.make_film(W, H, "box", device=DEV),
                               TCfg("sobol", 0, spp), spp, max_depth=5,
                               count_rays=True)

@@ -17,6 +17,7 @@ from pbrt_tpu_torch.core import transform as ttfm
 from pbrt_tpu_torch.models import flagship as tflag
 from pbrt_tpu_torch.ops import dense_intersect as tdense
 from pbrt_tpu_torch.scene import ir as tir
+from test_torch_core import one_torch_thread  # noqa: F401  (autouse)
 
 DEV = "cpu"
 

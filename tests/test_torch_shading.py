@@ -18,6 +18,7 @@ from pbrt_tpu.models import flagship as jflag
 from pbrt_tpu_torch.lights import lights as tlights
 from pbrt_tpu_torch.materials import bsdf as tbsdf
 from pbrt_tpu_torch.models import flagship as tflag
+from test_torch_core import one_torch_thread  # noqa: F401  (autouse)
 
 N = 4096
 RTOL, ATOL = 1e-4, 1e-6
