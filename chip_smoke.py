@@ -39,7 +39,8 @@ The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}};
 the line before it lists every kernel with its launches, its largest
 difference from the plain version, its times, its bound and what bounds
-it.
+it, and for K2 and K2 motion the listed chunks of a slice, the blocks a
+tile may take, the staging buffers and the merge keys' fills.
 """
 
 from __future__ import annotations
@@ -87,15 +88,13 @@ RAYS_PER_PASS = 65536
 # t = num/nd cancels on some lanes (PERF.md), so a share and not every
 # lane.  K2 motion rounds its Horner steps in another order than its plain
 # version (table entries first, or dot products first), but most of the
-# motion scene's triangles are static and Horner-exact, and the share was
+# motion scene's triangles are static (planes 1-3 exact zeros, so Horner
+# in either order returns plane 0 exactly), and the share was
 # 0.9985 (camera) and 0.9975 (bounce 1) on the H100, the static pair's
 # 0.9990 and 0.9978 (PERF.md): the same floor holds both.  Every lane of
 # both is held to its f32 rounding bound regardless.
 T_SHARE = 0.99
-F32_PEAK = 67e12     # FLOP/s, H100 SXM f32 outside the tensor cores
-HBM_BPS = 3.35e12    # B/s, H100 SXM HBM3
 K1_FLOPS = 28        # per (lane, chunk) slab test
-K2_FLOPS = {"dense_loop": 45, "dense_loop_motion": 177}   # per test
 KERNELS = {
     "dense_queue": ("pbrt_tpu_torch/csrc/dense_queue.cu",
                     "pbrt_tpu/ops/pallas_intersect.py:761"),
@@ -120,7 +119,8 @@ HARNESSES = {
                        "scripts/debug/dbg_dense_full.py:45",
 }
 # f32 operations per ray-triangle test of each ablation mode
-ABLATE_FLOPS = {"empty": 0, "stage": 0, "sections": 42, "direct": 45}
+ABLATE_FLOPS = {"empty": 0, "stage": 0, "sections": 42,
+                "direct": kw.TEST_FLOPS}
 TINY_PICKS = [0, 1, 2, 2]
 
 
@@ -151,82 +151,8 @@ def time_ms(fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
-def bound(flops, nbytes):
-    """(least ms the card could take, what bounds it)."""
-    t_ops, t_bytes = flops / F32_PEAK, nbytes / HBM_BPS
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
-
-
 def nbytes(*xs):
     return sum(x.numel() * x.element_size() for x in xs)
-
-
-def loop_bytes(mode, r16, tmax, W, chunk_list, n_active, *outs):
-    """Bytes a static loop-kernel mode (production K2 is "full") must move,
-    each input read once: n_active and each tile's first n_active list
-    entries; tmax (but for stage, which never reads it); except for
-    empty, the LOOP_ROWS staged rows of each distinct listed chunk; the
-    ray columns the tests read (d, (o-c) x d, o-c: 9 floats, and the
-    any-hit flag where hits are taken); and the outputs."""
-    chunk = W.shape[2] // 4
-    on = (torch.arange(W.shape[0], device=n_active.device)
-          < n_active[:, None])
-    b = nbytes(n_active, *outs) + int(n_active.sum()) * 4
-    if mode != "stage":
-        b += nbytes(tmax)
-    if mode == "empty":
-        return b
-    b += (torch.unique(chunk_list[on]).numel() * dense.LOOP_ROWS * chunk
-          * 4)
-    cols = {"stage": 0, "sections": 9}.get(mode, 10)
-    return b + r16.shape[0] * cols * 4
-
-
-def capture_batches(scene, camera, cfg, device):
-    """The (r16, tmax, time) batches the main path hands the dense kernels
-    in one pass: call 0 is the camera batch, call 1 the first trace_pair
-    (bounce-1 rays + bounce-0 shadow rays).  time is None for static
-    scenes."""
-    batches = []
-    inner = dense.dense_intersect_loop
-
-    def record(r16, tmax, W_, cb, time=None):
-        batches.append((r16.clone(), tmax.clone(),
-                        None if time is None else time.clone()))
-        return inner(r16, tmax, W_, cb, time=time)
-
-    dense.dense_intersect_loop = record
-    try:
-        ids = torch.arange(RAYS_PER_PASS, device=device)
-        ray, _, _, pid, sidx = path.camera_rays_for_pixels(
-            camera, W, H, cfg, ids, 0)
-        path.trace_paths(scene, ray, pid, sidx, cfg, max_depth=DEPTH)
-    finally:
-        dense.dense_intersect_loop = inner
-    check(len(batches) == DEPTH + 1,
-          f"expected {DEPTH + 1} intersect calls, got {len(batches)}")
-    return {"camera": batches[0], "bounce1": batches[1]}
-
-
-def k2_tests(r16, tmax, prim, chunk_list, n_active, chunk):
-    """Ray-triangle tests K2 makes on these inputs: every triangle of the
-    tile's active chunks for live closest-hit lanes and any-hit lanes
-    that miss; for any-hit lanes that hit, those up to the first accept
-    in chunk-list order."""
-    n_tiles, C = chunk_list.shape
-    dev = r16.device
-    ranks = torch.arange(C, dtype=torch.int64, device=dev).expand(n_tiles, C)
-    rank_of = torch.full((n_tiles, C), C, dtype=torch.int64, device=dev)
-    rank_of.scatter_(1, chunk_list.long(), torch.where(
-        ranks < n_active[:, None], ranks, C))
-    tile = torch.arange(r16.shape[0], device=dev) // dense.TILE
-    full = n_active.long()[tile] * chunk
-    p = prim.long().clamp(min=0)
-    upto = rank_of[tile, p // chunk] * chunk + p % chunk + 1
-    anyhit = r16[:, 12] > 0.5
-    tests = torch.where(anyhit & (prim >= 0), upto, full)
-    return int(torch.where(tmax > 0, tests, 0).sum())
 
 
 def compare_kernels(scene, batches, card, k2):
@@ -235,7 +161,6 @@ def compare_kernels(scene, batches, card, k2):
     {kernel: {batch: record}}."""
     motion = k2 == "dense_loop_motion"
     cb, Wt = scene.dense_cb, scene.dense_w
-    chunk = scene.dense_chunk
     res = {"dense_queue": {}, k2: {}}
     for name, (r16, tmax, tm) in batches.items():
         # --- K1: hits identical, near within 1e-6 relative ---
@@ -248,7 +173,7 @@ def compare_kernels(scene, batches, card, k2):
         check(rel <= 1e-6, f"K1 {name}: near rel err {rel}")
         n_tiles, C = hits.shape
         live_tiles = (tmax.reshape(n_tiles, -1) > 0).any(1)
-        k1_bound = bound(K1_FLOPS * int(live_tiles.sum()) * dense.TILE * C,
+        k1_bound = kw.bound(K1_FLOPS * int(live_tiles.sum()) * dense.TILE * C,
                          nbytes(r16, tmax, cb, hits, near))
 
         # --- K2: same chunk lists into kernel and plain version ---
@@ -257,7 +182,8 @@ def compare_kernels(scene, batches, card, k2):
         na = hits.sum(1, dtype=torch.int32)
         if motion:
             def run_k():
-                return dense.loop_hits_motion(r16, tmax, tm, Wt, cl, na)
+                return dense.loop_hits_motion(r16, tmax, tm, Wt, cl, na,
+                                              scene.dense_static)
 
             def run_p():
                 return dense.loop_hits_motion_plain(r16, tmax, tm, Wt, cl,
@@ -305,10 +231,8 @@ def compare_kernels(scene, batches, card, k2):
         check(share >= T_SHARE, f"{k2} {name}: only {share} of lanes "
               "within 1e-5")
         check(occ_same, f"{k2} {name}: occluded flags differ")
-        tests = k2_tests(r16, tmax, p_k, cl, na, chunk)
-        k2_bytes = (nbytes(r16, tmax, tm, Wt, cl, na, t_k, p_k) if motion
-                    else loop_bytes("full", r16, tmax, Wt, cl, na, t_k, p_k))
-        k2_bound = bound(K2_FLOPS[k2] * tests, k2_bytes)
+        *k2_bound, tests = kw.loop_bound(r16, tmax, Wt, cl, na, t_k, p_k,
+                                         scene.dense_static, time=tm)
 
         res["dense_queue"][name] = dict(
             max_abs_err=err.max().item() if err.numel() else 0.0,
@@ -326,7 +250,8 @@ def compare_kernels(scene, batches, card, k2):
               f"{res['dense_queue'][name]['plain_ms']:.4f} ms bound "
               f"{k1_bound[0]:.5f} ms ({k1_bound[1]}) | {k2} kernel "
               f"{res[k2][name]['ms']:.4f} ms plain "
-              f"{res[k2][name]['plain_ms']:.4f} ms, {tests} tests, bound "
+              f"{res[k2][name]['plain_ms']:.4f} ms, {tests[0]} tests on "
+              f"static chunks, {tests[1]} on moving ones, bound "
               f"{k2_bound[0]:.5f} ms ({k2_bound[1]}) on {card}")
     return res
 
@@ -441,14 +366,17 @@ def phase10(scene, card):
     tests = {"empty": 0, "stage": 0,
              "sections": int((wl.n_active.repeat_interleave(dense.TILE)
                               * (wl.tmax > 0)).sum()) * wl.chunk,
-             "direct": k2_tests(wl.r16, wl.tmax, p_k2, wl.chunk_list,
-                                wl.n_active, wl.chunk)}
+             "direct": sum(dense.loop_test_counts(
+                 wl.r16, wl.tmax, p_k2, wl.chunk_list, wl.n_active,
+                 wl.chunk, wl.chunk_static))}
     rows = []
     cluster = abl["cluster g=8"]["times"]
     for m in ("empty", "stage", "sections", "direct"):
         name = f"dense_loop_ablate[{m}]"
         t_k, p_k = dense.loop_hits_ablate(m, *args)
-        b = bound(ABLATE_FLOPS[m] * tests[m], loop_bytes(m, *args, t_k, p_k))
+        b = kw.bound(ABLATE_FLOPS[m] * tests[m],
+                     kw.loop_bytes(m, *args, t_k, p_k,
+                                   chunk_static=wl.chunk_static))
         rows.append({
             "name": name, "route": "cuda",
             "source": "pbrt_tpu_torch/csrc/dense_loop.cu",
@@ -469,8 +397,9 @@ def phase10(scene, card):
     n_tests = len(TINY_PICKS) * tiny.chunk * dense.TILE
     # the ray columns the tests read, tmax, the picks, the staged rows of
     # each distinct pick, the outputs
-    b = bound(45 * n_tests, dense.TILE * 11 * 4 + nbytes(picks, *out.values())
-              + len(set(TINY_PICKS)) * dense.LOOP_ROWS * tiny.chunk * 4)
+    b = kw.bound(kw.TEST_FLOPS * n_tests,
+                 dense.TILE * 11 * 4 + nbytes(picks, *out.values())
+                 + len(set(TINY_PICKS)) * dense.LOOP_ROWS * tiny.chunk * 4)
     rows.append({
         "name": "dense_tile_dump", "route": "cuda",
         "source": "pbrt_tpu_torch/csrc/dense_loop.cu",
@@ -510,30 +439,39 @@ def main():
           "dense_queue, dense_loop (5 modes and the tile dump), "
           "dense_loop_motion)")
     for line in log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if any(k in line for k in ("registers", "Compiling entry",
+                                   "spill")):
             print("  ptxas: " + line.strip())
 
     # --- phases 3-4: kernels against their plain versions ---
     scene, cam_ctor = flagship.cornell(device=device)
     camera = cam_ctor(W, H)
     cfg = SamplerConfig("sobol", 0, SPP)
-    batches = capture_batches(scene, camera, cfg, device)
+    batches = kw.main_path_batches(scene, camera, cfg, W, H, RAYS_PER_PASS,
+                                   DEPTH)
     res = compare_kernels(scene, batches, card, "dense_loop")
     mjob = parse_scene(MOTION_SCENE, device=device)
     check(mjob.scene.dense_motion and mjob.scene.has_animated_quads,
           "the motion scene did not parse as moving")
     mcam = cli.build_camera(mjob, W, H, device)
-    mres = compare_kernels(mjob.scene,
-                           capture_batches(mjob.scene, mcam, cfg, device),
-                           card, "dense_loop_motion")
+    mres = compare_kernels(mjob.scene, kw.main_path_batches(
+        mjob.scene, mcam, cfg, W, H, RAYS_PER_PASS, DEPTH), card,
+        "dense_loop_motion")
     res["dense_loop_motion"] = mres["dense_loop_motion"]
     res["dense_queue_motion"] = mres["dense_queue"]
     print("phase 3-4 kernels agree with their plain versions")
 
     passes = SPP * (-(-W * H // RAYS_PER_PASS))
     launches = {k: 0 for k in KERNELS}
+    # the merge keys' fills, by the K2 that took them
+    init_launches = {"dense_loop": 0, "dense_loop_motion": 0}
 
-    def run_path(what, fn, expect):
+    def run_path(what, fn, expect, sc):
+        k2 = "dense_loop_motion" if sc.dense_motion else "dense_loop"
+        calls = expect[k2]
+        # one fill of the merge keys per K2 call where lists can be split
+        expect = dict(expect, dense_loop_init=calls if dense.loop_blocks(
+            sc.dense_w.shape[0]) > 1 else 0)
         dense.reset_launch_counts()
         out = fn()
         torch.cuda.synchronize()
@@ -541,6 +479,7 @@ def main():
         check_launches(counts, expect, what)
         for k in KERNELS:
             launches[k] += counts[k]
+        init_launches[k2] += counts["dense_loop_init"]
         return out, counts
 
     # --- phase 5: the Cornell model through render ---
@@ -558,7 +497,7 @@ def main():
                             max_rays_per_pass=RAYS_PER_PASS,
                             count_rays=True),
         {"dense_queue": (DEPTH + 1) * passes,
-         "dense_loop": (DEPTH + 1) * passes, "dense_loop_motion": 0})
+         "dense_loop": (DEPTH + 1) * passes, "dense_loop_motion": 0}, scene)
     dt = time.perf_counter() - t0
     check_image(filmmod.develop_spectral(film), "Cornell render")
     print(f"phase 5 Cornell render {W}x{H} {SPP} spp depth {DEPTH}: "
@@ -574,7 +513,8 @@ def main():
         "CLI reference gate",
         lambda: cli.run_job(job, spp=GATE_SPP, stats=stats),
         {"dense_queue": (DEPTH + 1) * gate_passes,
-         "dense_loop": (DEPTH + 1) * gate_passes, "dense_loop_motion": 0})
+         "dense_loop": (DEPTH + 1) * gate_passes, "dense_loop_motion": 0},
+        job.scene)
     dt = time.perf_counter() - t0
     med, flat = reference_gate(gfilm, GATE_SPP)
     print(f"phase 6 CLI reference gate cornell_bench.pbrt {W}x{H} "
@@ -595,7 +535,7 @@ def main():
         lambda: cli.run_job(mjob, spp=SPP, max_depth=DEPTH,
                             max_rays_per_pass=RAYS_PER_PASS, stats=stats),
         {"dense_queue": (DEPTH + 1) * passes, "dense_loop": 0,
-         "dense_loop_motion": (DEPTH + 1) * passes})
+         "dense_loop_motion": (DEPTH + 1) * passes}, mjob.scene)
     dt = time.perf_counter() - t0
     check_image(filmmod.develop_spectral(mfilm), "motion render")
     print(f"phase 7 motion render cornell_motion.pbrt {W}x{H} {SPP} spp "
@@ -635,6 +575,15 @@ def main():
             m = res["dense_queue_motion"]
             row.update(ms_motion_bounce1=m["bounce1"]["ms"],
                        ms_motion_camera=m["camera"]["ms"])
+        if k in init_launches:
+            sc = scene if k == "dense_loop" else mjob.scene
+            row.update(
+                slice_len=dense.LOOP_SLICE,
+                blocks_per_tile=dense.loop_blocks(sc.dense_w.shape[0]),
+                stages=1,
+                launches_init=init_launches[k],
+                tests_static_moving_bounce1=r["bounce1"]["tests"],
+                tests_static_moving_camera=r["camera"]["tests"])
         if k in ALSO_REPLACES:
             row["also_replaces"] = ALSO_REPLACES[k]
         row["launches_harnesses"] = harness["counts"][k]

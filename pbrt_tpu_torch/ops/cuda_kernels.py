@@ -42,11 +42,15 @@ def build():
     """Compile the kernels if no cached library matches the sources.
 
     Returns (library path, seconds spent, compiler log); the log holds
-    ptxas's per-kernel register and shared-memory report, and is empty
-    when the cached library was reused."""
+    ptxas's per-kernel register, spill and shared-memory report, and is
+    empty when the cached library was reused (ptxas_report reads it
+    back)."""
     t0 = time.perf_counter()
     path, log = build_shared_library("pbrt_dense", SOURCES,
                                      [_nvcc()] + NVCC_FLAGS)
+    if log:
+        with open(path + ".ptxas.txt", "w") as f:
+            f.write(log)
     return path, time.perf_counter() - t0, log
 
 
@@ -58,16 +62,13 @@ def library():
     lib.pbrt_dense_queue.restype = ctypes.c_int
     lib.pbrt_dense_queue.argtypes = [p, p, p, i, i, i, p, p, p]
     lib.pbrt_dense_loop.restype = ctypes.c_int
-    lib.pbrt_dense_loop.argtypes = [p, p, p, p, p, i, i, i, i, p, p, p]
+    lib.pbrt_dense_loop.argtypes = [p] * 5 + [i] * 5 + [p] * 4
     lib.pbrt_dense_loop_motion.restype = ctypes.c_int
-    lib.pbrt_dense_loop_motion.argtypes = [p, p, p, p, p, p, i, i, i, i, p,
-                                           p, p]
+    lib.pbrt_dense_loop_motion.argtypes = [p] * 7 + [i] * 5 + [p] * 4
     lib.pbrt_dense_loop_ablate.restype = ctypes.c_int
-    lib.pbrt_dense_loop_ablate.argtypes = [i, p, p, p, p, p, i, i, i, i, p,
-                                           p, p]
+    lib.pbrt_dense_loop_ablate.argtypes = [i] + [p] * 5 + [i] * 5 + [p] * 4
     lib.pbrt_dense_tile_dump.restype = ctypes.c_int
-    lib.pbrt_dense_tile_dump.argtypes = [p, p, p, p, i, i, i, p, p, p, p, p,
-                                         p]
+    lib.pbrt_dense_tile_dump.argtypes = [p] * 4 + [i] * 3 + [p] * 6
     return lib
 
 
@@ -80,14 +81,20 @@ def sass_counts():
         check=True, timeout=300).stdout)
 
 
+def ptxas_report():
+    """ptxas's report of the built library's kernels (parse_ptxas)."""
+    with open(build()[0] + ".ptxas.txt") as f:
+        return parse_ptxas(f.read())
+
+
 _SASS_OP = re.compile(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
                       r"([A-Z][A-Z0-9_.]*)")
 
 
 def parse_sass(text):
     """{function name: {opcode: count}} of a SASS listing: each opcode
-    without its modifiers (FFMA, BAR, STS, ...), and MUFU.RCP and
-    BAR.SYNC also by those names."""
+    without its modifiers (FFMA, BAR, STS, ...), and MUFU.RCP, BAR.SYNC
+    and LDS.128 (a 16-byte shared load) also by those names."""
     counts, cur = {}, None
     for line in text.splitlines():
         if "Function :" in line:
@@ -98,6 +105,42 @@ def parse_sass(text):
             continue
         full = m.group(1)
         for name in {full.split(".")[0]} | {
-                n for n in ("MUFU.RCP", "BAR.SYNC") if full.startswith(n)}:
+                n for n in ("MUFU.RCP", "BAR.SYNC", "LDS.128")
+                if full.startswith(n)}:
             cur[name] = cur.get(name, 0) + 1
     return counts
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '([A-Za-z0-9_]+)'")
+_PTXAS_PROPS = re.compile(r"Function properties for ([A-Za-z0-9_]+)")
+_PTXAS_NUM = {"stack": re.compile(r"(\d+) bytes stack frame"),
+              "spill_stores": re.compile(r"(\d+) bytes spill stores"),
+              "spill_loads": re.compile(r"(\d+) bytes spill loads")}
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def parse_ptxas(text):
+    """{function name: {"registers", "stack", "spill_stores",
+    "spill_loads": int}} of an `nvcc -Xptxas -v` log: the registers of
+    each entry function, the stack and spills of each function whose
+    properties are listed."""
+    out, entry, props = {}, None, None
+    for line in text.splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            entry = m.group(1)
+            out.setdefault(entry, {})
+            continue
+        m = _PTXAS_PROPS.search(line)
+        if m:
+            props = m.group(1)
+            out.setdefault(props, {})
+            continue
+        m = _PTXAS_REGS.search(line)
+        if m and entry is not None:
+            out[entry]["registers"] = int(m.group(1))
+        for k, rx in _PTXAS_NUM.items():
+            m = rx.search(line)
+            if m and props is not None:
+                out[props][k] = int(m.group(1))
+    return out

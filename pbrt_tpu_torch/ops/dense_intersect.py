@@ -34,8 +34,15 @@ lane's best.  Any-hit lanes park at t = -1 after their first accept (in
 their tile's chunk order, and in triangle order within a chunk).
 `dense_intersect_loop` runs K1, the chunk sort and K2; given a per-ray
 `time` it takes the motion K2.  Once any mesh of a scene moves, its whole
-table is the motion table (static triangles have zero higher planes), as
-in the JAX package.
+table is the motion table, as in the JAX package; an unmoving triangle's
+plane 0 is its static entry and its planes 1-3 are exact zeros, and
+K2 motion runs the chunks whose triangles are all unmoving
+(`chunk_static`) with the static kernel's body.
+
+K2 cuts a tile's list into slices of LOOP_SLICE listed chunks, walked by
+up to LOOP_BLOCKS blocks, and merges their lanes through a zeroed key
+buffer (one fill launch, counted as `dense_loop_init`, where a tile can
+take more than one block).
 
 Each wrapper takes the plain version only for tensors on the CPU.  For
 CUDA tensors it launches the kernel or raises.
@@ -58,6 +65,16 @@ N_COEF = 4           # coefficient planes of the motion table (cubic in t)
 MOTION_NODES = np.array([0.0, 1.0 / 3.0, 2.0 / 3.0, 1.0])
 SMEM_DEFAULT = 48 * 1024     # shared memory a block gets without opting in
 SMEM_MAX = 232448            # what a Hopper block can opt in to
+# G: listed chunks per slice of a tile's list, the kernel's constant
+# kSlice (csrc/dense_loop.cu, where its measurement stands); here it sizes
+# the grid
+LOOP_SLICE = 2
+# S: the most blocks K2 launches per tile; block b walks slices b, b + S,
+# ...  Uncapped, the 514-chunk cluster table launched 129 blocks per tile
+# at G = 4, nearly all empty: 0.087 ms for tiles listing no chunk and
+# 0.110 ms for one (tools/ablate_k2.py --sweep, g = 0 and 1); capped,
+# 0.045 ms for one, against the first version's 0.083 (PERF.md).
+LOOP_BLOCKS = 16
 
 #: K2's ablation modes, in the order of the kernel's mode ids
 #: (csrc/dense_loop.cu::LoopMode); "full" is production K2
@@ -71,9 +88,10 @@ def ablate_kernel(mode):
 
 
 #: kernel launches made by the wrappers (the plain versions never count)
+#: ("dense_loop_init": the fills of the loop kernels' merge keys)
 LAUNCHES = {k: 0 for k in ("dense_queue", "dense_loop", "dense_loop_motion",
                            *map(ablate_kernel, ABLATE_MODES[:-1]),
-                           "dense_tile_dump")}
+                           "dense_tile_dump", "dense_loop_init")}
 
 
 def reset_launch_counts():
@@ -176,10 +194,15 @@ def build_dense_tables_motion(v0, e1, e2, dmotion, chunk=None):
     e1 + t*de1, e2(t) = e2 + t*de2 (dmotion [P,12] = d0|de1|de2|pad, the
     scene's tri_motion).  Every section entry is then a cubic in t: the
     table holds its four monomial coefficient planes, fitted exactly
-    through four time nodes at one per-triangle scale.  Returns dict: W
+    through four time nodes at one per-triangle scale.  An unmoving
+    triangle (dmotion all zero; padding too) gets build_dense_tables'
+    entry as plane 0 and exact zeros as planes 1-3, so that any Horner
+    evaluation returns plane 0 (the fit's inverse Vandermonde rows do not
+    sum to exactly 0, and would leave ~1e-15 there).  Returns dict: W
     [C,16,N_COEF*4*chunk] f32, chunk-major and coefficient-major inside a
     chunk (per row: plane k, then sections s1|s2|num|s0, each `chunk`
-    wide); chunk_bounds [C,8] grown to hold both keyframes; chunk; center.
+    wide); chunk_bounds [C,8] grown to hold both keyframes; chunk; center;
+    chunk_static [C] bool (every triangle of the chunk unmoving).
     """
     v0 = np.asarray(v0, np.float64)
     e1 = np.asarray(e1, np.float64)
@@ -192,17 +215,24 @@ def build_dense_tables_motion(v0, e1, e2, dmotion, chunk=None):
     C = Pp // chunk
     center = v0.mean(0) if P else np.zeros(3)
     Wk = np.zeros((N_COEF, 4, 16, Pp), np.float64)
+    still = np.ones(Pp, bool)
     if P:
-        d0, de1, de2 = dm[:, 0:3], dm[:, 3:6], dm[:, 6:9]
-        snaps = [(v0 + t * d0, e1 + t * de1, e2 + t * de2)
+        still[:P] = ~dm.any(1)
+        mv = ~still[:P]
+        d0, de1, de2 = dm[mv, 0:3], dm[mv, 3:6], dm[mv, 6:9]
+        snaps = [(v0[mv] + t * d0, e1[mv] + t * de1, e2[mv] + t * de2)
                  for t in MOTION_NODES]
         mag = np.maximum.reduce([_plucker_scale(*sn, center)
                                  for sn in snaps])
         inv = (1.0 / mag)[:, None]
         Wn = np.stack([_plucker_sections(*sn, center, inv)
-                       for sn in snaps])                   # [nodes,4,16,P]
+                       for sn in snaps])                   # [nodes,4,16,m]
         A = np.linalg.inv(np.vander(MOTION_NODES, N_COEF, increasing=True))
-        Wk[:, :, :, :P] = np.einsum('kn,nsrp->ksrp', A, Wn)
+        Wk[:, :, :, np.flatnonzero(mv)] = np.einsum('kn,nsrp->ksrp', A, Wn)
+        st = still[:P]
+        inv = (1.0 / _plucker_scale(v0[st], e1[st], e2[st], center))[:, None]
+        Wk[0, :, :, np.flatnonzero(st)] = _plucker_sections(
+            v0[st], e1[st], e2[st], center, inv).transpose(2, 0, 1)
     W = np.ascontiguousarray(
         Wk.astype(np.float32).reshape(N_COEF, 4, 16, C, chunk)
         .transpose(3, 2, 0, 1, 4).reshape(C, 16, N_COEF * 4 * chunk))
@@ -224,7 +254,8 @@ def build_dense_tables_motion(v0, e1, e2, dmotion, chunk=None):
                 cb[c, 0:3] = vv.min(0) - 1e-4
                 cb[c, 4:7] = vv.max(0) + 1e-4
     return dict(W=W, chunk_bounds=cb, chunk=chunk,
-                center=center.astype(np.float32))
+                center=center.astype(np.float32),
+                chunk_static=still.reshape(C, chunk).all(1))
 
 
 def ray_vectors(o, d, center, anyhit=None):
@@ -341,8 +372,15 @@ def tile_chunk_lists(r16, tmax, chunk_bounds):
 
 
 def _smem_bytes(chunk, n_coef):
-    """Shared memory K2 stages per chunk: LOOP_ROWS rows of every plane."""
+    """Shared memory one K2 staging buffer takes: LOOP_ROWS rows of every
+    plane."""
     return LOOP_ROWS * n_coef * chunk * 4
+
+
+def loop_blocks(n_chunks):
+    """Blocks K2 launches per ray tile: one per slice of LOOP_SLICE listed
+    chunks that a list of n_chunks can hold, at most LOOP_BLOCKS."""
+    return min(-(-n_chunks // LOOP_SLICE), LOOP_BLOCKS)
 
 
 def loop_hits(r16, tmax, W, chunk_list, n_active):
@@ -360,17 +398,22 @@ def loop_hits(r16, tmax, W, chunk_list, n_active):
                         n_active)
 
 
-def loop_hits_motion(r16, tmax, time, W, chunk_list, n_active):
+def loop_hits_motion(r16, tmax, time, W, chunk_list, n_active,
+                     chunk_static):
     """K2 for moving meshes: loop_hits with every section entry evaluated
     at the lane's shutter time.
 
     time [B] f32 in [0,1]; W [C,16,N_COEF*4*chunk] f32 (the coefficient
-    planes of build_dense_tables_motion).  The rest as loop_hits."""
+    planes of build_dense_tables_motion); chunk_static [C] bool or uint8,
+    true for the chunks whose triangles are all unmoving (the table's
+    `chunk_static`): the kernel runs those with the static body, which
+    gives what Horner gives on their exact-zero planes.  The rest as
+    loop_hits."""
     if _on_cpu(r16, tmax, time, W, chunk_list, n_active):
         return loop_hits_motion_plain(r16, tmax, time, W, chunk_list,
                                       n_active)
     return _launch_loop("dense_loop_motion", r16, tmax, time, W, chunk_list,
-                        n_active)
+                        n_active, chunk_static=chunk_static)
 
 
 def loop_hits_ablate(mode, r16, tmax, W, chunk_list, n_active):
@@ -388,7 +431,12 @@ def loop_hits_ablate(mode, r16, tmax, W, chunk_list, n_active):
                         n_active, mode=mode)
 
 
-def _launch_loop(name, r16, tmax, time, W, chunk_list, n_active, mode=None):
+def _launch_loop(name, r16, tmax, time, W, chunk_list, n_active, mode=None,
+                 chunk_static=None, blocks=None):
+    """Launches a loop kernel: chunk_static is K2 motion's (required
+    there); `blocks` per tile defaults to loop_blocks, and any count gives
+    the same result (the tests launch one block per tile to hold the
+    split to it)."""
     B = r16.shape[0]
     n_coef = 1 if time is None else N_COEF
     C, _, cw = W.shape
@@ -396,10 +444,12 @@ def _launch_loop(name, r16, tmax, time, W, chunk_list, n_active, mode=None):
     if B == 0 or B % TILE:
         raise ValueError(f"{name}: batch {B} is not a positive multiple of "
                          f"{TILE}")
+    if chunk % 4:
+        raise ValueError(f"{name}: chunk {chunk} is not a multiple of 4")
     smem = _smem_bytes(chunk, n_coef)
-    if smem > (SMEM_DEFAULT if time is None else SMEM_MAX):
+    if smem > SMEM_MAX:
         raise ValueError(f"{name}: a {chunk}-triangle chunk needs {smem} B "
-                         "of shared memory, more than the kernel takes")
+                         "of shared memory, more than a block can have")
     n_tiles = B // TILE
     _check("r16", r16, torch.float32, (B, 16))
     _check("tmax", tmax, torch.float32, (B,))
@@ -408,27 +458,78 @@ def _launch_loop(name, r16, tmax, time, W, chunk_list, n_active, mode=None):
     _check("n_active", n_active, torch.int32, (n_tiles,))
     t = torch.empty(B, dtype=torch.float32, device=r16.device)
     prim = torch.empty(B, dtype=torch.int32, device=r16.device)
+    keys = None
+    blocks = loop_blocks(C) if blocks is None else blocks
+    if blocks > 1:
+        # per lane a merge key, per tile a count of finished blocks
+        keys = torch.zeros(B + n_tiles, dtype=torch.int64, device=r16.device)
+        LAUNCHES["dense_loop_init"] += 1
+    kp = ctypes.c_void_p(None if keys is None else keys.data_ptr())
     from pbrt_tpu_torch.ops import cuda_kernels
     lib = cuda_kernels.library()
     if mode is not None:
         err = lib.pbrt_dense_loop_ablate(
             ABLATE_MODES.index(mode), _ptr(r16), _ptr(tmax), _ptr(W),
             _ptr(chunk_list), _ptr(n_active), n_tiles, C, chunk, TILE,
-            _ptr(t), _ptr(prim), _stream())
+            blocks, kp, _ptr(t), _ptr(prim), _stream())
     elif time is None:
         err = lib.pbrt_dense_loop(
             _ptr(r16), _ptr(tmax), _ptr(W), _ptr(chunk_list),
-            _ptr(n_active), n_tiles, C, chunk, TILE, _ptr(t), _ptr(prim),
-            _stream())
+            _ptr(n_active), n_tiles, C, chunk, TILE, blocks, kp, _ptr(t),
+            _ptr(prim), _stream())
     else:
         _check("time", time, torch.float32, (B,))
+        if getattr(chunk_static, "dtype", None) not in (torch.bool,
+                                                        torch.uint8):
+            raise TypeError("chunk_static: expected a bool or uint8 tensor, "
+                            f"got {type(chunk_static).__name__}")
+        chunk_static = chunk_static.view(torch.uint8)
+        _check("chunk_static", chunk_static, torch.uint8, (C,))
         err = lib.pbrt_dense_loop_motion(
             _ptr(r16), _ptr(tmax), _ptr(time), _ptr(W), _ptr(chunk_list),
-            _ptr(n_active), n_tiles, C, chunk, TILE, _ptr(t), _ptr(prim),
-            _stream())
+            _ptr(n_active), _ptr(chunk_static), n_tiles, C, chunk, TILE,
+            blocks, kp, _ptr(t), _ptr(prim), _stream())
     _raise_on(err, name)
     LAUNCHES[name] += 1
     return t, prim
+
+
+def loop_test_counts(r16, tmax, prim, chunk_list, n_active, chunk,
+                     chunk_static):
+    """Ray-triangle tests K2 needs on these inputs, as (on static chunks,
+    on moving chunks): every triangle of the tile's active chunks for live
+    closest-hit lanes and any-hit lanes that miss; for any-hit lanes that
+    hit (prim, K2's output), those up to the first accept in chunk-list
+    order.  chunk_static [C] bool: true for the chunks whose triangles are
+    all unmoving (all of a static table's)."""
+    n_tiles, C = chunk_list.shape
+    dev = r16.device
+    cl = chunk_list.long()
+    ranks = torch.arange(C, dtype=torch.int64, device=dev).expand(n_tiles, C)
+    on = ranks < n_active[:, None]
+    rank_of = torch.full((n_tiles, C), C, dtype=torch.int64, device=dev)
+    rank_of.scatter_(1, cl, torch.where(on, ranks, C))
+    st = chunk_static.to(device=dev, dtype=torch.bool)
+    st_listed = (st[cl] & on).long()
+    # static chunks among each tile's first r listed, r = 0..C
+    st_before = torch.cat([torch.zeros((n_tiles, 1), dtype=torch.int64,
+                                       device=dev), st_listed.cumsum(1)], 1)
+    tile = torch.arange(r16.shape[0], device=dev) // TILE
+    na = n_active.long()[tile]
+    p = prim.long().clamp(min=0)
+    rank = rank_of[tile, p // chunk].clamp(max=C - 1)
+    hit_any = (r16[:, 12] > 0.5) & (prim >= 0)
+    last = torch.where(hit_any, rank, na)          # whole chunks before
+    n_st = st_before[tile, last]
+    n_st_tests = n_st * chunk
+    n_mv_tests = (last - n_st) * chunk
+    j = p % chunk + 1
+    hit_st = st[p // chunk]
+    n_st_tests = n_st_tests + torch.where(hit_any & hit_st, j, 0)
+    n_mv_tests = n_mv_tests + torch.where(hit_any & ~hit_st, j, 0)
+    live = tmax > 0
+    return (int(torch.where(live, n_st_tests, 0).sum()),
+            int(torch.where(live, n_mv_tests, 0).sum()))
 
 
 def loop_hits_plain(r16, tmax, W, chunk_list, n_active):
@@ -584,10 +685,10 @@ def loop_hits_ablate_plain(mode, r16, tmax, W, chunk_list, n_active):
     LoopMode), as (t [B] f32, prim [B] int32):
 
       empty     (tmax, n_active of the lane's tile).
-      stage     (the f32 sum, in list order from 0, of the staged word
-                (LOOP_ROWS * lane) mod (LOOP_ROWS * chunk) of each listed
-                chunk, lane = ray index mod TILE; n_active): the kernel's
-                own additions, so equal bit for bit.
+      stage     (the xor of the bits of the staged word (LOOP_ROWS *
+                lane) mod (LOOP_ROWS * chunk) of each listed chunk, lane =
+                ray index mod TILE, as f32; n_active): equal bit for bit,
+                however the kernel splits the list across blocks.
       sections  (the least num + nd over the lane's tests, +inf on dead
                 lanes; n_active), one [TILE,16] @ [16,4*chunk] product per
                 listed chunk and tile.  Kernel and plain round differently:
@@ -612,12 +713,12 @@ def loop_hits_ablate_plain(mode, r16, tmax, W, chunk_list, n_active):
         word = (LOOP_ROWS * torch.arange(TILE, device=dev)) % (
             LOOP_ROWS * chunk)
         off = staged_offsets(chunk, dev)[word // chunk] + word % chunk
-        Wf = W.reshape(C, -1)
-        acc = torch.zeros((n_tiles, TILE), dtype=torch.float32, device=dev)
+        Wf = W.reshape(C, -1).view(torch.int32)
+        acc = torch.zeros((n_tiles, TILE), dtype=torch.int32, device=dev)
         for k in range(n_steps):
             v = Wf[chunk_list[:, k].long()[:, None], off[None, :]]
-            acc = torch.where(on[k], acc + v, acc)
-        return acc.reshape(B), walked
+            acc = torch.where(on[k], acc ^ v, acc)
+        return acc.view(torch.float32).reshape(B), walked
     rt = r16.reshape(n_tiles, TILE, 16)
     live = (tmax > 0).reshape(n_tiles, TILE)
     acc = torch.full((n_tiles, TILE), float("inf"), device=dev)
@@ -680,9 +781,9 @@ def tile_dump(r16, tmax, W, picks, tile):
     if rt.shape[0] != TILE or n == 0:
         raise ValueError(f"tile_dump: tile {tile} is not a whole tile of "
                          f"the batch, or no picks")
-    if _smem_bytes(chunk, 1) > SMEM_DEFAULT:
-        raise ValueError(f"tile_dump: a {chunk}-triangle chunk needs more "
-                         "shared memory than the kernel takes")
+    if _smem_bytes(chunk, 1) > SMEM_MAX or chunk % 4:
+        raise ValueError(f"tile_dump: the kernel does not take "
+                         f"{chunk}-triangle chunks")
     _check("r16", rt, torch.float32, (TILE, 16))
     _check("tmax", tt, torch.float32, (TILE,))
     _check("W", W, torch.float32, (C, 16, 4 * chunk))
@@ -783,12 +884,15 @@ def tile_dump_bounds(r16, W, picks):
     return 2 * _gamma(16) * torch.stack(secs), torch.stack(trel)
 
 
-def dense_intersect_loop(r16, tmax, W, chunk_bounds, time=None):
+def dense_intersect_loop(r16, tmax, W, chunk_bounds, chunk_static,
+                         time=None):
     """Closest / any-hit query over the dense tables: K1, the front-to-back
     chunk sort, then K2 (the motion K2 when a per-ray shutter `time` [B]
-    in [0,1] is given; W is then the motion table).  r16 [B,16], tmax [B].
-    Returns (t [B], prim [B] int32), prim -1 on a miss; pads the batch to
-    whole tiles with dead lanes."""
+    in [0,1] is given; W is then the motion table).  chunk_static [C]
+    bool: the table's chunks of unmoving triangles (all of a static
+    table's; K2 motion reads it).  r16 [B,16], tmax [B].  Returns
+    (t [B], prim [B] int32), prim -1 on a miss; pads the batch to whole
+    tiles with dead lanes."""
     B = r16.shape[0]
     Bp = -(-B // TILE) * TILE
     if Bp != B:
@@ -803,5 +907,5 @@ def dense_intersect_loop(r16, tmax, W, chunk_bounds, time=None):
         t, prim = loop_hits(r16, tmax, W, chunk_list, n_active)
     else:
         t, prim = loop_hits_motion(r16, tmax, time.contiguous(), W,
-                                   chunk_list, n_active)
+                                   chunk_list, n_active, chunk_static)
     return t[:B], prim[:B]

@@ -160,7 +160,8 @@ def intersect(scene: SceneData, ray: geom.Ray, presorted=False,
     if presorted:
         r16 = dense.ray_vectors(o, d, scene.dense_center, anyhit=anyhit_mask)
         t, prim = dense.dense_intersect_loop(r16, t_init, scene.dense_w,
-                                             scene.dense_cb, time=rtime)
+                                             scene.dense_cb,
+                                             scene.dense_static, time=rtime)
     else:
         key = _coherence_key(scene, o, d, t_init)
         if anyhit_mask is not None:
@@ -174,6 +175,7 @@ def intersect(scene: SceneData, ray: geom.Ray, presorted=False,
             anyhit=None if anyhit_mask is None else anyhit_mask[order])
         t_s, prim_s = dense.dense_intersect_loop(
             r16, t_init[order], scene.dense_w, scene.dense_cb,
+            scene.dense_static,
             time=None if rtime is None else rtime[order])
         t = torch.empty_like(t_s)
         t[order] = t_s

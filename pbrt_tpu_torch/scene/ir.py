@@ -108,6 +108,8 @@ class SceneData:
     dense_w: torch.Tensor          # [C,16,4*chunk] f32 sections s1|s2|num|s0
     #                                (motion: [C,16,N_COEF*4*chunk])
     dense_cb: torch.Tensor         # [C,8] chunk AABBs (centered coords)
+    dense_static: torch.Tensor     # [C] bool: no triangle of the chunk
+    #                                moves (all true for a static table)
     dense_center: torch.Tensor     # [3]
     # --- statics ---
     n_lights: int = 0
@@ -419,12 +421,14 @@ def _scene_from_arrays(arrays, statics, device):
     else:
         dt = build_dense_tables(arrays["tri_v0"], arrays["tri_e1"],
                                 arrays["tri_e2"], chunk=statics["dense_chunk"])
+        dt["chunk_static"] = np.ones(dt["W"].shape[0], bool)
     cols = {k: torch.as_tensor(np.array(arrays[k]), device=device)
             for k in JAX_COLUMNS}
     return SceneData(
         **cols,
         dense_w=torch.as_tensor(dt["W"], device=device),
         dense_cb=torch.as_tensor(dt["chunk_bounds"], device=device),
+        dense_static=torch.as_tensor(dt["chunk_static"], device=device),
         dense_center=torch.as_tensor(dt["center"], device=device),
         n_lights=int(statics["n_lights"]),
         n_quadrics=int(statics["n_quadrics"]),

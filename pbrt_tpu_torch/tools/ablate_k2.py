@@ -186,33 +186,67 @@ def sweep(base, rounds, reps, device):
 
 
 def sass_lines():
-    """SASS counts of each loop-kernel mode and the dump; raises if nvcc
-    removed the work a mode is meant to time."""
+    """SASS counts of each loop-kernel mode, K2 motion and the dump, with
+    ptxas's registers, stack and spills, and what nvcc did wrong: removed
+    the work a mode is meant to time, or spilled.  Returns (lines,
+    faults)."""
     from pbrt_tpu_torch.ops import cuda_kernels
     counts = cuda_kernels.sass_counts()
-    lines = []
-    keys = ("FFMA", "FMUL", "MUFU.RCP", "BAR.SYNC", "STS", "LDS", "LDG")
-    for i, mode in enumerate(MODES):
-        fn = [c for n, c in counts.items()
-              if f"dense_loop_kernelILi{i}E" in n]
-        check(len(fn) == 1, f"SASS: no single function for mode {mode}")
-        c = fn[0]
-        lines.append(f"  {mode:9s} " + " ".join(f"{k} {c.get(k, 0)}"
-                                                 for k in keys))
-        if mode in ("sections", "full"):
-            check(c.get("FFMA", 0) >= 21,
-                  f"SASS: {mode} has {c.get('FFMA', 0)} FFMA (< 21)")
-        if mode == "empty":
-            check(c.get("STS", 0) == 0, "SASS: empty stores to shared memory")
-        if mode == "direct":
-            check(c.get("BAR.SYNC", 0) == 0, "SASS: direct has a barrier")
-    for name, key in (("K2 motion", "dense_loop_motion_kernel"),
-                      ("tile dump", "dense_loop_kernelILi5E")):
-        for n, c in counts.items():
-            if key in n:
-                lines.append(f"  {name:9s} " + " ".join(
-                    f"{k} {c.get(k, 0)}" for k in keys))
-    return lines
+    report = cuda_kernels.ptxas_report()
+    lines, faults = [], []
+    keys = ("FFMA", "FMUL", "MUFU.RCP", "BAR.SYNC", "BAR", "LDGSTS", "STS",
+            "LDS", "LDS.128", "LDG")
+
+    def one(key, table):
+        fn = [c for n, c in table.items() if key in n]
+        check(len(fn) == 1, f"SASS: no single function {key}")
+        return fn[0]
+
+    def want(ok, what):
+        if not ok:
+            faults.append("SASS: " + what)
+
+    names = {m: f"dense_loop_kernelILi{i}ELb0E" for i, m in enumerate(MODES)}
+    names["K2 motion"] = "dense_loop_kernelILi4ELb1E"
+    names["tile dump"] = "dense_loop_kernelILi5ELb0E"
+    by = {m: one(key, counts) for m, key in names.items()}
+    for mode, c in by.items():
+        r = one(names[mode], report)
+        lines.append(f"  {mode:9s} " + " ".join(
+            f"{k} {c.get(k, 0)}" for k in keys) + f" | registers "
+            f"{r.get('registers')} stack {r.get('stack')} B spill "
+            f"{r.get('spill_stores')}/{r.get('spill_loads')} B")
+        # direct (sm_90a build) keeps 4 B on the stack around the call to
+        # the IEEE division's slow path, which only operands the fast
+        # path rejects take; production K2, K2 motion, the dump and the
+        # modes that split K2's time must not spill at all
+        want(mode == "direct" or (r.get("spill_stores") == 0
+                                  and r.get("spill_loads") == 0),
+             f"{mode} spills to local memory")
+    # four tests a step, each 18 FFMA and 3 FMUL (a side's first
+    # product), from 22 float4 loads
+    for mode in ("sections", "full", "tile dump"):
+        want(by[mode].get("FFMA", 0) >= 72 and by[mode].get("FMUL", 0)
+             >= 12, f"{mode} has {by[mode].get('FFMA', 0)} FFMA (< 72) or "
+             f"{by[mode].get('FMUL', 0)} FMUL (< 12)")
+    want(by["full"].get("LDS.128", 0) >= 22
+         and by["full"].get("LDS", 0) * 2 <= by["full"].get("FFMA", 0),
+         "full reads its rows by fewer than 22 16-byte loads, or issues "
+         "more than one shared load per 2 FFMA")
+    want(by["K2 motion"].get("FFMA", 0) >= 4 * 84,
+         "K2 motion lost its Horner FFMAs")
+    for mode in ("stage", "sections", "full", "K2 motion", "tile dump"):
+        want(by[mode].get("LDGSTS", 0) >= 1,
+             f"{mode} stages nothing asynchronously")
+    want(by["empty"].get("LDGSTS", 0) == 0 and by["empty"].get("STS", 0)
+         <= 1, "empty stages to shared memory")
+    want(by["direct"].get("LDGSTS", 0) == 0
+         and by["direct"].get("LDG", 0) >= 22
+         and by["direct"].get("BAR.SYNC", 0)
+         < by["empty"].get("BAR.SYNC", 0),
+         "direct stages, or has the loop's barriers, or reads no rows from "
+         "device memory")
+    return lines, faults
 
 
 def parse_args(argv=None):
@@ -241,8 +275,10 @@ def run(args, scene=None):
     print(f"ablate_k2 on {card}")
     if device.type == "cuda":
         print("SASS instruction counts per loop-kernel mode:")
-        for line in sass_lines():
+        lines, faults = sass_lines()
+        for line in lines:
             print(line)
+        check(not faults, "; ".join(faults))
     res = {}
     for wl in workloads(args, device, scene):
         errs = check_modes(wl)

@@ -24,8 +24,9 @@ from the same numpy seeds by the port's own code.
 
 Each takes a device and a seed; nothing is built at import.  The s3
 script drew its rays with jax.random; here numpy draws them from the same
-distribution.  The timing helpers at the end (CUDA events, interleaved
-rounds, spreads) serve the three tools alike.
+distribution.  K2's bound (loop_bytes, loop_bound) and the timing
+helpers at the end (CUDA events, interleaved rounds, spreads) serve the
+tools and chip_smoke.py alike.
 """
 
 from __future__ import annotations
@@ -71,6 +72,13 @@ class Workload:
     def listed(self):
         """(tile, chunk) steps K2 walks: the sum of n_active."""
         return int(self.n_active.sum())
+
+    @property
+    def chunk_static(self):
+        """Every chunk of a static table: loop_test_counts' and
+        loop_bound's chunk_static."""
+        return torch.ones(self.W.shape[0], dtype=torch.bool,
+                          device=self.W.device)
 
     def args(self):
         return (self.r16, self.tmax, self.W, self.chunk_list, self.n_active)
@@ -203,8 +211,104 @@ def cluster_scene(device, seed=0):
     return b.build(device=device)
 
 
+def main_path_batches(scene, camera, cfg, width, height, rays, depth):
+    """The (r16, tmax, time) batches the main path hands the dense kernels
+    in one pass of `rays` camera rays: call 0 is the camera batch, call 1
+    the first trace_pair (bounce-1 rays + bounce-0 shadow rays).  time is
+    None for static scenes.  Returns {"camera": ..., "bounce1": ...}."""
+    from pbrt_tpu_torch.integrators import path
+    batches = []
+    inner = dense.dense_intersect_loop
+
+    def record(r16, tmax, W_, cb, chunk_static, time=None):
+        batches.append((r16.clone(), tmax.clone(),
+                        None if time is None else time.clone()))
+        return inner(r16, tmax, W_, cb, chunk_static, time=time)
+
+    dense.dense_intersect_loop = record
+    try:
+        ids = torch.arange(rays, device=scene.dense_w.device)
+        ray, _, _, pid, sidx = path.camera_rays_for_pixels(
+            camera, width, height, cfg, ids, 0)
+        path.trace_paths(scene, ray, pid, sidx, cfg, max_depth=depth)
+    finally:
+        dense.dense_intersect_loop = inner
+    if len(batches) != depth + 1:
+        raise AssertionError(f"expected {depth + 1} intersect calls, got "
+                             f"{len(batches)}")
+    return {"camera": batches[0], "bounce1": batches[1]}
+
+
 # ---------------------------------------------------------------------------
-# timing, shared by the three tools
+# K2's bound: the least time the card could take for its work
+# ---------------------------------------------------------------------------
+
+F32_PEAK = 67e12     # FLOP/s, H100 SXM f32 outside the tensor cores
+HBM_BPS = 3.35e12    # B/s, H100 SXM HBM3
+# f32 operations per ray-triangle test: the static body (21 FMAs, two
+# adds, the division), and K2 motion's on a moving chunk (66 Horner FMAs
+# more); K2 motion runs static chunks with the static body
+TEST_FLOPS, TEST_FLOPS_MOVING = 45, 177
+
+
+def bound(flops, nbytes):
+    """(least ms the card could take, what bounds it: "operations" or
+    "bytes") for `flops` f32 operations and `nbytes` bytes moved."""
+    t_ops, t_bytes = flops / F32_PEAK, nbytes / HBM_BPS
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def loop_bound(r16, tmax, W, chunk_list, n_active, t, prim, chunk_static,
+               time=None):
+    """(ms, what bounds it, (tests on static chunks, on moving chunks)) of
+    production K2 (or K2 motion, given `time`) on these inputs, whose
+    outputs were (t, prim): TEST_FLOPS per test on a static chunk and
+    TEST_FLOPS_MOVING on a moving one (dense.loop_test_counts), and
+    loop_bytes("full").  chunk_static as loop_test_counts'."""
+    n_coef = 1 if time is None else dense.N_COEF
+    chunk = W.shape[2] // (4 * n_coef)
+    st, mv = dense.loop_test_counts(r16, tmax, prim, chunk_list, n_active,
+                                    chunk, chunk_static)
+    nb = loop_bytes("full", r16, tmax, W, chunk_list, n_active, t, prim,
+                    chunk_static=chunk_static, time=time)
+    return (*bound(TEST_FLOPS * st + TEST_FLOPS_MOVING * mv, nb), (st, mv))
+
+
+def loop_bytes(mode, r16, tmax, W, chunk_list, n_active, *outs,
+               chunk_static, time=None):
+    """Bytes a loop-kernel mode (production K2 and K2 motion are "full")
+    must move, each input read once: n_active and each tile's first
+    n_active list entries; tmax (but for stage, which never reads it);
+    except for empty, the LOOP_ROWS staged rows of each distinct listed
+    chunk (K2 motion: all four planes of a moving chunk, plane 0 of a
+    static one); the ray columns the tests read (d, (o-c) x d, o-c: 9
+    floats, the any-hit flag where hits are taken, the time for motion);
+    the merge keys where lists are split across blocks (zeroed, then read
+    back); and the outputs.  chunk_static as dense.loop_test_counts'."""
+    n_coef = 1 if time is None else dense.N_COEF
+    C = W.shape[0]
+    chunk = W.shape[2] // (4 * n_coef)
+    B, n_tiles = r16.shape[0], chunk_list.shape[0]
+    on = (torch.arange(C, device=n_active.device) < n_active[:, None])
+    b = sum(x.numel() * x.element_size() for x in (n_active, *outs))
+    b += int(n_active.sum()) * 4
+    if dense.loop_blocks(C) > 1:
+        b += (B + n_tiles) * 8
+    if mode != "stage":
+        b += tmax.numel() * 4
+    if mode == "empty":
+        return b
+    listed = torch.unique(chunk_list[on].long())
+    n_moving = int((~chunk_static.to(torch.bool)[listed]).sum())
+    b += (listed.numel() + (n_coef - 1) * n_moving) * dense.LOOP_ROWS \
+        * chunk * 4
+    cols = {"stage": 0, "sections": 9}.get(mode, 10 + (time is not None))
+    return b + B * cols * 4
+
+
+# ---------------------------------------------------------------------------
+# timing, shared by the tools
 # ---------------------------------------------------------------------------
 
 def time_ms(fn, reps, device):

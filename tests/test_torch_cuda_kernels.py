@@ -23,6 +23,18 @@ no such difference unexplained, at most a tenth of the accepted tests,
 of which there are at least 16), and its last running (t, prim) equals
 production K2's on the tile bit for bit; both at 128- and 256-triangle
 chunks.
+
+The redesign (four triangles a step, the division only for inside tests,
+lists split across blocks, asynchronous staging, static chunks of the
+motion table on the static body) is held bit for bit where it must be:
+K2 split into slices of G listed chunks equals K2 in one block per tile
+(G >= C) for every G, in every mode, with any-hit lanes that hit in
+several slices; K2 motion on a motion table with no moving triangle
+equals static K2, whether or not it is told which chunks are static, and
+K2 motion with and without `chunk_static` are equal on a mixed table.
+Lists with one tile of all C chunks and one of a single chunk, and
+static K2 at 1024-triangle chunks (180 KB of shared memory for two
+stages), are held to the plain versions by the contract above.
 """
 import numpy as np
 import pytest
@@ -120,15 +132,16 @@ def _moving_soup_and_rays(device, chunk, n_tris=600, n_rays=4096, seed=4):
     return (r16.to(device), tmax.to(device),
             torch.from_numpy(time).to(device),
             torch.from_numpy(tab["W"]).to(device),
-            torch.from_numpy(tab["chunk_bounds"]).to(device))
+            torch.from_numpy(tab["chunk_bounds"]).to(device),
+            torch.from_numpy(tab["chunk_static"]).to(device))
 
 
 @pytest.mark.parametrize("chunk", [128, 256])
 def test_motion_kernel_matches_plain(device, chunk):
-    r16, tmax, time, W, cb = _moving_soup_and_rays(device, chunk)
+    r16, tmax, time, W, cb, static = _moving_soup_and_rays(device, chunk)
     before = dict(dense.LAUNCHES)
     cl, na = dense.tile_chunk_lists(r16, tmax, cb)
-    t, p = dense.loop_hits_motion(r16, tmax, time, W, cl, na)
+    t, p = dense.loop_hits_motion(r16, tmax, time, W, cl, na, static)
     tp, pp = dense.loop_hits_motion_plain(r16, tmax, time, W, cl, na)
     torch.cuda.synchronize()
     assert ((p >= 0) == (pp >= 0)).float().mean() >= 0.9999
@@ -219,3 +232,193 @@ def test_tile_dump_matches_plain_and_k2(device, chunk):
         assert int(differ.sum()) <= n_accepted // 10
         assert torch.equal(got["best_t"][-1], t2[tile * T:(tile + 1) * T])
         assert torch.equal(got["best_prim"][-1], p2[tile * T:(tile + 1) * T])
+
+
+def _contract(t, p, tp, pp, r16, W, motion_time=None):
+    assert ((p >= 0) == (pp >= 0)).float().mean() >= 0.9999
+    assert (p == pp).float().mean() >= 0.999
+    anyhit = r16[:, 12] > 0.5
+    closest = ~anyhit & (p == pp) & (p >= 0)
+    assert closest.sum() > 50
+    if motion_time is None:
+        t64, bound = dense.loop_t_reference(r16[closest], W, p[closest])
+    else:
+        t64, bound = dense.loop_t_reference_motion(
+            r16[closest], motion_time[closest], W, p[closest])
+    for tt in (t, tp):
+        assert ((tt[closest].double() - t64).abs()
+                <= bound * t64.abs()).all()
+
+
+def _mixed_case(device, n_tris=2600, n_rays=4096, seed=7, chunk=None):
+    """A soup of n_tris triangles in C > LOOP_SLICE chunks (the lists are
+    split across blocks), odd triangles of the first third moving; rays
+    from inside, every other any-hit, every seventh dead."""
+    rs = np.random.RandomState(seed)
+    v0 = rs.rand(n_tris, 3) * 10 - 5
+    e1, e2 = rs.randn(2, n_tris, 3) * 0.6
+    dm = np.zeros((n_tris, 12))
+    dm[1:n_tris // 3:2, 0:3] = rs.randn(len(dm[1:n_tris // 3:2]), 3) * 0.4
+    o = (rs.rand(n_rays, 3) * 8 - 4).astype(np.float32)
+    d = rs.randn(n_rays, 3).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    order = np.argsort(np.floor(o[:, 0]) * 64 + np.floor(o[:, 1]) * 8
+                       + np.sign(d[:, 2]), kind="stable")
+    o, d = o[order], d[order]
+    tabs = {"static": dense.build_dense_tables(v0, e1, e2, chunk=chunk),
+            "motion": dense.build_dense_tables_motion(v0, e1, e2, dm,
+                                                      chunk=chunk),
+            "still": dense.build_dense_tables_motion(
+                v0, e1, e2, np.zeros_like(dm), chunk=chunk)}
+    anyhit = torch.zeros(n_rays, dtype=torch.bool)
+    anyhit[1::2] = True
+    r16 = dense.ray_vectors(torch.from_numpy(o), torch.from_numpy(d),
+                            torch.from_numpy(tabs["static"]["center"]),
+                            anyhit=anyhit).to(device)
+    tmax = torch.full((n_rays,), 3.0e38)
+    tmax[::7] = -1.0
+    tmax = tmax.to(device)
+    time = torch.from_numpy(rs.rand(n_rays).astype(np.float32)).to(device)
+    out = {}
+    for k, tab in tabs.items():
+        cb = torch.from_numpy(tab["chunk_bounds"]).to(device)
+        cl, na = dense.tile_chunk_lists(r16, tmax, cb)
+        out[k] = dict(W=torch.from_numpy(tab["W"]).to(device), cl=cl, na=na,
+                      static=torch.from_numpy(tab.get(
+                          "chunk_static", np.ones(cb.shape[0], bool)))
+                      .to(device))
+    return r16, tmax, time, out
+
+
+def _run(case, r16, tmax, time, blocks=None, mode=None,
+         chunk_static=True):
+    """A loop kernel on `case` with `blocks` blocks per tile (default
+    dense.loop_blocks); K2 motion told the case's static chunks, or (not
+    chunk_static) none."""
+    if time is None:
+        name = "dense_loop" if mode is None else dense.ablate_kernel(mode)
+        return dense._launch_loop(name, r16, tmax, None, case["W"],
+                                  case["cl"], case["na"], mode=mode,
+                                  blocks=blocks)
+    return dense._launch_loop(
+        "dense_loop_motion", r16, tmax, time, case["W"], case["cl"],
+        case["na"],
+        chunk_static=(case["static"] if chunk_static
+                      else torch.zeros_like(case["static"])),
+        blocks=blocks)
+
+
+def test_split_lists_equal_one_block_per_tile(device):
+    r16, tmax, time, cases = _mixed_case(device)
+    C = cases["static"]["W"].shape[0]
+    S = dense.loop_blocks(C)
+    assert S > 3 and int(cases["static"]["na"].max()) > 8
+    anyhit = r16[:, 12] > 0.5
+    for kind, tm in (("static", None), ("motion", time)):
+        case = cases[kind]
+        whole = _run(case, r16, tmax, tm, blocks=1)
+        # any-hit lanes that hit in more than one slice of 1 chunk
+        per = torch.zeros(r16.shape[0], dtype=torch.int64, device=device)
+        for k in range(int(case["na"].max())):
+            one = dict(case, cl=torch.roll(case["cl"], -k, 1).contiguous(),
+                       na=(case["na"] - k).clamp(0, 1).to(torch.int32))
+            per += _run(one, r16, tmax, tm, blocks=1)[1] >= 0
+        assert int((anyhit & (per > 1)).sum()) > 20, kind
+        # blocks walking 1, several or every S-th slice of LOOP_SLICE
+        for blocks in (2, 3, S):
+            got = _run(case, r16, tmax, tm, blocks=blocks)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], whole[0]), (kind, blocks)
+            assert torch.equal(got[1], whole[1]), (kind, blocks)
+        plain = (dense.loop_hits_plain(r16, tmax, case["W"], case["cl"],
+                                       case["na"]) if tm is None else
+                 dense.loop_hits_motion_plain(r16, tmax, tm, case["W"],
+                                              case["cl"], case["na"]))
+        _contract(*whole, *plain, r16, case["W"], tm)
+
+
+@pytest.mark.parametrize("mode", dense.ABLATE_MODES[:-1])
+def test_split_ablation_modes_match_plain(device, mode):
+    r16, tmax, _, cases = _mixed_case(device)
+    case = cases["static"]
+    C = case["W"].shape[0]
+    args = (r16, tmax, case["W"], case["cl"], case["na"])
+    t, p = dense.loop_hits_ablate(mode, *args)
+    tp, pp = dense.loop_hits_ablate_plain(mode, *args)
+    for blocks in (1, 3, dense.loop_blocks(C)):
+        t2, p2 = _run(case, r16, tmax, None, blocks=blocks, mode=mode)
+        torch.cuda.synchronize()
+        if mode != "sections":
+            assert torch.equal(t2, t) and torch.equal(p2, p), blocks
+        else:
+            # the least of the same f32 values, merged in any order
+            assert torch.equal(p2, p) and torch.equal(
+                torch.where(t2 == 0, 0.0, t2), torch.where(t == 0, 0.0, t))
+    if mode in ("empty", "stage"):
+        assert torch.equal(t, tp) and torch.equal(p, pp)
+    elif mode == "sections":
+        assert torch.equal(p, pp)
+        exact, bound = dense.sections_reference(*args)
+        live = torch.isfinite(exact)
+        for x in (t, tp):
+            assert ((x[live].double() - exact[live]).abs()
+                    <= bound[live]).all()
+    else:
+        t2, p2 = dense.loop_hits(*args)
+        assert torch.equal(t, t2) and torch.equal(p, p2)
+
+
+def test_lists_of_all_chunks_and_of_one_chunk(device):
+    r16, tmax, time, cases = _mixed_case(device)
+    for kind, tm in (("static", None), ("motion", time)):
+        case = dict(cases[kind])
+        C = case["W"].shape[0]
+        na = case["na"].clone()
+        na[0::2] = C          # every chunk listed (in K1's order first)
+        na[1::2] = 1
+        case["na"] = na
+        got = _run(case, r16, tmax, tm)
+        plain = (dense.loop_hits_plain(r16, tmax, case["W"], case["cl"], na)
+                 if tm is None else dense.loop_hits_motion_plain(
+                     r16, tmax, tm, case["W"], case["cl"], na))
+        torch.cuda.synchronize()
+        _contract(*got, *plain, r16, case["W"], tm)
+
+
+def test_motion_on_still_table_equals_static_k2(device):
+    r16, tmax, time, cases = _mixed_case(device)
+    st, still = cases["static"], cases["still"]
+    assert bool(still["static"].all())
+    assert torch.equal(st["cl"], still["cl"]) and torch.equal(st["na"],
+                                                             still["na"])
+    want = dense.loop_hits(r16, tmax, st["W"], st["cl"], st["na"])
+    for told in (True, False):
+        got = _run(still, r16, tmax, time, chunk_static=told)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_motion_mixed_table_static_chunks_off_horner(device):
+    r16, tmax, time, cases = _mixed_case(device)
+    case = cases["motion"]
+    assert 0 < int(case["static"].sum()) < case["static"].numel()
+    got = dense.loop_hits_motion(r16, tmax, time, case["W"], case["cl"],
+                                 case["na"], case["static"])
+    horner = _run(case, r16, tmax, time, chunk_static=False)
+    plain = dense.loop_hits_motion_plain(r16, tmax, time, case["W"],
+                                         case["cl"], case["na"])
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], horner[0]) and torch.equal(got[1], horner[1])
+    _contract(*got, *plain, r16, case["W"], time)
+
+
+def test_static_k2_at_1024_triangle_chunks(device):
+    r16, tmax, _, cases = _mixed_case(device, n_tris=3000, chunk=1024)
+    case = cases["static"]
+    assert case["W"].shape == (3, 16, 4 * 1024)
+    assert dense._smem_bytes(1024, 1) > dense.SMEM_DEFAULT
+    got = dense.loop_hits(r16, tmax, case["W"], case["cl"], case["na"])
+    plain = dense.loop_hits_plain(r16, tmax, case["W"], case["cl"],
+                                  case["na"])
+    torch.cuda.synchronize()
+    _contract(*got, *plain, r16, case["W"])

@@ -36,7 +36,8 @@ def _port_run(v0, e1, e2, o, d, tmax, anyhit=None):
     tab, r16 = _port_inputs(v0, e1, e2, o, d, anyhit)
     t, prim = tdense.dense_intersect_loop(
         r16, torch.from_numpy(tmax), torch.from_numpy(tab["W"]),
-        torch.from_numpy(tab["chunk_bounds"]))
+        torch.from_numpy(tab["chunk_bounds"]),
+        torch.ones(tab["W"].shape[0], dtype=torch.bool))
     return t.numpy(), prim.numpy()
 
 
@@ -152,7 +153,8 @@ def test_k2_t_within_f32_rounding_bound(coherent, seeds):
     tab, r16 = _port_inputs(v0, e1, e2, o, d)
     W = torch.from_numpy(tab["W"])
     cb = torch.from_numpy(tab["chunk_bounds"])
-    t, prim = tdense.dense_intersect_loop(r16, tmax, W, cb)
+    t, prim = tdense.dense_intersect_loop(
+        r16, tmax, W, cb, torch.ones(W.shape[0], dtype=torch.bool))
     hit = prim >= 0
     assert hit.float().mean() > 0.1
     t64, bound = tdense.loop_t_reference(r16[hit], W, prim[hit])

@@ -250,16 +250,16 @@ def test_empty_and_stage_plain_give_their_contract(tiny):
     t, p = tdense.loop_hits_ablate_plain("stage", *args)
     assert np.array_equal(p.numpy(), np.repeat(na, T))
     offs = tdense.staged_offsets(128).numpy()
-    Wf = tiny.W.reshape(tiny.W.shape[0], -1).numpy()
+    Wf = tiny.W.reshape(tiny.W.shape[0], -1).numpy().view(np.uint32)
     cl = tiny.chunk_list.numpy()
+    bits = t.numpy().view(np.uint32)
     for tile in (0, 5, 15):
         for lane in (0, 1, 77, 127):
             word = (22 * lane) % (22 * 128)
-            acc = np.float32(0.0)
+            acc = np.uint32(0)
             for k in range(na[tile]):
-                acc = np.float32(acc + Wf[cl[tile, k],
-                                          offs[word // 128] + word % 128])
-            assert t[tile * T + lane].item() == acc
+                acc ^= Wf[cl[tile, k], offs[word // 128] + word % 128]
+            assert bits[tile * T + lane] == acc
 
 
 def test_sections_plain_within_reference_bound(tiny):
@@ -325,6 +325,24 @@ def test_tool_main_runs_on_cpu(tool, argv, capsys):
         assert "bit for bit: True" in out
 
 
+def test_parse_ptxas_report_per_function():
+    text = """
+ptxas info    : Compiling entry function '_Z4loopv' for 'sm_90a'
+ptxas info    : Function properties for _Z4loopv
+    8 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 56 registers, used 1 barriers, 8 bytes cumulative stack size
+ptxas info    : Compiling entry function '_Z4hotv' for 'sm_90a'
+ptxas info    : Function properties for _Z4hotv
+    0 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 255 registers, used 0 barriers
+    """
+    r = cuda_kernels.parse_ptxas(text)
+    assert r == {"_Z4loopv": {"registers": 56, "stack": 8,
+                              "spill_stores": 0, "spill_loads": 0},
+                 "_Z4hotv": {"registers": 255, "stack": 0,
+                             "spill_stores": 12, "spill_loads": 16}}
+
+
 def test_parse_sass_counts_per_function():
     text = """
         Function : _ZN12_GLOBAL__N_117dense_loop_kernelILi2EEEvPKfS2_
@@ -334,11 +352,48 @@ def test_parse_sass_counts_per_function():
         /*0110*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
         /*0120*/                   MUFU.RCP R4, R5 ;
         /*0130*/             @!UP0 STS [R3], R4 ;
+        /*0140*/                   LDS.128 R8, [R2+0x200] ;
+        /*0150*/                   LDS R9, [R2] ;
         Function : other
         /*0000*/                   FMUL R1, R2, R3 ;
     """
     c = cuda_kernels.parse_sass(text)
     k = c["_ZN12_GLOBAL__N_117dense_loop_kernelILi2EEEvPKfS2_"]
     assert k == {"LDC": 1, "FFMA": 2, "BAR": 1, "BAR.SYNC": 1, "MUFU": 1,
-                 "MUFU.RCP": 1, "STS": 1}
+                 "MUFU.RCP": 1, "STS": 1, "LDS": 2, "LDS.128": 1}
     assert c["other"] == {"FMUL": 1}
+
+
+def test_ab_loop_slice_copy_changes_only_g(tmp_path):
+    """The kernel's slice length G (kSlice in csrc/dense_loop.cu) and its
+    mirror LOOP_SLICE agree, and ab_loop --slices' copy of the package
+    sets both to the value asked for and changes nothing else."""
+    import filecmp
+    import os
+    import re
+    from pbrt_tpu_torch.tools import ab_loop
+    pkg = os.path.dirname(os.path.dirname(os.path.abspath(
+        ab_loop.__file__)))
+    with open(os.path.join(pkg, "csrc", "dense_loop.cu")) as f:
+        assert re.findall(r"constexpr int kSlice = (\d+);", f.read()) == [
+            str(tdense.LOOP_SLICE)]
+    g = tdense.LOOP_SLICE + 3
+    root = ab_loop.slice_tree(os.path.dirname(pkg), g, str(tmp_path))
+    copy = os.path.join(root, "pbrt_tpu_torch")
+    changed = {"csrc/dense_loop.cu", "ops/dense_intersect.py"}
+    for rel in changed:
+        with open(os.path.join(pkg, rel)) as f:
+            a = f.read().splitlines()
+        with open(os.path.join(copy, rel)) as f:
+            b = f.read().splitlines()
+        diff = [(x, y) for x, y in zip(a, b) if x != y]
+        assert len(a) == len(b) and len(diff) == 1, rel
+        assert diff[0][1] in (f"constexpr int kSlice = {g};",
+                              f"LOOP_SLICE = {g}"), rel
+    for d, _, files in os.walk(copy):
+        for name in files:
+            rel = os.path.relpath(os.path.join(d, name), copy)
+            if rel not in changed:
+                assert filecmp.cmp(os.path.join(pkg, rel),
+                                   os.path.join(d, name), shallow=False)
+    assert not os.path.exists(os.path.join(copy, "_build"))

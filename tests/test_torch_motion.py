@@ -126,9 +126,20 @@ def test_motion_table_matches_jax():
     lo = np.asarray(ref["W"][:, 32:48]).astype(np.float32)
     W = got["W"]
     assert W.dtype == np.float32 and W.shape == hi.shape
-    np.testing.assert_allclose(hi + lo, W, rtol=2.0 ** -15, atol=1e-30)
-    # static triangles: plane 0 is the static table, planes 1-3 vanish
+    # the recorded deviation (ROADMAP Queue 3): the port writes exact
+    # zeros as an unmoving triangle's planes 1-3, where pbrt_tpu's fit
+    # leaves up to ~1e-14; every other entry as pbrt_tpu's
     C, chunk = W.shape[0], got["chunk"]
+    ref_w = (hi + lo).reshape(C, 16, 4, 4, chunk)
+    still = np.ones(C * chunk, bool)
+    still[:v0.shape[0]] = ~dm.any(1)
+    dev = np.zeros(ref_w.shape, bool)
+    dev[:, :, 1:] = still.reshape(C, 1, 1, 1, chunk)
+    assert (W.reshape(ref_w.shape)[dev] == 0).all()
+    assert np.abs(ref_w[dev]).max() <= 1e-14
+    np.testing.assert_allclose(ref_w[~dev], W.reshape(ref_w.shape)[~dev],
+                               rtol=2.0 ** -15, atol=1e-30)
+    # static triangles: plane 0 is the static table, planes 1-3 vanish
     planes = W.reshape(C, 16, 4, 4, chunk).transpose(2, 3, 1, 0, 4) \
         .reshape(4, 4, 16, C * chunk)[..., :v0.shape[0]]
     static = tdense.build_dense_tables(v0, e1, e2)["W"]
@@ -138,6 +149,100 @@ def test_motion_table_matches_jax():
                                rtol=1e-6, atol=1e-12)
     assert np.abs(planes[1:, ..., 0::2]).max() < 1e-6
     assert np.abs(planes[3][..., 1::2]).max() > 1e-4     # cubic terms
+
+
+def test_motion_table_exact_for_unmoving_triangles():
+    """An unmoving triangle's plane 0 is build_dense_tables' entry bit for
+    bit and its planes 1-3 are exact zeros (pbrt_tpu's fit leaves ~1e-15
+    there: its inverse Vandermonde rows do not sum to 0), so Horner in any
+    time returns the static entry; a moving triangle's planes are
+    pbrt_tpu's within test_motion_table_matches_jax's tolerance."""
+    v0, e1, e2, dm = _moving_soup(n_tris=700, seed=9)
+    dm[384:512] = 0.0                      # chunk 3: no triangle moves
+    got = tdense.build_dense_tables_motion(v0, e1, e2, dm)
+    ref = jdense.build_dense_tables_motion(v0, e1, e2, dm)
+    static = tdense.build_dense_tables(v0, e1, e2)
+    C, chunk = got["W"].shape[0], got["chunk"]
+    planes = got["W"].reshape(C, 16, 4, 4 * chunk)
+    still = np.ones(C * chunk, bool)
+    still[:700] = ~dm.any(1)
+    col = np.broadcast_to(still.reshape(C, 1, chunk), (C, 4, chunk)) \
+        .reshape(C, 1, 4 * chunk)
+    st = np.broadcast_to(col, (C, 16, 4 * chunk))
+    assert np.array_equal(planes[:, :, 0][st], static["W"][st])
+    assert (planes[:, :, 1:][np.broadcast_to(col[:, :, None], planes[:, :, 1:]
+                                             .shape)] == 0).all()
+    jw = (np.asarray(ref["W"][:, 0:16]).astype(np.float32)
+          + np.asarray(ref["W"][:, 32:48]).astype(np.float32)) \
+        .reshape(C, 16, 4, 4 * chunk)
+    mv = ~np.broadcast_to(col[:, :, None], planes.shape)
+    np.testing.assert_allclose(planes[mv], jw[mv], rtol=2.0 ** -15,
+                               atol=1e-30)
+    # pbrt_tpu's planes 1-3 of unmoving triangles are tiny, not zero
+    assert np.abs(jw[:, :, 1:][~mv[:, :, 1:]]).max() > 0
+    # Horner in the plain version's order returns plane 0 exactly
+    u = np.float32(0.37)
+    h = planes[:, :, 3]
+    for k in (2, 1, 0):
+        h = h * u + planes[:, :, k]
+    assert np.array_equal(h[st], static["W"][st])
+
+
+@pytest.mark.parametrize("case", ["soup", "cornell_motion"])
+def test_chunk_static_marks_chunks_without_moving_triangles(case, tmp_path):
+    if case == "soup":
+        v0, e1, e2, dm = _moving_soup(n_tris=700, seed=10)
+        dm[:256] = 0.0
+        tab = tdense.build_dense_tables_motion(v0, e1, e2, dm)
+        chunk = tab["chunk"]
+        want = np.array([not dm[c * chunk:(c + 1) * chunk].any()
+                         for c in range(tab["W"].shape[0])])
+        got = tab["chunk_static"]
+        assert got.tolist() == [True, True, False, False, False, False]
+    else:
+        scene = tparse(MOTION, device=DEV).scene
+        moving = scene.tri_motion.numpy().any(1)
+        chunk = scene.dense_chunk
+        C = scene.dense_w.shape[0]
+        want = np.array([not moving[c * chunk:(c + 1) * chunk].any()
+                         for c in range(C)])
+        got = scene.dense_static.numpy()
+        assert got.dtype == np.bool_ and got.shape == (C,)
+    assert np.array_equal(got, want), (
+        f"{case}: chunk_static {got.astype(int).tolist()}, expected "
+        f"{want.astype(int).tolist()}")
+    assert 0 < got.sum() < got.size, (
+        f"{case}: {int(got.sum())} static chunks of {got.size}")
+
+
+def test_motion_plain_on_static_table_matches_static_plain():
+    """On a soup with no moving triangle the motion table's plain version
+    finds the static plain version's prims, and t within 1 ulp (the two
+    CPU matmuls differ in width, so they may round differently; the
+    kernels' bit-for-bit check is a card test)."""
+    v0, e1, e2, _ = _moving_soup(n_tris=500, seed=11)
+    o, d, time = _rays(n_rays=1024, seed=12)
+    tm_tab = tdense.build_dense_tables_motion(v0, e1, e2, np.zeros((500, 12)))
+    st_tab = tdense.build_dense_tables(v0, e1, e2)
+    assert tm_tab["chunk_static"].all()
+    r16 = tdense.ray_vectors(torch.from_numpy(o), torch.from_numpy(d),
+                             torch.from_numpy(st_tab["center"]))
+    anyhit = torch.zeros(1024, dtype=torch.bool)
+    anyhit[1::3] = True
+    r16[:, 12] = anyhit.float()
+    tmax = torch.full((1024,), BIG)
+    tmax[::9] = -1.0
+    cb = torch.from_numpy(st_tab["chunk_bounds"])
+    cl, na = tdense.tile_chunk_lists(r16, tmax, cb)
+    t_s, p_s = tdense.loop_hits_plain(r16, tmax,
+                                      torch.from_numpy(st_tab["W"]), cl, na)
+    t_m, p_m = tdense.loop_hits_motion_plain(
+        r16, tmax, torch.from_numpy(time), torch.from_numpy(tm_tab["W"]),
+        cl, na)
+    assert (p_s >= 0).sum() > 200 and (anyhit & (p_s >= 0)).sum() > 50
+    assert torch.equal(p_s, p_m)
+    ulp = torch.abs(torch.nextafter(t_s, torch.tensor(np.inf)) - t_s)
+    assert ((t_m - t_s).abs() <= ulp).all()
 
 
 def _mt_motion(v0, e1, e2, dm, o, d, time):
@@ -167,11 +272,11 @@ def _mt_motion(v0, e1, e2, dm, o, d, time):
 def test_motion_plain_matches_f64_moller_trumbore():
     v0, e1, e2, dm = _moving_soup(seed=3)
     o, d, time = _rays(seed=4)
-    _, r16, W, cb = _port_motion(v0, e1, e2, dm, o, d)
+    tab, r16, W, cb = _port_motion(v0, e1, e2, dm, o, d)
     before = dict(tdense.LAUNCHES)
     t, prim = tdense.dense_intersect_loop(
         r16, torch.full((o.shape[0],), BIG), W, cb,
-        time=torch.from_numpy(time))
+        torch.from_numpy(tab["chunk_static"]), time=torch.from_numpy(time))
     assert tdense.LAUNCHES == before              # plain versions never count
     t, prim = t.numpy(), prim.numpy()
     tb, pb = _mt_motion(v0, e1, e2, dm, o, d, time)
@@ -345,18 +450,20 @@ def test_launch_counts_cover_the_motion_kernel():
                                "dense_loop_ablate[stage]": 0,
                                "dense_loop_ablate[sections]": 0,
                                "dense_loop_ablate[direct]": 0,
-                               "dense_tile_dump": 0}
+                               "dense_tile_dump": 0,
+                               "dense_loop_init": 0}
 
 
 def test_motion_wrapper_takes_plain_path_on_cpu_only():
     v0, e1, e2, dm = _moving_soup(n_tris=200, seed=7)
     o, d, time = _rays(n_rays=256, seed=8)
-    _, r16, W, cb = _port_motion(v0, e1, e2, dm, o, d)
+    tab, r16, W, cb = _port_motion(v0, e1, e2, dm, o, d)
     tmax = torch.full((256,), BIG)
     tm = torch.from_numpy(time)
+    st = torch.from_numpy(tab["chunk_static"])
     cl, na = tdense.tile_chunk_lists(r16, tmax, cb)
-    a = tdense.loop_hits_motion(r16, tmax, tm, W, cl, na)
+    a = tdense.loop_hits_motion(r16, tmax, tm, W, cl, na, st)
     b = tdense.loop_hits_motion_plain(r16, tmax, tm, W, cl, na)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     with pytest.raises(ValueError):
-        tdense.loop_hits_motion(r16, tmax, tm.to("meta"), W, cl, na)
+        tdense.loop_hits_motion(r16, tmax, tm.to("meta"), W, cl, na, st)
