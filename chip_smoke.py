@@ -6,7 +6,10 @@ Builds the dense intersector's CUDA kernels from `pbrt_tpu_torch/csrc`
 and holds each against its plain PyTorch version on the card at the
 shapes the main paths give it: K1 and the static K2 on the Cornell
 scene's camera and bounce-1 batches, K1 and K2 motion on those of
-`pbrt_tpu_torch/scenes/cornell_motion.pbrt`.  Then it drives three paths,
+`pbrt_tpu_torch/scenes/cornell_motion.pbrt`.  K1's chunk lists must
+equal the plain version's bit for bit, and K2 takes them; K1's cull
+alone (its kCull instantiation, the TPU kernel's contract) is held to
+its plain version too.  Then it drives three paths,
 each with the kernels' launch counts set to 0 just before it and read
 just after:
 
@@ -38,9 +41,12 @@ non-zero; there is no fallback to the CPU or to a plain version.
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}};
 the line before it lists every kernel with its launches, its largest
-difference from the plain version, its times, its bound and what bounds
-it, and for K2 and K2 motion the listed chunks of a slice, the blocks a
-tile may take, the staging buffers and the merge keys' fills.
+difference from the plain version, its times (`ms`: CUDA events around
+20 wrapper calls, which hold the time the card waits on the host between
+launches; `device_ms`: the device time of the kernels one call launches,
+from torch.profiler), its bound and what bounds it, and for K2 and K2
+motion the listed chunks of a slice, the blocks a tile may take, the
+staging buffers and the merge keys' fills.
 """
 
 from __future__ import annotations
@@ -94,10 +100,11 @@ RAYS_PER_PASS = 65536
 # 0.9990 and 0.9978 (PERF.md): the same floor holds both.  Every lane of
 # both is held to its f32 rounding bound regardless.
 T_SHARE = 0.99
-K1_FLOPS = 28        # per (lane, chunk) slab test
 KERNELS = {
     "dense_queue": ("pbrt_tpu_torch/csrc/dense_queue.cu",
                     "pbrt_tpu/ops/pallas_intersect.py:761"),
+    "dense_queue_cull": ("pbrt_tpu_torch/csrc/dense_queue.cu",
+                         "pbrt_tpu/ops/pallas_intersect.py:761"),
     "dense_loop": ("pbrt_tpu_torch/csrc/dense_loop.cu",
                    "pbrt_tpu/ops/pallas_intersect.py:329"),
     "dense_loop_motion": ("pbrt_tpu_torch/csrc/dense_loop.cu",
@@ -105,7 +112,8 @@ KERNELS = {
 }
 # the TPU harnesses K1 and K2 themselves stand in for
 ALSO_REPLACES = {
-    "dense_queue": "scripts/debug/dissect_queue2.py:56",
+    "dense_queue": "the sort of pbrt_tpu/ops/pallas_intersect.py:812",
+    "dense_queue_cull": "scripts/debug/dissect_queue2.py:56",
     "dense_loop": "scripts/debug/micro_loop.py:91",
 }
 # K2's ablation modes (csrc/dense_loop.cu::LoopMode) and the tile dump:
@@ -137,18 +145,15 @@ def card_line():
     return out.strip().splitlines()[0]
 
 
-def time_ms(fn, reps=20):
-    """Mean device time of fn() in ms, by CUDA events, after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+def _ms(d):
+    """The device ms of a kernel_workloads.device_ms result, or None."""
+    return None if d is None else d[0]
+
+
+def _dev(rec):
+    """A record's device ms (kernel_workloads.device_ms), as text."""
+    d = rec["device"]
+    return "not measured" if d is None else f"{d[0]:.4f}"
 
 
 def nbytes(*xs):
@@ -156,30 +161,42 @@ def nbytes(*xs):
 
 
 def compare_kernels(scene, batches, card, k2):
-    """K1 and a K2 (`k2`: "dense_loop" or "dense_loop_motion") against
-    their plain versions on the same CUDA tensors.  Returns
-    {kernel: {batch: record}}."""
+    """K1's two instantiations and a K2 (`k2`: "dense_loop" or
+    "dense_loop_motion") against their plain versions on the same CUDA
+    tensors; K2 takes the lists K1 made.  Returns {kernel: {batch:
+    record}}."""
     motion = k2 == "dense_loop_motion"
     cb, Wt = scene.dense_cb, scene.dense_w
-    res = {"dense_queue": {}, k2: {}}
+    res = {"dense_queue": {}, "dense_queue_cull": {}, k2: {}}
     for name, (r16, tmax, tm) in batches.items():
-        # --- K1: hits identical, near within 1e-6 relative ---
+        # --- K1's cull: hits identical, near within 1e-6 relative ---
         hits, near = dense.tile_queue(r16, tmax, cb)
         hits_p, near_p = dense.tile_queue_plain(r16, tmax, cb)
-        check(torch.equal(hits, hits_p), f"K1 {name}: hits differ")
+        check(torch.equal(hits, hits_p), f"K1 cull {name}: hits differ")
         err = (near - near_p)[hits].abs()
         rel = (err / near_p[hits].abs().clamp(min=1e-30)).max().item() \
             if err.numel() else 0.0
-        check(rel <= 1e-6, f"K1 {name}: near rel err {rel}")
-        n_tiles, C = hits.shape
-        live_tiles = (tmax.reshape(n_tiles, -1) > 0).any(1)
-        k1_bound = kw.bound(K1_FLOPS * int(live_tiles.sum()) * dense.TILE * C,
-                         nbytes(r16, tmax, cb, hits, near))
+        check(rel <= 1e-6, f"K1 cull {name}: near rel err {rel}")
+        # --- K1's lists: equal to the plain version's bit for bit ---
+        cl, na = dense.tile_chunk_lists(r16, tmax, cb)
+        cl_p, na_p = dense.tile_chunk_lists_plain(r16, tmax, cb)
+        check(torch.equal(cl, cl_p) and torch.equal(na, na_p),
+              f"K1 {name}: chunk lists differ from the plain version's")
+        n_tiles, C = cl.shape
+        for key, fn, plain, mode, e in (
+                ("dense_queue", lambda: dense.tile_chunk_lists(r16, tmax, cb),
+                 lambda: dense.tile_chunk_lists_plain(r16, tmax, cb), "list",
+                 0),
+                ("dense_queue_cull", lambda: dense.tile_queue(r16, tmax, cb),
+                 lambda: dense.tile_queue_plain(r16, tmax, cb), "cull",
+                 err.max().item() if err.numel() else 0.0)):
+            res[key][name] = dict(
+                max_abs_err=e, ms=kw.time_ms(fn, 20, r16.device),
+                device=kw.device_ms(fn, 20),
+                plain_ms=kw.time_ms(plain, 20, r16.device),
+                bound=kw.queue_bound(mode, r16, tmax, cb))
 
-        # --- K2: same chunk lists into kernel and plain version ---
-        key = torch.where(hits, near, float("inf"))
-        cl = torch.sort(key, dim=1, stable=True).indices.to(torch.int32)
-        na = hits.sum(1, dtype=torch.int32)
+        # --- K2: the kernel's lists into kernel and plain version ---
         if motion:
             def run_k():
                 return dense.loop_hits_motion(r16, tmax, tm, Wt, cl, na,
@@ -234,26 +251,52 @@ def compare_kernels(scene, batches, card, k2):
         *k2_bound, tests = kw.loop_bound(r16, tmax, Wt, cl, na, t_k, p_k,
                                          scene.dense_static, time=tm)
 
-        res["dense_queue"][name] = dict(
-            max_abs_err=err.max().item() if err.numel() else 0.0,
-            ms=time_ms(lambda: dense.tile_queue(r16, tmax, cb)),
-            plain_ms=time_ms(lambda: dense.tile_queue_plain(r16, tmax, cb)),
-            bound=k1_bound)
         res[k2][name] = dict(
             max_abs_err=terr.max().item() if terr.numel() else 0.0,
-            ms=time_ms(run_k), plain_ms=time_ms(run_p, reps=5),
-            bound=k2_bound, tests=tests)
-        print(f"K1 {name}: B={r16.shape[0]} tiles={n_tiles} "
-              f"active chunks/tile={na.float().mean().item():.2f} "
-              f"hits identical, near max rel err={rel:.3e} kernel "
-              f"{res['dense_queue'][name]['ms']:.4f} ms plain "
-              f"{res['dense_queue'][name]['plain_ms']:.4f} ms bound "
-              f"{k1_bound[0]:.5f} ms ({k1_bound[1]}) | {k2} kernel "
-              f"{res[k2][name]['ms']:.4f} ms plain "
-              f"{res[k2][name]['plain_ms']:.4f} ms, {tests[0]} tests on "
-              f"static chunks, {tests[1]} on moving ones, bound "
-              f"{k2_bound[0]:.5f} ms ({k2_bound[1]}) on {card}")
+            ms=kw.time_ms(run_k, 20, r16.device), device=kw.device_ms(run_k),
+            plain_ms=kw.time_ms(run_p, 5, r16.device), bound=k2_bound,
+            tests=tests)
+        q, qc, k = (res["dense_queue"][name], res["dense_queue_cull"][name],
+                    res[k2][name])
+        print(f"K1 {name}: B={r16.shape[0]} tiles={n_tiles} C={C} active "
+              f"chunks/tile={na.float().mean().item():.2f}, lists equal the "
+              f"plain version's, cull hits identical, near max rel err="
+              f"{rel:.3e}; lists {_dev(q)} ms device, {q['ms']:.4f} ms "
+              f"events, plain {q['plain_ms']:.4f} ms, bound "
+              f"{q['bound'][0]:.5f} ms ({q['bound'][1]}); cull {_dev(qc)} "
+              f"ms device, {qc['ms']:.4f} ms events, plain "
+              f"{qc['plain_ms']:.4f} ms, bound {qc['bound'][0]:.5f} ms | "
+              f"{k2} {_dev(k)} ms device, {k['ms']:.4f} ms events, plain "
+              f"{k['plain_ms']:.4f} ms, {tests[0]} tests on static chunks, "
+              f"{tests[1]} on moving ones, bound {k2_bound[0]:.5f} ms "
+              f"({k2_bound[1]}) on {card}")
     return res
+
+
+def compare_list_cases(device):
+    """K1's lists and cull against their plain versions on its edge cases
+    (kernel_workloads.queue_cases: equal and signed-zero entry t, dead
+    and all-miss tiles, 1, 48 and 576 chunks) and on the cluster mesh's
+    z40 rays (514 chunks)."""
+    cases = kw.queue_cases(device)
+    z40 = kw.cluster_rays_z40(device)
+    cases["z40"] = (z40.r16, z40.tmax, z40.chunk_bounds)
+    for name, (r16, tmax, cb) in cases.items():
+        cl, na = dense.tile_chunk_lists(r16, tmax, cb)
+        cl_p, na_p = dense.tile_chunk_lists_plain(r16, tmax, cb)
+        check(torch.equal(cl, cl_p) and torch.equal(na, na_p),
+              f"K1 {name}: chunk lists differ from the plain version's")
+        hits, near = dense.tile_queue(r16, tmax, cb)
+        hits_p, near_p = dense.tile_queue_plain(r16, tmax, cb)
+        rel = ((near - near_p).abs()
+               / near_p.abs().clamp(min=1e-30))[hits_p]
+        check(torch.equal(hits, hits_p) and (
+            rel.numel() == 0 or rel.max().item() <= 1e-6),
+            f"K1 cull {name}: differs from the plain version")
+    print("K1 edge cases and z40: lists equal the plain version's bit for "
+          "bit, cull hits identical and near within 1e-6 rel on "
+          + ", ".join(f"{k} (C={v[2].shape[0]}, {v[0].shape[0]} rays)"
+                      for k, v in cases.items()))
 
 
 def check_image(img, what):
@@ -335,8 +378,8 @@ def phase10(scene, card):
     torch.cuda.synchronize()
     counts = dict(dense.LAUNCHES)
     dt = time.perf_counter() - t0
-    for k in ("dense_queue", "dense_loop", "dense_tile_dump",
-              *map(dense.ablate_kernel, ABLATE_FLOPS)):
+    for k in ("dense_queue", "dense_queue_cull", "dense_loop",
+              "dense_tile_dump", *map(dense.ablate_kernel, ABLATE_FLOPS)):
         check(counts[k] > 0, f"harnesses: {k} never launched")
     check(counts["dense_loop_motion"] == 0, "harnesses: K2 motion launched")
     (_, B), stage_ms = next(iter(dis.items()))
@@ -384,8 +427,10 @@ def phase10(scene, card):
             "max_abs_err": max(r["errs"][m] for k, r in abl.items()
                                if k != "sweep"),
             "ms": kw.spread(abl["cornell_random"]["times"][m])[0],
-            "plain_ms": time_ms(lambda m=m: dense.loop_hits_ablate_plain(
-                m, *args), reps=3),
+            "plain_ms": kw.time_ms(lambda m=m: dense.loop_hits_ablate_plain(
+                m, *args), 3, wl.r16.device),
+            "device_ms": _ms(kw.device_ms(
+                lambda m=m: dense.loop_hits_ablate(m, *args))),
             "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
             "ms_cluster_g8": kw.spread(cluster[m])[0],
             "workload": f"cornell_random, {wl.listed} listed chunks, "
@@ -393,7 +438,10 @@ def phase10(scene, card):
     tiny = kw.tiny600(scene.dense_w.device)
     picks = torch.tensor(TINY_PICKS, dtype=torch.int32,
                          device=tiny.r16.device)
-    out = dense.tile_dump(tiny.r16, tiny.tmax, tiny.W, picks, 0)
+
+    def dump():
+        return dense.tile_dump(tiny.r16, tiny.tmax, tiny.W, picks, 0)
+    out = dump()
     n_tests = len(TINY_PICKS) * tiny.chunk * dense.TILE
     # the ray columns the tests read, tmax, the picks, the staged rows of
     # each distinct pick, the outputs
@@ -406,11 +454,11 @@ def phase10(scene, card):
         "replaces": HARNESSES["dense_tile_dump"],
         "launches": counts["dense_tile_dump"],
         "max_abs_err": max(d["max_abs_err"] for d in dumps),
-        "ms": time_ms(lambda: dense.tile_dump(tiny.r16, tiny.tmax, tiny.W,
-                                              picks, 0)),
-        "plain_ms": time_ms(lambda: dense.tile_dump_plain(
+        "ms": kw.time_ms(dump, 20, picks.device),
+        "device_ms": _ms(kw.device_ms(dump)),
+        "plain_ms": kw.time_ms(lambda: dense.tile_dump_plain(
             tiny.r16[:dense.TILE], tiny.tmax[:dense.TILE], tiny.W, picks),
-            reps=5),
+            5, picks.device),
         "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
         "workload": f"tiny600 tile 0, picks {TINY_PICKS}"})
     return {"counts": counts, "rows": rows}
@@ -436,8 +484,8 @@ def main():
     _, build_s, log = cuda_kernels.build()
     cuda_kernels.library()
     print(f"phase 2 build: {build_s:.2f} s (one nvcc, sm_90a; kernels "
-          "dense_queue, dense_loop (5 modes and the tile dump), "
-          "dense_loop_motion)")
+          "dense_queue (its lists and its cull alone), dense_loop (5 "
+          "modes and the tile dump), dense_loop_motion)")
     for line in log.splitlines():
         if any(k in line for k in ("registers", "Compiling entry",
                                    "spill")):
@@ -459,6 +507,8 @@ def main():
         "dense_loop_motion")
     res["dense_loop_motion"] = mres["dense_loop_motion"]
     res["dense_queue_motion"] = mres["dense_queue"]
+    res["dense_queue_cull_motion"] = mres["dense_queue_cull"]
+    compare_list_cases(device)
     print("phase 3-4 kernels agree with their plain versions")
 
     passes = SPP * (-(-W * H // RAYS_PER_PASS))
@@ -496,7 +546,7 @@ def main():
                             cfg, SPP, max_depth=DEPTH,
                             max_rays_per_pass=RAYS_PER_PASS,
                             count_rays=True),
-        {"dense_queue": (DEPTH + 1) * passes,
+        {"dense_queue": (DEPTH + 1) * passes, "dense_queue_cull": 0,
          "dense_loop": (DEPTH + 1) * passes, "dense_loop_motion": 0}, scene)
     dt = time.perf_counter() - t0
     check_image(filmmod.develop_spectral(film), "Cornell render")
@@ -512,7 +562,7 @@ def main():
     (gfilm, _), counts = run_path(
         "CLI reference gate",
         lambda: cli.run_job(job, spp=GATE_SPP, stats=stats),
-        {"dense_queue": (DEPTH + 1) * gate_passes,
+        {"dense_queue": (DEPTH + 1) * gate_passes, "dense_queue_cull": 0,
          "dense_loop": (DEPTH + 1) * gate_passes, "dense_loop_motion": 0},
         job.scene)
     dt = time.perf_counter() - t0
@@ -534,8 +584,9 @@ def main():
         "motion render",
         lambda: cli.run_job(mjob, spp=SPP, max_depth=DEPTH,
                             max_rays_per_pass=RAYS_PER_PASS, stats=stats),
-        {"dense_queue": (DEPTH + 1) * passes, "dense_loop": 0,
-         "dense_loop_motion": (DEPTH + 1) * passes}, mjob.scene)
+        {"dense_queue": (DEPTH + 1) * passes, "dense_queue_cull": 0,
+         "dense_loop": 0, "dense_loop_motion": (DEPTH + 1) * passes},
+        mjob.scene)
     dt = time.perf_counter() - t0
     check_image(filmmod.develop_spectral(mfilm), "motion render")
     print(f"phase 7 motion render cornell_motion.pbrt {W}x{H} {SPP} spp "
@@ -562,19 +613,30 @@ def main():
     rows = []
     for k, (src, rep) in KERNELS.items():
         r = res[k]
+        # the cull alone runs on no render path: its launches are the
+        # harnesses' (phase 10), as the harness rows' are
         row = {"name": k, "route": "cuda", "source": src, "replaces": rep,
-               "launches": launches[k],
+               "launches": (harness["counts"][k] if k == "dense_queue_cull"
+                            else launches[k]),
                "max_abs_err": max(v["max_abs_err"] for v in r.values()),
-               "ms": r["bounce1"]["ms"], "plain_ms": r["bounce1"]["plain_ms"],
+               "ms": r["bounce1"]["ms"],
+               "device_ms": _ms(r["bounce1"]["device"]),
+               "plain_ms": r["bounce1"]["plain_ms"],
                "bound_ms": r["bounce1"]["bound"][0],
                "bound_by": r["bounce1"]["bound"][1], "library_ms": None,
                "ms_camera": r["camera"]["ms"],
+               "device_ms_camera": _ms(r["camera"]["device"]),
                "plain_ms_camera": r["camera"]["plain_ms"],
-               "bound_ms_camera": r["camera"]["bound"][0]}
-        if k == "dense_queue":
-            m = res["dense_queue_motion"]
+               "bound_ms_camera": r["camera"]["bound"][0],
+               "kernels_per_call": (r["bounce1"]["device"] or (0, None))[1]}
+        if k in ("dense_queue", "dense_queue_cull"):
+            m = res[k + "_motion"]
             row.update(ms_motion_bounce1=m["bounce1"]["ms"],
-                       ms_motion_camera=m["camera"]["ms"])
+                       ms_motion_camera=m["camera"]["ms"],
+                       device_ms_motion_bounce1=_ms(m["bounce1"]["device"]),
+                       device_ms_motion_camera=_ms(m["camera"]["device"]))
+        if k == "dense_queue_cull":
+            row["launches_main_paths"] = launches[k]
         if k in init_launches:
             sc = scene if k == "dense_loop" else mjob.scene
             row.update(

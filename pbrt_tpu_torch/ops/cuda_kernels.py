@@ -59,8 +59,9 @@ def library():
     """The loaded kernel library, with argument types declared."""
     lib = ctypes.CDLL(build()[0])
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.pbrt_dense_queue.restype = ctypes.c_int
-    lib.pbrt_dense_queue.argtypes = [p, p, p, i, i, i, p, p, p]
+    for name in ("pbrt_dense_queue", "pbrt_dense_queue_cull"):
+        getattr(lib, name).restype = ctypes.c_int
+        getattr(lib, name).argtypes = [p, p, p, i, i, i, p, p, p]
     lib.pbrt_dense_loop.restype = ctypes.c_int
     lib.pbrt_dense_loop.argtypes = [p] * 5 + [i] * 5 + [p] * 4
     lib.pbrt_dense_loop_motion.restype = ctypes.c_int

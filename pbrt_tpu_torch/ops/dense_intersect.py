@@ -6,10 +6,13 @@ triangles, each with an AABB.  Rays are cut into tiles of TILE lanes.
 Three kernels do the work, each with a plain PyTorch twin of the same
 contract:
 
-  K1 `tile_queue`        per (tile, chunk): does any live lane of the tile
-                         hit the chunk's AABB, and the least entry t among
-                         them (csrc/dense_queue.cu; replaces
-                         `_queue_kernel`).
+  K1 `tile_chunk_lists`  per tile: the chunks whose AABB a live lane of
+                         the tile enters, front to back by their least
+                         entry t, then the rest (csrc/dense_queue.cu, its
+                         kList instantiation; replaces `_queue_kernel` and
+                         the sort that followed it).  `tile_queue` is its
+                         cull alone, the TPU kernel's contract (kCull):
+                         per (tile, chunk) the hit flag and least entry t.
   K2 `loop_hits`         per ray: closest (or first, for any-hit lanes)
                          hit over the triangles of its tile's active
                          chunks (csrc/dense_loop.cu; replaces
@@ -32,7 +35,7 @@ is inside iff the three edge sides share a sign bit, and t = num/nd is
 accepted when 1e-4 < t and (t, prim) is lexicographically below the
 lane's best.  Any-hit lanes park at t = -1 after their first accept (in
 their tile's chunk order, and in triangle order within a chunk).
-`dense_intersect_loop` runs K1, the chunk sort and K2; given a per-ray
+`dense_intersect_loop` runs K1 (one launch) and K2; given a per-ray
 `time` it takes the motion K2.  Once any mesh of a scene moves, its whole
 table is the motion table, as in the JAX package; an unmoving triangle's
 plane 0 is its static entry and its planes 1-3 are exact zeros, and
@@ -88,8 +91,10 @@ def ablate_kernel(mode):
 
 
 #: kernel launches made by the wrappers (the plain versions never count)
-#: ("dense_loop_init": the fills of the loop kernels' merge keys)
-LAUNCHES = {k: 0 for k in ("dense_queue", "dense_loop", "dense_loop_motion",
+#: ("dense_queue": K1's lists, "dense_queue_cull": its cull alone;
+#: "dense_loop_init": the fills of the loop kernels' merge keys)
+LAUNCHES = {k: 0 for k in ("dense_queue", "dense_queue_cull", "dense_loop",
+                           "dense_loop_motion",
                            *map(ablate_kernel, ABLATE_MODES[:-1]),
                            "dense_tile_dump", "dense_loop_init")}
 
@@ -311,33 +316,45 @@ def _on_cpu(*xs):
 
 
 def tile_queue(r16, tmax, chunk_bounds):
-    """K1: per-(tile, chunk) AABB cull.
+    """K1's cull alone (the TPU kernel's contract; the kCull instantiation
+    of csrc/dense_queue.cu): per-(tile, chunk) AABB test.
 
     r16 [n_tiles*TILE,16] f32, tmax [n_tiles*TILE] f32 (dead lanes <= 0),
-    chunk_bounds [C,8] f32.  Returns hits [n_tiles,C] bool (any live lane
-    of the tile enters the chunk's box before its tmax) and near
-    [n_tiles,C] f32 (least max(entry t, 0) over those lanes, else
-    F32_MAX)."""
+    chunk_bounds [C,8] f32, C <= MAX_CHUNKS.  Returns hits [n_tiles,C]
+    bool (any live lane of the tile enters the chunk's box before its
+    tmax) and near [n_tiles,C] f32 (least max(entry t, 0) over those
+    lanes, else F32_MAX)."""
     if _on_cpu(r16, tmax, chunk_bounds):
         return tile_queue_plain(r16, tmax, chunk_bounds)
-    B = r16.shape[0]
-    C = chunk_bounds.shape[0]
-    if B == 0 or B % TILE:
-        raise ValueError(f"tile_queue: batch {B} is not a positive "
-                         f"multiple of {TILE}")
-    _check("r16", r16, torch.float32, (B, 16))
-    _check("tmax", tmax, torch.float32, (B,))
-    _check("chunk_bounds", chunk_bounds, torch.float32, (C, 8))
-    n_tiles = B // TILE
+    n_tiles, C = _queue_shapes("tile_queue", r16, tmax, chunk_bounds)
     hits = torch.empty((n_tiles, C), dtype=torch.bool, device=r16.device)
     near = torch.empty((n_tiles, C), dtype=torch.float32, device=r16.device)
     from pbrt_tpu_torch.ops import cuda_kernels
-    err = cuda_kernels.library().pbrt_dense_queue(
+    err = cuda_kernels.library().pbrt_dense_queue_cull(
         _ptr(r16), _ptr(tmax), _ptr(chunk_bounds), n_tiles, C, TILE,
         _ptr(hits), _ptr(near), _stream())
-    _raise_on(err, "dense_queue")
-    LAUNCHES["dense_queue"] += 1
+    _raise_on(err, "dense_queue_cull")
+    LAUNCHES["dense_queue_cull"] += 1
     return hits, near
+
+
+def _queue_shapes(name, r16, tmax, chunk_bounds):
+    """Checks K1's inputs on the card; returns (n_tiles, C)."""
+    B = r16.shape[0]
+    C = chunk_bounds.shape[0]
+    if B == 0 or B % TILE:
+        raise ValueError(f"{name}: batch {B} is not a positive multiple of "
+                         f"{TILE}")
+    if not 1 <= C <= MAX_CHUNKS:
+        raise ValueError(f"{name}: {C} chunks; the kernel takes 1 to "
+                         f"{MAX_CHUNKS}")
+    _check("r16", r16, torch.float32, (B, 16))
+    _check("tmax", tmax, torch.float32, (B,))
+    _check("chunk_bounds", chunk_bounds, torch.float32, (C, 8))
+    if r16.data_ptr() % 16 or chunk_bounds.data_ptr() % 16:
+        raise ValueError(f"{name}: r16 and chunk_bounds must be 16-byte "
+                         "aligned (the kernel loads them as float4)")
+    return B // TILE, C
 
 
 def tile_queue_plain(r16, tmax, chunk_bounds):
@@ -362,11 +379,40 @@ def tile_queue_plain(r16, tmax, chunk_bounds):
 
 
 def tile_chunk_lists(r16, tmax, chunk_bounds):
-    """Per-tile active-chunk lists: (chunk_list [n_tiles,C] int32, front
-    to back by entry t, then the inactive chunks; n_active [n_tiles]
-    int32)."""
-    hits, near = tile_queue(r16, tmax, chunk_bounds)
-    key = torch.where(hits, near, float("inf"))
+    """K1 as the main path runs it (the kList instantiation of
+    csrc/dense_queue.cu: the cull and the order in one launch):
+    per-tile active-chunk lists, (chunk_list [n_tiles,C] int32: the hit
+    chunks front to back by near, ties by chunk id, then the missed
+    chunks in id order; n_active [n_tiles] int32: the hit chunks).
+    Arguments as tile_queue's."""
+    if _on_cpu(r16, tmax, chunk_bounds):
+        return tile_chunk_lists_plain(r16, tmax, chunk_bounds)
+    n_tiles, C = _queue_shapes("tile_chunk_lists", r16, tmax, chunk_bounds)
+    chunk_list = torch.empty((n_tiles, C), dtype=torch.int32,
+                             device=r16.device)
+    n_active = torch.empty(n_tiles, dtype=torch.int32, device=r16.device)
+    from pbrt_tpu_torch.ops import cuda_kernels
+    err = cuda_kernels.library().pbrt_dense_queue(
+        _ptr(r16), _ptr(tmax), _ptr(chunk_bounds), n_tiles, C, TILE,
+        _ptr(chunk_list), _ptr(n_active), _stream())
+    _raise_on(err, "dense_queue")
+    LAUNCHES["dense_queue"] += 1
+    return chunk_list, n_active
+
+
+def tile_chunk_lists_plain(r16, tmax, chunk_bounds):
+    """tile_chunk_lists' plain version: tile_queue_plain, then
+    chunk_lists_from_cull."""
+    return chunk_lists_from_cull(*tile_queue_plain(r16, tmax, chunk_bounds))
+
+
+def chunk_lists_from_cull(hits, near):
+    """tile_chunk_lists' outputs from the cull's hits and near [n_tiles,C]:
+    a stable sort of each tile's keys (near where hit, else +inf), and the
+    hit counts.  A near of -0.0 (tile_queue_plain's clamp keeps it) is
+    keyed as +0.0, so that it ties with +0.0 and the chunk id decides,
+    whatever the sort does with signed zeros."""
+    key = torch.where(hits, near + 0.0, float("inf"))
     chunk_list = torch.sort(key, dim=1, stable=True).indices
     return chunk_list.to(torch.int32), hits.sum(1, dtype=torch.int32)
 
@@ -886,13 +932,13 @@ def tile_dump_bounds(r16, W, picks):
 
 def dense_intersect_loop(r16, tmax, W, chunk_bounds, chunk_static,
                          time=None):
-    """Closest / any-hit query over the dense tables: K1, the front-to-back
-    chunk sort, then K2 (the motion K2 when a per-ray shutter `time` [B]
-    in [0,1] is given; W is then the motion table).  chunk_static [C]
-    bool: the table's chunks of unmoving triangles (all of a static
-    table's; K2 motion reads it).  r16 [B,16], tmax [B].  Returns
-    (t [B], prim [B] int32), prim -1 on a miss; pads the batch to whole
-    tiles with dead lanes."""
+    """Closest / any-hit query over the dense tables: K1 (the tiles'
+    front-to-back chunk lists), then K2 (the motion K2 when a per-ray
+    shutter `time` [B] in [0,1] is given; W is then the motion table).
+    chunk_static [C] bool: the table's chunks of unmoving triangles (all
+    of a static table's; K2 motion reads it).  r16 [B,16], tmax [B].
+    Returns (t [B], prim [B] int32), prim -1 on a miss; pads the batch to
+    whole tiles with dead lanes."""
     B = r16.shape[0]
     Bp = -(-B // TILE) * TILE
     if Bp != B:

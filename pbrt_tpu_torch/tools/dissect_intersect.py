@@ -15,8 +15,10 @@ ops/intersect.py::intersect on its own inputs:
   1. ray_vectors
   2. coherence key, sort and the gathers of o, d and tmax
   3. the unsort scatters of t and prim
-  4. K1 alone (tile_queue)
-  5. K1 and the chunk sort (tile_chunk_lists)
+  4. K1 alone: its cull, the TPU kernel's contract (tile_queue: K1's
+     kCull instantiation)
+  5. K1 lists: the cull and the front-to-back chunk lists in one launch,
+     as the main path runs it (tile_chunk_lists: kList)
   6. K2 on the sorted rays with their lists (loop_hits)
   7. the whole intersect call
 
@@ -37,7 +39,6 @@ import sys
 
 import numpy as np
 import torch
-from torch.autograd import DeviceType
 
 from pbrt_tpu_torch.core import device as devmod
 from pbrt_tpu_torch.core import geometry as geom
@@ -49,10 +50,10 @@ from pbrt_tpu_torch.tools import kernel_workloads as kw
 N_BATCHES = 8
 LIVE = 0.7
 STAGES = ("sphere pre-test", "ray_vectors", "key + sort + gathers",
-          "unsort scatters", "K1 alone", "K1 + chunk sort",
+          "unsort scatters", "K1 alone", "K1 lists",
           "K2 presorted", "intersect")
 SUMMED = ("sphere pre-test", "ray_vectors", "key + sort + gathers",
-          "unsort scatters", "K1 + chunk sort", "K2 presorted")
+          "unsort scatters", "K1 lists", "K2 presorted")
 
 
 def scene_bounds(scene):
@@ -119,8 +120,7 @@ def stages(scene, ray):
         "key + sort + gathers": sort,
         "unsort scatters": unsort,
         "K1 alone": lambda: dense.tile_queue(r16, ts, scene.dense_cb),
-        "K1 + chunk sort": lambda: dense.tile_chunk_lists(r16, ts,
-                                                          scene.dense_cb),
+        "K1 lists": lambda: dense.tile_chunk_lists(r16, ts, scene.dense_cb),
         "K2 presorted": lambda: dense.loop_hits(r16, ts, scene.dense_w, cl,
                                                 na),
         "intersect": lambda: isect.intersect(scene, ray),
@@ -156,31 +156,17 @@ def dissect(scene, B, rounds, reps, device):
     return times, device_ms(calls) if device.type == "cuda" else {}
 
 
-def device_ms(calls, reps=8):
+def device_ms(calls):
     """{stage: (device ms per call, kernels per call)} of the stages'
-    kernels under torch.profiler, or {} when the trace holds no device
-    time (on the CPU, or where the profiler cannot trace the card)."""
-    acts = [torch.profiler.ProfilerActivity.CUDA]
+    kernels (kernel_workloads.device_ms), or {} where the trace holds no
+    device time."""
     out = {}
     for name, fn in calls.items():
-        fn()
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        ev = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
-        if not ev:
+        d = kw.device_ms(fn)
+        if d is None:
             return {}
-        out[name] = (sum(_device_us(e) for e in ev) / 1e3 / reps,
-                     sum(e.count for e in ev) / reps)
+        out[name] = d
     return out
-
-
-def _device_us(e):
-    return getattr(e, "self_device_time_total",
-                   getattr(e, "self_cuda_time_total", 0.0))
 
 
 def parse_args(argv=None):

@@ -21,12 +21,17 @@ from the same numpy seeds by the port's own code.
   cluster_scene     s4 in place of killeroo (whose geometry is not in the
                     repo): the cluster mesh as a scene, for whole
                     intersect calls.
+  box_table         K1 alone at the most chunks a table has (MAX_CHUNKS
+                    = 576): random boxes about [-10,10]^3 and z40's rays.
+  queue_cases       K1's edge cases, constructed: equal and signed-zero
+                    entry t, dead and all-miss tiles, C = 1, 48, 576.
 
 Each takes a device and a seed; nothing is built at import.  The s3
 script drew its rays with jax.random; here numpy draws them from the same
 distribution.  K2's bound (loop_bytes, loop_bound) and the timing
 helpers at the end (CUDA events, interleaved rounds, spreads) serve the
-tools and chip_smoke.py alike.
+tools and chip_smoke.py alike, as do K1's bound (queue_bytes,
+queue_bound) and the device-time helper (device_ms).
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 
 from pbrt_tpu_torch.models import flagship
 from pbrt_tpu_torch.ops import dense_intersect as dense
@@ -177,6 +183,90 @@ def cluster_rays_z40(device, seed=0, n_rays=65536):
     return _k1_workload("cluster_z40", o, d, W, cb, center)
 
 
+def box_table(device, seed=0, n_chunks=dense.MAX_CHUNKS, n_rays=65536):
+    """K1's inputs at n_chunks chunks, with no triangles behind them:
+    (r16 [n_rays,16], tmax [n_rays], chunk_bounds [n_chunks,8]).  Boxes
+    centred U[-10,10)^3 with half sides U[0.3,1.5); rays from (x, y, -40),
+    (x, y) U[-12,12)^2, toward (0.8x, 0.8y, 0), tmax 1e30 on 70% of the
+    lanes and -1 (dead) on the rest."""
+    rs = np.random.RandomState(seed)
+    ctr = rs.rand(n_chunks, 3) * 20 - 10
+    half = rs.rand(n_chunks, 3) * 1.2 + 0.3
+    cb = np.zeros((n_chunks, 8))
+    cb[:, 0:3], cb[:, 4:7] = ctr - half, ctr + half
+    px = rs.rand(n_rays, 2) * 24 - 12
+    o = np.concatenate([px, np.full((n_rays, 1), -40.0)], 1)
+    tgt = np.concatenate([px * 0.8, np.zeros((n_rays, 1))], 1)
+    tmax = np.where(rs.rand(n_rays) < 0.7, 1e30, -1.0)
+    o, d, cb, tmax = _to(device, o, _unit(tgt - o), cb, tmax)
+    return (dense.ray_vectors(o, d, torch.zeros(3, device=o.device))
+            .contiguous(), tmax, cb)
+
+
+def queue_cases(device, seed=0, n_rays=512):
+    """K1's edge cases, {name: (r16, tmax, chunk_bounds)}, with r16 built
+    directly (origin - centre in columns 6-8, inverse direction in 9-11):
+
+      ties        one ray, 8 boxes: two pairs of equal boxes (equal entry
+                  t, ordered by chunk id), one holding the origin (entry
+                  0), one entered at 0.5, one beside the ray and one
+                  behind it (missed).
+      signed_zero one ray, 4 boxes: chunks 0 and 3 entered at -0.0 (their
+                  low x face is -0.0, the origin's x +0.0), chunk 1 at
+                  +0.0 (it holds the origin), chunk 2 at 2: the list is
+                  0, 1, 3, 2.
+      dead_miss   3 tiles, 8 boxes: tile 0 live and hitting, tile 1 dead
+                  (tmax <= 0) on the rays of tile 0, tile 2 live with
+                  every ray pointing away from every box.
+      C1, C48, C576  box_table with 1, 48 and 576 chunks, n_rays rays."""
+    def ray_rows(o, d):
+        r16 = torch.zeros((o.shape[0], 16), dtype=torch.float32)
+        r16[:, 6:9] = torch.as_tensor(o, dtype=torch.float32)
+        r16[:, 9:12] = 1.0 / torch.as_tensor(d, dtype=torch.float32)
+        return r16
+
+    def boxes(lo_hi):
+        cb = torch.zeros((len(lo_hi), 8), dtype=torch.float32)
+        for c, (lo, hi) in enumerate(lo_hi):
+            cb[c, 0:3] = torch.tensor(lo, dtype=torch.float32)
+            cb[c, 4:7] = torch.tensor(hi, dtype=torch.float32)
+        return cb
+
+    def one_live(o, d, cb, n_tiles=1):
+        B = n_tiles * dense.TILE
+        r16 = ray_rows(np.tile(o, (B, 1)), np.tile(d, (B, 1)))
+        tmax = torch.full((B,), -1.0)
+        tmax[0] = 1e30
+        return r16, tmax, cb
+
+    along = [([3, -.5, -.5], [4, .5, .5]), ([1, -.5, -.5], [2, .5, .5]),
+             ([1, -.5, -.5], [2, .5, .5]), ([3, -.5, -.5], [4, .5, .5]),
+             ([1, 2, 2], [2, 3, 3]), ([-1, -.5, -.5], [.5, .5, .5]),
+             ([-2, -.5, -.5], [-1, .5, .5]), ([.5, -.5, -.5], [5, .5, .5])]
+    cases = {"ties": one_live([0.0, 0.0, 0.0], [1.0, 1e-20, 1e-20],
+                              boxes(along))}
+    cases["signed_zero"] = one_live(
+        [0.0, 0.5, 0.5], [1.0, 1e-20, 1e-20],
+        boxes([([-0.0, 0, 0], [1, 1, 1]), ([-1, 0, 0], [1, 1, 1]),
+               ([2, 0, 0], [3, 1, 1]), ([-0.0, 0, 0], [1, 1, 1])]))
+    rs = np.random.RandomState(seed)
+    T = dense.TILE
+    o = np.zeros((3 * T, 3))
+    d = np.tile([1.0, 1e-20, 1e-20], (3 * T, 1))
+    o[:T, 1:] = rs.rand(T, 2) * 0.8 - 0.4          # tile 0: through the boxes
+    o[T:2 * T] = o[:T]                             # tile 1: the same, dead
+    d[2 * T:, 0] = -1.0                            # tile 2: away from them
+    o[2 * T:, 0] = -3.0
+    tmax = torch.full((3 * T,), 1e30)
+    tmax[T:2 * T] = torch.where(torch.arange(T) % 2 == 0, 0.0, -1.0)
+    cases["dead_miss"] = (ray_rows(o, d), tmax, boxes(along))
+    for C in (1, 48, dense.MAX_CHUNKS):
+        cases[f"C{C}"] = tuple(x.cpu() for x in box_table(
+            "cpu", seed, n_chunks=C, n_rays=n_rays))
+    return {k: tuple(x.to(device).contiguous() for x in v)
+            for k, v in cases.items()}
+
+
 def tiny600_mesh(seed=0):
     """s6/s7's 600-triangle soup: (v0, e1, e2) f64, and the RandomState
     positioned after it."""
@@ -308,6 +398,39 @@ def loop_bytes(mode, r16, tmax, W, chunk_list, n_active, *outs,
 
 
 # ---------------------------------------------------------------------------
+# K1's bound
+# ---------------------------------------------------------------------------
+
+QUEUE_FLOPS = 28     # f32 operations per (live lane, chunk) slab test
+
+
+def queue_bytes(mode, r16, tmax, chunk_bounds):
+    """Bytes K1 must move on these inputs, each read or written once: the
+    64-byte r16 row of each live lane (its origin and inverse direction
+    span both 32-byte sectors of the row; a dead lane's row is never
+    needed), tmax, the chunk boxes, and the outputs: chunk_list
+    [n_tiles,C] int32 and n_active [n_tiles] int32 for mode "list", hits
+    (one byte) and near (f32) [n_tiles,C] for mode "cull"."""
+    if mode not in ("list", "cull"):
+        raise ValueError(f"unknown K1 mode {mode!r}")
+    n_tiles = r16.shape[0] // dense.TILE
+    C = chunk_bounds.shape[0]
+    live = int((tmax > 0).sum())
+    out = n_tiles * C * 4 + n_tiles * 4 if mode == "list" \
+        else n_tiles * C * 5
+    return live * 64 + tmax.numel() * 4 + chunk_bounds.numel() * 4 + out
+
+
+def queue_bound(mode, r16, tmax, chunk_bounds):
+    """(ms, what bounds it) of K1 in `mode` ("list" or "cull") on these
+    inputs: QUEUE_FLOPS per live lane and chunk, and queue_bytes.  The
+    list's order costs compares, which are not counted."""
+    live = int((tmax > 0).sum())
+    return bound(QUEUE_FLOPS * live * chunk_bounds.shape[0],
+                 queue_bytes(mode, r16, tmax, chunk_bounds))
+
+
+# ---------------------------------------------------------------------------
 # timing, shared by the tools
 # ---------------------------------------------------------------------------
 
@@ -330,6 +453,37 @@ def time_ms(fn, reps, device):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_us(event):
+    """A torch.profiler event's own device time in us."""
+    return getattr(event, "self_device_time_total",
+                   getattr(event, "self_cuda_time_total", 0.0))
+
+
+def device_ms(fn, reps=8, traces=3):
+    """(device ms per call, kernels per call) of fn() on the card: the
+    summed time of the kernels it launches, under torch.profiler, over
+    `reps` calls after one warm-up; the time the card waits on the host
+    between them is not in it.  On the H100 a trace now and then comes
+    back with some or all of its kernels missing, so `traces` traces are
+    taken and the one with the most kernel events counts.  None if no
+    trace held device time."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    best = None
+    for _ in range(traces):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and device_us(e) > 0]
+        n = sum(e.count for e in ev)
+        if ev and (best is None or n > best[1] * reps):
+            best = (sum(device_us(e) for e in ev) / 1e3 / reps, n / reps)
+    return best
 
 
 def interleaved(fns, rounds, reps, device):

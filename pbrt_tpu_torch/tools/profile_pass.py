@@ -29,11 +29,7 @@ from pbrt_tpu_torch.ops import dense_intersect as dense
 from pbrt_tpu_torch.parser.api import parse_scene
 from pbrt_tpu_torch.samplers.samplers import SamplerConfig
 from pbrt_tpu_torch.tools import pbrt as cli
-
-
-def _device_us(e):
-    return getattr(e, "self_device_time_total",
-                   getattr(e, "self_cuda_time_total", 0.0))
+from pbrt_tpu_torch.tools.kernel_workloads import device_us
 
 
 def main(argv=None):
@@ -73,8 +69,8 @@ def main(argv=None):
         one_pass()
         wall = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
-    dev_ms = sum(_device_us(e) for e in kernels) / 1e3
+               if e.device_type == DeviceType.CUDA and device_us(e) > 0]
+    dev_ms = sum(device_us(e) for e in kernels) / 1e3
     print(f"{args.scene}: {args.rays} rays, depth {depth}, on {card}")
     print("unprofiled passes: " + ", ".join(f"{w:.2f} ms" for w in walls))
     if not kernels:
@@ -84,9 +80,9 @@ def main(argv=None):
           f"{sum(e.count for e in kernels)} device kernel events, "
           f"{dev_ms:.2f} ms device time, idle share "
           f"{1 - dev_ms / wall:.3f}, dense launches {dict(dense.LAUNCHES)}")
-    for e in sorted(kernels, key=_device_us, reverse=True)[:args.top]:
-        print(f"  {_device_us(e) / 1e3:9.3f} ms {e.count:6d} calls "
-              f"{100 * _device_us(e) / 1e3 / dev_ms:5.1f}%  {e.key[:90]}")
+    for e in sorted(kernels, key=device_us, reverse=True)[:args.top]:
+        print(f"  {device_us(e) / 1e3:9.3f} ms {e.count:6d} calls "
+              f"{100 * device_us(e) / 1e3 / dev_ms:5.1f}%  {e.key[:90]}")
     return 0
 
 

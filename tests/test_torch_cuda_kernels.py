@@ -4,8 +4,14 @@ These tests need a CUDA GPU and nvcc, and skip without them.  The file
 imports neither jax nor pbrt_tpu, so it also runs on a machine without
 JAX (see README: "PyTorch/CUDA port").
 
-Tolerances: K1's hits are identical (its predicate avoids FMA
-contraction); its near bound agrees to 1e-6 relative.  K2 and its plain
+Tolerances: K1's chunk lists (its kList instantiation, the one launch
+of `tile_chunk_lists`) equal the plain version's bit for bit, on a
+soup, on kernel_workloads' edge cases (equal and signed-zero entry t,
+dead and all-miss tiles, C = 1, 48 and 576) and on the cluster mesh's
+z40 rays; K1's cull alone (kCull, `tile_queue`) gives identical hits
+(its predicate avoids FMA contraction) and near within 1e-6 relative;
+and `dense_intersect_loop`, static and motion, equals K2 on the plain
+lists bit for bit.  K2 and its plain
 version sum the same f32 products in different orders, so found agrees
 on >= 0.9999 of lanes and prim on >= 0.999 (ties and edge grazes), and
 on every closest-hit lane both t lie within the f32 rounding bound of
@@ -42,6 +48,7 @@ import torch
 
 from pbrt_tpu_torch.ops import dense_intersect as dense
 from pbrt_tpu_torch.tools import dump_tile
+from pbrt_tpu_torch.tools import kernel_workloads
 
 pytestmark = pytest.mark.cuda
 
@@ -97,18 +104,86 @@ def test_kernels_match_plain(device):
     for tt in (t, tp):
         assert ((tt[closest].double() - t64).abs()
                 <= bound * t64.abs()).all()
-    assert dense.LAUNCHES["dense_queue"] == before["dense_queue"] + 2
+    assert dense.LAUNCHES["dense_queue_cull"] == \
+        before["dense_queue_cull"] + 1
+    assert dense.LAUNCHES["dense_queue"] == before["dense_queue"] + 1
     assert dense.LAUNCHES["dense_loop"] == before["dense_loop"] + 1
 
 
-def test_wrappers_reject_bad_inputs(device):
+@pytest.mark.parametrize("fn", [dense.tile_queue, dense.tile_chunk_lists])
+def test_wrappers_reject_bad_inputs(device, fn):
     r16, tmax, W, cb = _soup_and_rays(device, n_rays=256)
+    before = dict(dense.LAUNCHES)
     with pytest.raises(TypeError):
-        dense.tile_queue(r16.double(), tmax, cb)
+        fn(r16.double(), tmax, cb)
+    with pytest.raises(TypeError):
+        fn(r16, tmax, cb.half())
     with pytest.raises(ValueError):
-        dense.tile_queue(r16[:200], tmax[:200], cb)     # not whole tiles
+        fn(r16[:200], tmax[:200], cb)                   # not whole tiles
     with pytest.raises(ValueError):
-        dense.tile_queue(r16, tmax.cpu(), cb)           # mixed devices
+        fn(r16, tmax[:128], cb)                         # shapes disagree
+    with pytest.raises(ValueError):
+        fn(r16, tmax, cb[:, :6].contiguous())           # not [C, 8]
+    with pytest.raises(ValueError):
+        fn(r16, tmax.cpu(), cb)                         # mixed devices
+    with pytest.raises(ValueError):                     # C > MAX_CHUNKS
+        fn(r16, tmax, cb[:1].expand(dense.MAX_CHUNKS + 1, 8).contiguous())
+    with pytest.raises(ValueError):                     # not 16-byte aligned
+        fn(r16, tmax, torch.zeros(cb.numel() + 1, device=device)[1:]
+           .view(cb.shape))
+    assert dense.LAUNCHES == before
+
+
+def _queue_case(device, name):
+    if name == "soup":
+        r16, tmax, _, cb = _soup_and_rays(device)
+        return r16, tmax, cb
+    if name == "z40":
+        wl = kernel_workloads.cluster_rays_z40(device)
+        return wl.r16, wl.tmax, wl.chunk_bounds
+    return kernel_workloads.queue_cases(device)[name]
+
+
+@pytest.mark.parametrize("name", ["soup", "ties", "signed_zero",
+                                  "dead_miss", "C1", "C48", "C576", "z40"])
+def test_k1_lists_and_cull_equal_plain(device, name):
+    r16, tmax, cb = _queue_case(device, name)
+    before = dict(dense.LAUNCHES)
+    cl, na = dense.tile_chunk_lists(r16, tmax, cb)
+    assert dense.LAUNCHES["dense_queue"] == before["dense_queue"] + 1
+    hits, near = dense.tile_queue(r16, tmax, cb)
+    assert dense.LAUNCHES["dense_queue_cull"] == \
+        before["dense_queue_cull"] + 1
+    cl_p, na_p = dense.tile_chunk_lists_plain(r16, tmax, cb)
+    hits_p, near_p = dense.tile_queue_plain(r16, tmax, cb)
+    torch.cuda.synchronize()
+    assert torch.equal(cl, cl_p) and torch.equal(na, na_p)
+    assert torch.equal(hits, hits_p)
+    torch.testing.assert_close(near[hits], near_p[hits], rtol=1e-6, atol=0)
+    assert (near[~hits] == dense.F32_MAX).all()
+    if name == "dead_miss":
+        assert na.tolist() == [6, 0, 0]
+        assert torch.equal(cl[1:].cpu(), torch.arange(8, dtype=torch.int32)
+                           .expand(2, 8))
+
+
+def test_dense_intersect_loop_equals_k2_on_plain_lists(device):
+    """The main path's intersect (K1's one launch, then K2) gives, static
+    and motion, what K2 gives on the plain version's lists, bit for
+    bit."""
+    r16, tmax, W, cb = _soup_and_rays(device)
+    static = torch.ones(W.shape[0], dtype=torch.bool, device=device)
+    t, p = dense.dense_intersect_loop(r16, tmax, W, cb, static)
+    cl, na = dense.tile_chunk_lists_plain(r16, tmax, cb)
+    t_p, p_p = dense.loop_hits(r16, tmax, W, cl, na)
+    assert torch.equal(t, t_p) and torch.equal(p, p_p)
+    assert (p >= 0).sum() > 100
+    r16, tmax, time, W, cb, static = _moving_soup_and_rays(device, 128)
+    t, p = dense.dense_intersect_loop(r16, tmax, W, cb, static, time=time)
+    cl, na = dense.tile_chunk_lists_plain(r16, tmax, cb)
+    t_p, p_p = dense.loop_hits_motion(r16, tmax, time, W, cl, na, static)
+    assert torch.equal(t, t_p) and torch.equal(p, p_p)
+    assert (p >= 0).sum() > 100
 
 
 def _moving_soup_and_rays(device, chunk, n_tris=600, n_rays=4096, seed=4):

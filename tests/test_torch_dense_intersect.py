@@ -69,6 +69,53 @@ def test_k1_plain_matches_jax_queue(coherent, seeds):
                                    atol=1e-6)
 
 
+@pytest.mark.parametrize("jax_tile", ["port", "ray_tile"])
+@pytest.mark.parametrize("coherent,seeds", [(True, (0, 1)), (False, (3, 4))])
+def test_chunk_lists_plain_match_jax_lists(coherent, seeds, jax_tile):
+    """tile_chunk_lists_plain against the JAX package's _tile_chunk_lists
+    in interpret mode: on JAX tiles of the port's TILE rays directly, and
+    on its RAY_TILE rays against the union of RAY_TILE // TILE port tiles
+    (chunk_lists_from_cull of the port cull's any and least near).  Equal
+    n_active, the same active chunks, and the JAX order: the JAX sort
+    keys each chunk by its near's bits with the chunk id in their low
+    bits, so it orders exactly as the port's (near, id) order once the
+    port's near is cut to the same bits; the JAX list's near equals the
+    port's near so cut.  (Past n_active the JAX list repeats its last
+    active chunk, the port's lists the missed chunks: not compared.)"""
+    v0, e1, e2 = _soup(seed=seeds[0])
+    o, d = _rays(seed=seeds[1], coherent=coherent)
+    tmax = np.full(o.shape[0], BIG, np.float32)
+    tmax[5::7] = -1.0                                  # some dead lanes
+    tab, r16 = _port_inputs(v0, e1, e2, o, d)
+    tm, cb = torch.from_numpy(tmax), torch.from_numpy(tab["chunk_bounds"])
+    T = tdense.TILE if jax_tile == "port" else jdense.RAY_TILE
+    jr16 = jdense.ray_vectors(jnp.asarray(o), jnp.asarray(d),
+                              jnp.asarray(tab["center"]))
+    cl_j, na_j, nl_j = (np.asarray(x) for x in jdense._tile_chunk_lists(
+        jr16.reshape(-1, T, 16), jnp.asarray(tmax).reshape(-1, T),
+        jnp.asarray(tab["chunk_bounds"]), interpret=True))
+    hits, near = tdense.tile_queue_plain(r16, tm, cb)
+    if jax_tile == "port":
+        cl, na = tdense.tile_chunk_lists_plain(r16, tm, cb)
+    else:
+        k = T // tdense.TILE
+        hits = hits.reshape(-1, k, hits.shape[1]).any(1)
+        near = near.reshape(-1, k, near.shape[1]).amin(1)
+        cl, na = tdense.chunk_lists_from_cull(hits, near)
+    C = cb.shape[0]
+    mask = ~((1 << ((C - 1).bit_length() or 1)) - 1)
+    cut = ((near + 0.0).view(torch.int32) & mask).numpy()
+    cl, na = cl.numpy(), na.numpy()
+    assert np.array_equal(na, na_j) and na.sum() > 0
+    for b in range(na.shape[0]):
+        act = cl[b, :na[b]]
+        assert np.array_equal(np.sort(act), np.nonzero(hits[b].numpy())[0])
+        by_cut = act[np.lexsort((act, cut[b, act]))]
+        assert np.array_equal(by_cut, cl_j[b, :na[b]])
+        assert np.array_equal(nl_j[b, :na[b]].view(np.int32),
+                              cut[b, by_cut])
+
+
 def test_tile_chunk_lists_front_to_back():
     v0, e1, e2 = _soup(seed=0)
     o, d = _rays(seed=1, coherent=True)

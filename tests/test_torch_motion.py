@@ -444,7 +444,8 @@ def test_launch_counts_cover_the_motion_kernel():
     tdense.LAUNCHES["dense_loop_motion"] = 3
     tdense.LAUNCHES["dense_loop_ablate[direct]"] = 2
     tdense.reset_launch_counts()
-    assert tdense.LAUNCHES == {"dense_queue": 0, "dense_loop": 0,
+    assert tdense.LAUNCHES == {"dense_queue": 0, "dense_queue_cull": 0,
+                               "dense_loop": 0,
                                "dense_loop_motion": 0,
                                "dense_loop_ablate[empty]": 0,
                                "dense_loop_ablate[stage]": 0,
