@@ -1,5 +1,7 @@
-"""Owen-scrambled Sobol' samples as pure counter-based functions
-(port of the Sobol' part of pbrt_tpu.core.lds).
+"""Sobol' samples as pure counter-based functions (port of the Sobol'
+part of pbrt_tpu.core.lds): Owen-scrambled for the production sampler,
+plain and on the reference's GlobalSampler index map for the matched-RNG
+integrator (integrators/refpath.py).
 
 Direction numbers come from the JAX package's `data/sobol_matrices.npy`
 ([1024, 30] uint32), read by path.  Words ride in int64 (see core/rng.py).
@@ -37,10 +39,140 @@ def sobol_u32(index, dim: int):
     return x
 
 
+_LANE_COLS = 32          # the table's 30 columns padded to a power of 2
+
+
+@functools.lru_cache(maxsize=None)
+def _lane_table(device):
+    """The direction numbers as an int64 [1024, 32] tensor on `device`,
+    two zero columns appended for sobol_u32_lanes' xor tree."""
+    t = np.zeros((N_SOBOL_DIMS, _LANE_COLS), np.int64)
+    t[:, :SOBOL_BITS] = _SOBOL_NP
+    return torch.as_tensor(t, device=device)
+
+
+def sobol_u32_lanes(index, dim):
+    """sobol_u32 with a dimension per lane: index and dim are int64
+    tensors of one shape.  Each lane gathers its dimension's row of
+    direction numbers, masks it by the bits of its index and xors the
+    row down by halves; xor is associative, so the bits equal
+    sobol_u32's wherever dim is constant.  A dim past the table is
+    clamped to its last row, as the JAX package's gather clamps it."""
+    table = _lane_table(index.device)
+    rows = table[torch.clamp(dim, 0, N_SOBOL_DIMS - 1)]       # [..., 32]
+    shifts = torch.arange(_LANE_COLS, device=index.device)
+    x = rows * ((index[..., None] >> shifts) & 1)
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] ^ x[..., half:]
+    return x[..., 0]
+
+
 def sobol_sample(index, dim: int, scramble_seed=None):
     """Sobol' float in [0,1); scramble_seed (32-bit words) Owen-scrambles."""
     x = (sobol_u32(index, dim) << (32 - SOBOL_BITS)) & _rng.M32
     if scramble_seed is not None:
         x = _rng.owen_scramble(x, scramble_seed)
+    f = x.to(torch.float32) * _INV_2_32
+    return torch.clamp(f, max=_rng.ONE_MINUS_EPS)
+
+
+# ---------------------------------------------------------------------------
+# the reference's GlobalSampler index map (plain Sobol', sobol.cpp)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def sobol_global_tables(m, n_frame_bits=None):
+    """Per-resolution tables for the pbrt GlobalSampler index map (numpy;
+    a copy of pbrt_tpu.core.lds.sobol_global_tables).
+
+    Returns a dict with uint32 arrays gx [m], gy [m], gf [n_frame_bits]:
+      q = XOR_k(px bit k ? gx[k]) ^ XOR_k(py bit k ? gy[k])
+          ^ XOR_l(frame bit l ? gf[l])
+      index = (frame << 2m) | q
+    Requires 2m + n_frame_bits <= 30 (the table has 30 columns).  The
+    arrays are cached and shared: callers must not write to them.
+    """
+    if n_frame_bits is None:
+        n_frame_bits = SOBOL_BITS - 2 * m   # max spp = 2^this
+    if m == 0:
+        return dict(gx=np.zeros(1, np.uint32), gy=np.zeros(1, np.uint32),
+                    gf=np.zeros(n_frame_bits, np.uint32), m=0)
+    if 2 * m + n_frame_bits > SOBOL_BITS:
+        raise ValueError(
+            f"sobol_global_tables: 2*{m}+{n_frame_bits} > {SOBOL_BITS} "
+            "index bits (lower spp or resolution)")
+    # 32-bit columns of dims 0/1 (table rows are v_k << (SOBOL_BITS-1-k))
+    cx = _SOBOL_NP[0].astype(np.uint64) << 2
+    cy = _SOBOL_NP[1].astype(np.uint64) << 2
+
+    def top_bits(col):
+        # bit k (k=0 LSB) of the m-bit pixel coordinate = bit 32-m+k of col
+        return [(int(col) >> (32 - m + k)) & 1 for k in range(m)]
+
+    # M: rows = 2m equations (m for x, m for y), cols = 2m unknown q bits
+    M = np.zeros((2 * m, 2 * m), np.uint8)
+    for j in range(2 * m):
+        tx, ty = top_bits(cx[j]), top_bits(cy[j])
+        for k in range(m):
+            M[k, j] = tx[k]
+            M[m + k, j] = ty[k]
+    # invert M over GF(2)
+    A = np.concatenate([M, np.eye(2 * m, dtype=np.uint8)], 1)
+    for col in range(2 * m):
+        piv = next(r for r in range(col, 2 * m) if A[r, col])
+        A[[col, piv]] = A[[piv, col]]
+        for r in range(2 * m):
+            if r != col and A[r, col]:
+                A[r] ^= A[col]
+    Minv = A[:, 2 * m:]
+    # q = Minv @ rhs: the q pattern each rhs bit contributes
+    col_for_rhs = np.zeros(2 * m, np.uint32)
+    for r in range(2 * m):
+        col_for_rhs[r] = sum(1 << j for j in range(2 * m) if Minv[j, r])
+    # rhs for px bit k is e_k (rows 0..m-1); for py bit k is e_{m+k}
+    gx = col_for_rhs[:m].copy()
+    gy = col_for_rhs[m:].copy()
+    # frame bit l (index bit 2m+l) adds its columns' top bits to the rhs
+    gf = np.zeros(n_frame_bits, np.uint32)
+    for l in range(n_frame_bits):
+        tx, ty = top_bits(cx[2 * m + l]), top_bits(cy[2 * m + l])
+        q = 0
+        for r in range(m):
+            if tx[r]:
+                q ^= int(col_for_rhs[r])
+            if ty[r]:
+                q ^= int(col_for_rhs[m + r])
+        gf[l] = q
+    return dict(gx=gx, gy=gy, gf=gf, m=m)
+
+
+def sobol_global_index(frame, px, py, m):
+    """Sobol' index (int64 tensor of 32-bit words) of pixel-sample `frame`
+    at pixel (px, py) on a 2^m raster: the reference's
+    SobolIntervalToIndex, from sobol_global_tables.  frame, px, py are
+    int64 tensors (or ints) that broadcast together."""
+    frame, px, py = (torch.as_tensor(x, dtype=torch.int64)
+                     for x in (frame, px, py))
+    if m == 0:
+        return frame & _rng.M32
+    tabs = sobol_global_tables(m)
+    q = torch.zeros(torch.broadcast_shapes(frame.shape, px.shape, py.shape),
+                    dtype=torch.int64, device=px.device)
+    for k in range(m):
+        q = q ^ (((px >> k) & 1) * int(tabs["gx"][k]))
+        q = q ^ (((py >> k) & 1) * int(tabs["gy"][k]))
+    for l, g in enumerate(tabs["gf"]):
+        q = q ^ (((frame >> l) & 1) * int(g))
+    return ((frame << (2 * m)) | q) & _rng.M32
+
+
+def sobol_sample_pbrt(index, dim):
+    """Plain (unscrambled) Sobol' float exactly as the reference's
+    SobolSample(index, dim) (lowdiscrepancy.h:259, scramble = 0).  dim is
+    an int, or an int64 tensor of index's shape (a dimension per lane)."""
+    bits = (sobol_u32(index, dim) if isinstance(dim, int)
+            else sobol_u32_lanes(index, dim))
+    x = (bits << (32 - SOBOL_BITS)) & _rng.M32
     f = x.to(torch.float32) * _INV_2_32
     return torch.clamp(f, max=_rng.ONE_MINUS_EPS)

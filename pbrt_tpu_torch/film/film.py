@@ -49,6 +49,12 @@ class Film:
     filter_table: torch.Tensor  # [16,16] quadrant table
     radius: tuple               # (rx, ry)
     footprint: int              # pixels per axis a sample can reach
+    # the reference's boundary: the pixel set Ceil(pd-r)..Floor(pd+r)
+    # inclusive and the table index clamped (film.h:130-147), so with a
+    # box filter a sample of jitter exactly 0.0 lands full weight in two
+    # pixels.  Matched-RNG renders need it (raw Sobol' emits 0.0 at
+    # sample 0); the Owen-scrambled samplers never emit exact 0.
+    pbrt_boundary: bool = False
 
     @property
     def height(self):
@@ -66,10 +72,11 @@ class Film:
 
 
 def make_film(width, height, filter_name="box", radius=None, device=None,
-              **filter_params):
+              pbrt_boundary=False, **filter_params):
     """An empty film on `device` (None: the first CUDA card) with the
     named filter, its radius (rx, ry) (default: the reference's) and its
-    parameters."""
+    parameters.  pbrt_boundary: the reference's inclusive pixel set (see
+    Film)."""
     if filter_name not in _RADIUS:
         raise NotImplementedError(f"filter {filter_name!r} is not ported yet")
     unknown = set(filter_params) - set(FILTER_PARAMS[filter_name])
@@ -90,7 +97,11 @@ def make_film(width, height, filter_name="box", radius=None, device=None,
         filter_table=torch.as_tensor(table, dtype=torch.float32,
                                      device=device),
         radius=(float(rx), float(ry)),
-        footprint=max(int(np.ceil(2 * max(rx, ry))), 1))
+        # with pbrt_boundary the widest footprint is Floor(pd+r)+1 -
+        # Ceil(pd-r)
+        footprint=max(int(np.floor(2 * max(rx, ry))) + 1 if pbrt_boundary
+                      else int(np.ceil(2 * max(rx, ry))), 1),
+        pbrt_boundary=pbrt_boundary)
 
 
 def add_samples(film: Film, pfilm, L, ray_weight=None) -> Film:
@@ -117,8 +128,13 @@ def add_samples(film: Film, pfilm, L, ray_weight=None) -> Film:
             fy = torch.abs(py.to(torch.float32) - pd[:, 1]) * inv_ry
             ix = torch.clamp(fx.to(torch.int64), max=FILTER_TABLE_WIDTH - 1)
             iy = torch.clamp(fy.to(torch.int64), max=FILTER_TABLE_WIDTH - 1)
-            inb = ((px >= 0) & (px < W) & (py >= 0) & (py < H)
-                   & (fx < FILTER_TABLE_WIDTH) & (fy < FILTER_TABLE_WIDTH))
+            inb = (px >= 0) & (px < W) & (py >= 0) & (py < H)
+            if film.pbrt_boundary:
+                inb = (inb & (px.to(torch.float32) <= pd[:, 0] + rx)
+                       & (py.to(torch.float32) <= pd[:, 1] + ry))
+            else:
+                inb = (inb & (fx < FILTER_TABLE_WIDTH)
+                       & (fy < FILTER_TABLE_WIDTH))
             fw = torch.where(inb, film.filter_table[iy, ix], 0.0)
             idx = (torch.clamp(py, 0, H - 1), torch.clamp(px, 0, W - 1))
             film.weighted.index_put_(idx, Lw * fw[:, None], accumulate=True)

@@ -1,30 +1,39 @@
 """Integrator selection (port of pbrt_tpu.integrators.dispatch; reference
 dispatch: api.cpp:1764-1789).
 
-Only the path integrator is ported; every other integrator name raises
-NotImplementedError, as do the path settings the port does not carry
+Ported: "path", "spectralpath" (parameter numCABands) and "metadata"
+(parameter strategy).  Every other integrator name raises
+NotImplementedError, as do the render settings the port does not carry
 (a crop window, a sample-luminance clamp, an rrthreshold other than 1,
-and a light strategy other than uniform in scenes with several lights).
+and for "path" a light strategy other than uniform in scenes with
+several lights; "spectralpath" samples lights uniformly, as the JAX
+package's does).
 """
 
 from __future__ import annotations
 
+from pbrt_tpu_torch.integrators import metadata
 from pbrt_tpu_torch.integrators import path as pathmod
+from pbrt_tpu_torch.integrators import spectralpath
+
+INTEGRATORS = ("path", "spectralpath", "metadata")
 
 
 def render_with_integrator(job, camera, film, cfg, spp, max_depth,
                            max_rays_per_pass=1 << 18, count_rays=False):
     """Render job.scene into `film` with the job's integrator.  Returns
-    the film, or (film, rays traced) with count_rays."""
+    the film, or (film, rays traced or None) with count_rays: only the
+    path integrator counts its rays."""
     kind = job.integrator_kind
-    if kind != "path":
+    if kind not in INTEGRATORS:
         raise NotImplementedError(
             f'Integrator "{kind}" is not ported to pbrt_tpu_torch')
     ip = job.integrator_params
     strategy = ip.get("lightsamplestrategy", "spatial")
     # with one light every strategy picks it with probability 1, which is
     # what the ported uniform selection does
-    if strategy != "uniform" and job.scene.n_lights > 1:
+    if (kind == "path" and strategy != "uniform"
+            and job.scene.n_lights > 1):
         raise NotImplementedError(
             f'lightsamplestrategy "{strategy}" with {job.scene.n_lights} '
             "lights is not ported (only uniform)")
@@ -35,7 +44,13 @@ def render_with_integrator(job, camera, film, cfg, spp, max_depth,
         raise NotImplementedError("cropwindow is not ported")
     if job.max_sample_luminance < 1e30:
         raise NotImplementedError("maxsampleluminance is not ported")
+    trace_fn = None
+    if kind == "spectralpath":
+        trace_fn = spectralpath.make_trace_spectral(
+            num_ca_bands=ip.get("numCABands", 4), camera=camera)
+    elif kind == "metadata":
+        trace_fn = metadata.make_trace_metadata(ip.get("strategy", "depth"))
     return pathmod.render(job.scene, camera, film, cfg, spp,
                           max_depth=max_depth,
                           max_rays_per_pass=max_rays_per_pass,
-                          count_rays=count_rays)
+                          count_rays=count_rays, trace_fn=trace_fn)

@@ -13,6 +13,8 @@ the primary-sample-space `uniforms` hook.
 
 from __future__ import annotations
 
+import inspect
+
 import numpy as np
 import torch
 
@@ -43,13 +45,15 @@ def _bdim(bounce, k):
 
 
 def trace_paths(scene: ir.SceneData, ray: geom.Ray, pixel_id, sample_idx,
-                cfg: SamplerConfig, max_depth=5, count_rays=False):
+                cfg: SamplerConfig, max_depth=5, count_rays=False,
+                wavelength_mask=None):
     """Radiance [B,31] for a batch of camera rays.
 
     count_rays: also return the rays traced, counted as the JAX package
     counts them: True gives live closest-hit lanes + candidate shadow
     lanes, "full" the vector [closest, shadow, camera, path vertices]
-    (int64)."""
+    (int64).  wavelength_mask: an optional [B,31] 0/1 mask that confines
+    transport to a band of bins (integrators/spectralpath.py)."""
     B = ray.o.shape[0]
     dev = ray.o.device
 
@@ -58,6 +62,8 @@ def trace_paths(scene: ir.SceneData, ray: geom.Ray, pixel_id, sample_idx,
 
     L = torch.zeros((B, spec.N_SPECTRAL_SAMPLES), device=dev)
     beta = torch.ones_like(L)
+    if wavelength_mask is not None:
+        beta = beta * wavelength_mask
     alive = torch.ones(B, dtype=torch.bool, device=dev)
     specular = torch.ones_like(alive)     # bounce 0 counts Le un-MIS'd
     prev_pdf = torch.ones(B, device=dev)
@@ -186,12 +192,14 @@ def camera_rays_for_pixels(camera, W, H, cfg, pixel_id, sample_idx,
 
 
 def render(scene, camera, film, cfg: SamplerConfig, spp, max_depth=5,
-           max_rays_per_pass=1 << 18, count_rays=False):
+           max_rays_per_pass=1 << 18, count_rays=False, trace_fn=None):
     """Full render: fixed-shape passes over (sample, pixel chunk); the
     samples of every pass splat into `film` in place.
 
-    Returns the film, or (film, rays traced) with count_rays (rays as
-    trace_paths counts them with count_rays=True)."""
+    trace_fn(scene, ray, pixel_id, sample_idx, cfg, max_depth=...) -> L
+    [B,31] traces a pass (default trace_paths).  Returns the film, or
+    (film, rays traced) with count_rays: rays as trace_paths counts them
+    with count_rays=True, or None when trace_fn takes no count_rays."""
     H, W = film.height, film.width
     dev = film.weighted.device
     n_pix = H * W
@@ -201,13 +209,21 @@ def render(scene, camera, film, cfg: SamplerConfig, spp, max_depth=5,
     ids[:n_pix] = np.arange(n_pix)
     id_chunks = [torch.as_tensor(ids[i * chunk:(i + 1) * chunk], device=dev)
                  for i in range(n_chunks)]
+    if trace_fn is None:
+        trace_fn = trace_paths
+    counts = "count_rays" in inspect.signature(trace_fn).parameters
     total = torch.zeros((), dtype=torch.int64, device=dev)
     for s in range(spp):
         for pixel_ids in id_chunks:
             ray, weight, pfilm, pid, sidx = camera_rays_for_pixels(
                 camera, W, H, cfg, pixel_ids, s)
-            L, n = trace_paths(scene, ray, pid, sidx, cfg,
-                               max_depth=max_depth, count_rays=True)
+            if counts:
+                L, n = trace_fn(scene, ray, pid, sidx, cfg,
+                                max_depth=max_depth, count_rays=True)
+                total += n
+            else:
+                L = trace_fn(scene, ray, pid, sidx, cfg, max_depth=max_depth)
             filmmod.add_samples(film, pfilm, L, weight)
-            total += n
-    return (film, int(total)) if count_rays else film
+    if not count_rays:
+        return film
+    return film, (int(total) if counts else None)

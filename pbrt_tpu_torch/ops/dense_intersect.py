@@ -687,6 +687,54 @@ def loop_t_reference(r16, W, prim):
                                              -1), 16, 18)
 
 
+def _loop_sides(r16, W, prim):
+    """The exact sides s1, s2, s0 [n,3] of each ray [n,16] against its
+    triangle prim [n] of the static table W, in f64, and gamma_16
+    sum|terms| of each: how far an f32 evaluation of the side (a sum of
+    16 products) may lie from it, so that within it its sign may round
+    either way."""
+    chunk = W.shape[2] // 4
+    r = r16.double()
+    p = prim.long()
+    c, j = p // chunk, p % chunk
+    terms = [r * W[c, :, sec * chunk + j].double() for sec in (0, 1, 3)]
+    return (torch.stack([x.sum(-1) for x in terms], -1),
+            _gamma(16) * torch.stack([x.abs().sum(-1) for x in terms], -1))
+
+
+def loop_prim_tie(r16, W, prim_a, prim_b):
+    """Whether two f32 evaluations may each rightly return their own
+    triangle, prim_a or prim_b [n] (>= 0), as the closest hit of rays
+    r16 [n,16] on the static table W: [n] bool.  Both triangles must be
+    inside up to rounding (each side shares the sign of s0+s1+s2 or lies
+    within its f32 error of 0, _loop_sides) and their exact t agree
+    within the sum of their loop_t_reference bounds: a ray through an
+    edge the two share, or through the point where they cross."""
+    ok, ts = torch.ones(r16.shape[0], dtype=torch.bool,
+                        device=r16.device), []
+    for prim in (prim_a, prim_b):
+        v, err = _loop_sides(r16, W, prim)
+        nd = v.sum(-1, keepdim=True)
+        ok &= ((torch.sign(v) == torch.sign(nd)) | (v.abs() <= err)).all(-1)
+        ts.append(loop_t_reference(r16, W, prim))
+    (ta, ba), (tb, bb) = ts
+    return ok & ((ta - tb).abs() <= ba * ta.abs() + bb * tb.abs())
+
+
+def loop_hit_marginal(r16, tmax, W, prim):
+    """Whether an f32 evaluation may either accept or reject triangle prim
+    [n] (>= 0) for rays r16 [n,16] with limits tmax [n] on the static
+    table W: a side within its f32 error of 0 (_loop_sides), or t within
+    its loop_t_reference bound of the acceptance limits 1e-4 and tmax.
+    [n] bool."""
+    v, err = _loop_sides(r16, W, prim)
+    t, b = loop_t_reference(r16, W, prim)
+
+    def near(limit):
+        return (t - limit).abs() <= b * t.abs()
+    return (v.abs() <= err).any(-1) | near(1e-4) | near(tmax.double())
+
+
 def loop_t_reference_motion(r16, time, W, prim):
     """loop_t_reference for the motion table: the exact section values are
     sum_k u^k (r . W_k) with u the lane's f32 time, so the terms are

@@ -45,10 +45,66 @@ class Hit:
     prim: torch.Tensor       # [B] prim index (BVH order)
     material: torch.Tensor   # [B] material id or -1
     light: torch.Tensor      # [B] area light id or -1
+    instance: torch.Tensor   # [B] id of the hit Shape (sidecar names) or -1
 
     def to(self, device):
         return Hit(*(getattr(self, f.name).to(device)
                      for f in dataclasses.fields(self)))
+
+
+def ray_triangle(o, d, v0, e1, e2, tmax):
+    """Watertight ray-triangle test (triangle.cpp:188-310); o, d [B,3]
+    against triangles v0, e1, e2 [B,K,3].  Returns (t, b1, b2, hit), each
+    [B,K]; b1 weighs v0 + e1 and b2 weighs v0 + e2.
+
+    The edge functions of triangles that share an edge come from the same
+    sheared vertex coordinates, so a ray through the edge cannot slip
+    between them.  As in the JAX package, an edge function within a few
+    ulps of its terms' magnitude counts as on the edge (zero), so that
+    both neighbours hit and the closest-hit choice picks one."""
+    kz = torch.argmax(torch.abs(d), dim=-1)                   # [B]
+    kx = (kz + 1) % 3
+    ky = (kx + 1) % 3
+
+    def pick(v, k):
+        return torch.gather(v, -1, k[:, None])[:, 0]
+
+    dz = pick(d, kz)
+    sx = -pick(d, kx) / dz
+    sy = -pick(d, ky) / dz
+    sz = 1.0 / dz
+
+    def shear(p):
+        pt = p - o[:, None, :]
+        idx = torch.stack([kx, ky, kz], -1)[:, None, :].expand(
+            pt.shape[0], pt.shape[1], 3)
+        xx, yy, zz = torch.gather(pt, -1, idx).unbind(-1)
+        return xx + sx[:, None] * zz, yy + sy[:, None] * zz, zz
+
+    x0, y0, z0 = shear(v0)
+    x1, y1, z1 = shear(v0 + e1)
+    x2, y2, z2 = shear(v0 + e2)
+
+    def edge(xa, ya, xb, yb):
+        # within a few ulps of its terms' magnitude: on the edge
+        e = xa * yb - ya * xb
+        on = torch.abs(e) <= (torch.abs(xa * yb) + torch.abs(ya * xb)) * 4e-7
+        return torch.where(on, 0.0, e)
+
+    ed0, ed1, ed2 = edge(x1, y1, x2, y2), edge(x2, y2, x0, y0), \
+        edge(x0, y0, x1, y1)
+    neg = (ed0 < 0) | (ed1 < 0) | (ed2 < 0)
+    pos = (ed0 > 0) | (ed1 > 0) | (ed2 > 0)
+    det = ed0 + ed1 + ed2
+    ok = ~(neg & pos) & (det != 0)
+    t_scaled = (ed0 * z0 + ed1 * z1 + ed2 * z2) * sz[:, None]
+    # sign-consistent range test (triangle.cpp:286-293)
+    tm = tmax[:, None] * det
+    bad = torch.where(det < 0, (t_scaled >= 0) | (t_scaled < tm),
+                      (t_scaled <= 0) | (t_scaled > tm))
+    ok = ok & ~bad
+    inv_det = 1.0 / torch.where(det == 0, 1.0, det)
+    return t_scaled * inv_det, ed1 * inv_det, ed2 * inv_det, ok
 
 
 def _sphere_ts(params, oo, od):
@@ -198,13 +254,17 @@ def _sphere_uv(params, ph):
     return u, torch.arccos(zc) / np.pi
 
 
-def make_hit(scene: SceneData, ray: geom.Ray, t, prim, found) -> Hit:
+def make_hit(scene: SceneData, ray: geom.Ray, t, prim, found,
+             exact_p=False) -> Hit:
     """Surface-interaction record of the winning primitives.
 
     Triangle winners get an exact f32 Moller-Trumbore re-solve of t and
     the barycentrics, accepted when it stays within 1% of the kernel t
     and its barycentrics are a valid simplex point.  Moving triangles are
-    solved at the ray's time."""
+    solved at the ray's time.
+
+    exact_p: a triangle hit's point is b0 p0 + b1 p1 + b2 p2, the
+    reference's construction (triangle.cpp:329), in place of o + t d."""
     P = scene.prim_type.shape[0]
     pid = torch.clamp(prim, 0, P - 1).long()
     is_tri = scene.prim_type[pid] == PRIM_TRIANGLE
@@ -234,6 +294,10 @@ def make_hit(scene: SceneData, ray: geom.Ray, t, prim, found) -> Hit:
     u = torch.where(tri_hit, torch.where(refine, b1, b1c), 0.0)
     v = torch.where(tri_hit, torch.where(refine, b2, b2c), 0.0)
     p = ray.at(t)
+    if exact_p:
+        b0w = (1.0 - u - v)[:, None]
+        p_bary = b0w * v0 + u[:, None] * (v0 + e1) + v[:, None] * (v0 + e2)
+        p = torch.where(tri_hit[:, None], p_bary, p)
     ng_tri = geom.normalize(geom.cross(e1, e2))
     b0 = (1.0 - u - v)[:, None]
     tns = scene.tri_ns[pid]
@@ -265,7 +329,8 @@ def make_hit(scene: SceneData, ray: geom.Ray, t, prim, found) -> Hit:
     return Hit(valid=found, t=t, p=p, ng=ng, ns=ns, uv=uv,
                wo=-geom.normalize(ray.d), prim=pid,
                material=torch.where(found, scene.prim_material[pid], -1),
-               light=torch.where(found, scene.prim_light[pid], -1))
+               light=torch.where(found, scene.prim_light[pid], -1),
+               instance=torch.where(found, scene.prim_instance[pid], -1))
 
 
 def intersect_full(scene: SceneData, ray: geom.Ray, presorted=False) -> Hit:

@@ -407,7 +407,9 @@ class PbrtAPI:
                 "maxdepth": ip.find_one_int("maxdepth", 5),
                 "rrthreshold": ip.find_one_float("rrthreshold", 1.0),
                 "lightsamplestrategy": ip.find_one_string(
-                    "lightsamplestrategy", "spatial")},
+                    "lightsamplestrategy", "spatial"),
+                "numCABands": ip.find_one_int("numCABands", 4),
+                "strategy": ip.find_one_string("strategy", "depth")},
             instance_names=self.instance_names,
             material_names=self.builder.material_names)
 

@@ -43,8 +43,10 @@ MAT_MIRROR = 2
 MAT_GLASS = 3
 PORTED_MATERIALS = (MAT_MATTE, MAT_PLASTIC, MAT_MIRROR, MAT_GLASS)
 
-# animated meshes beyond this many primitives take the JAX package's BVH
-# fallback, which is not ported (pbrt_tpu/scene/ir.py:900)
+# scenes beyond these many primitives (animated meshes: the lower cap)
+# leave the dense kernels for the JAX package's BVH or kd-tree route,
+# which is not ported (pbrt_tpu/scene/ir.py:900)
+MAX_DENSE_PRIMS = 300_000
 MAX_MOTION_PRIMS = 150_000
 
 # the columns scene_from_jax copies from a pbrt_tpu scene unchanged
@@ -296,10 +298,7 @@ class SceneBuilder:
         P = self._n_prims
         if P == 0:
             raise ValueError("scene has no primitives")
-        if self.has_animated_mesh and P > MAX_MOTION_PRIMS:
-            raise NotImplementedError(
-                f"animated meshes over {MAX_MOTION_PRIMS} primitives take "
-                "the BVH path, which is not ported")
+        check_dense_cap(P, self.has_animated_mesh)
         soa = self._concat()
         lo, hi = self._prim_bounds(soa)
         order = build_bvh_order(lo, hi)
@@ -413,6 +412,21 @@ class SceneBuilder:
         return _scene_from_arrays(arrays, statics, device)
 
 
+def check_dense_cap(n_prims, animated):
+    """Raise NotImplementedError for a scene the dense kernels do not
+    take: over MAX_DENSE_PRIMS primitives, or MAX_MOTION_PRIMS with an
+    animated mesh.  The JAX package renders such scenes through its BVH
+    or kd-tree, which the port does not have."""
+    cap = MAX_MOTION_PRIMS if animated else MAX_DENSE_PRIMS
+    if n_prims > cap:
+        kind = "with animated meshes " if animated else ""
+        raise NotImplementedError(
+            f"a scene {kind}of {n_prims} primitives is over the dense "
+            f"intersector's cap of {cap}: it takes the BVH / kd-tree route "
+            "(pbrt_tpu.ops.intersect._intersect_bvh / _intersect_kd), which "
+            "is not ported")
+
+
 def _scene_from_arrays(arrays, statics, device):
     if statics["dense_motion"]:
         dt = build_dense_tables_motion(
@@ -462,4 +476,5 @@ def scene_from_jax(arrays: dict, statics: dict, device) -> SceneData:
     if statics["has_animated_mesh"] and not statics["dense_motion"]:
         raise NotImplementedError(
             "animated meshes on the BVH path are not ported")
+    check_dense_cap(len(arrays["prim_type"]), statics["has_animated_mesh"])
     return _scene_from_arrays(arrays, statics, devmod.resolve(device))

@@ -301,12 +301,10 @@ def cluster_scene(device, seed=0):
     return b.build(device=device)
 
 
-def main_path_batches(scene, camera, cfg, width, height, rays, depth):
-    """The (r16, tmax, time) batches the main path hands the dense kernels
-    in one pass of `rays` camera rays: call 0 is the camera batch, call 1
-    the first trace_pair (bounce-1 rays + bounce-0 shadow rays).  time is
-    None for static scenes.  Returns {"camera": ..., "bounce1": ...}."""
-    from pbrt_tpu_torch.integrators import path
+def _recorded_batches(run, depth):
+    """The (r16, tmax, time) batches that run() hands the dense kernels,
+    which must be depth + 1 intersect calls: {"camera": call 0,
+    "bounce1": call 1}."""
     batches = []
     inner = dense.dense_intersect_loop
 
@@ -317,16 +315,47 @@ def main_path_batches(scene, camera, cfg, width, height, rays, depth):
 
     dense.dense_intersect_loop = record
     try:
-        ids = torch.arange(rays, device=scene.dense_w.device)
-        ray, _, _, pid, sidx = path.camera_rays_for_pixels(
-            camera, width, height, cfg, ids, 0)
-        path.trace_paths(scene, ray, pid, sidx, cfg, max_depth=depth)
+        run()
     finally:
         dense.dense_intersect_loop = inner
     if len(batches) != depth + 1:
         raise AssertionError(f"expected {depth + 1} intersect calls, got "
                              f"{len(batches)}")
     return {"camera": batches[0], "bounce1": batches[1]}
+
+
+def main_path_batches(scene, camera, cfg, width, height, rays, depth):
+    """The batches the main path hands the dense kernels in one pass of
+    `rays` camera rays: call 0 is the camera batch, call 1 the first
+    trace_pair (bounce-1 rays + bounce-0 shadow rays).  time is None for
+    static scenes.  Returns {"camera": ..., "bounce1": ...}."""
+    from pbrt_tpu_torch.integrators import path
+
+    def run():
+        ids = torch.arange(rays, device=scene.dense_w.device)
+        ray, _, _, pid, sidx = path.camera_rays_for_pixels(
+            camera, width, height, cfg, ids, 0)
+        path.trace_paths(scene, ray, pid, sidx, cfg, max_depth=depth)
+
+    return _recorded_batches(run, depth)
+
+
+def refpath_batches(scene, camera, width, height, depth):
+    """The batches one matched-RNG pass (integrators/refpath.py, sample
+    0, every pixel) hands the dense kernels: "camera", the W*H camera rays
+    in scanline order, and "bounce1", the first bounce's continuation,
+    probe and shadow rays as one batch of 3 W*H, the last W*H any-hit."""
+    from pbrt_tpu_torch.integrators import refpath
+
+    def run():
+        sampler = refpath.RefSampler.make(width, height)
+        ids = torch.arange(width * height, device=scene.dense_w.device)
+        ray, _, _, pid, sidx = refpath.camera_rays_ref(
+            camera, width, height, sampler, ids, 0)
+        refpath.trace_ref(scene, refpath.build_ref_lights(scene), sampler,
+                          ray, pid, sidx, max_depth=depth)
+
+    return _recorded_batches(run, depth)
 
 
 # ---------------------------------------------------------------------------

@@ -3,10 +3,13 @@ src/main/pbrt.cpp).
 
     python -m pbrt_tpu_torch.tools.pbrt scene.pbrt [--outfile x.exr]
         [--spp N] [--maxdepth N] [--quick] [--quiet] [--cpu]
+        [--sampler refsobol]
 
 Parses the scene (parser/api.py lists the ported directives; the others
 raise NotImplementedError), builds it on the first CUDA card, or on the
-CPU with --cpu only, renders it with the path integrator, and writes the
+CPU with --cpu only, renders it with the scene's integrator (path,
+spectralpath or metadata; `--sampler refsobol`: the matched-RNG parity
+integrator, integrators/refpath.py), and writes the
 RGB image (EXR or PNG by extension, else PNG), the ISET spectral
 `.dat` (the fork's spectralFlag, on by default) and the fork's metadata
 sidecars <out>_mesh.txt / <out>_materials.txt (api.cpp:1630-1689).
@@ -28,7 +31,7 @@ from pbrt_tpu_torch.cameras import projective
 from pbrt_tpu_torch.core import device as devmod
 from pbrt_tpu_torch.film import film as filmmod
 from pbrt_tpu_torch.film import io as fio
-from pbrt_tpu_torch.integrators import dispatch
+from pbrt_tpu_torch.integrators import dispatch, refpath
 from pbrt_tpu_torch.parser.api import parse_scene
 from pbrt_tpu_torch.samplers.samplers import SamplerConfig
 
@@ -46,13 +49,18 @@ def build_camera(job, width, height, device=None):
 
 
 def run_job(job, spp=None, max_depth=None, max_rays_per_pass=1 << 18,
-            stats=None):
+            stats=None, sampler_override=None):
     """Render a RenderJob on its scene's device -> (film, camera).
 
     spp / max_depth override the scene's; stats, a dict, receives the
     rays traced under "rays" (closest-hit lanes + candidate shadow rays,
-    as the JAX package counts them)."""
-    if job.sampler_kind != "sobol":
+    as the JAX package counts them) where the integrator counts them.
+    sampler_override="refsobol" renders with the matched-RNG parity
+    integrator (pbrt's own Sobol' stream and estimators, comparable
+    pixel by pixel with the reference binary at equal spp)."""
+    if sampler_override not in (None, "refsobol"):
+        raise ValueError(f"unknown sampler override {sampler_override!r}")
+    if sampler_override is None and job.sampler_kind != "sobol":
         raise NotImplementedError(
             f'Sampler "{job.sampler_kind}" is not ported to pbrt_tpu_torch '
             "(only sobol)")
@@ -66,10 +74,15 @@ def run_job(job, spp=None, max_depth=None, max_rays_per_pass=1 << 18,
     spp = spp or job.spp
     cfg = SamplerConfig(kind="sobol", seed=0, spp=spp)
     max_depth = max_depth or job.integrator_params["maxdepth"]
+    if sampler_override == "refsobol":
+        film = refpath.render_ref(
+            job.scene, camera, film, W, H, spp, max_depth=max_depth,
+            max_rays_per_pass=min(max_rays_per_pass, 1 << 17))
+        return film, camera
     film, n_rays = dispatch.render_with_integrator(
         job, camera, film, cfg, spp, max_depth,
         max_rays_per_pass=max_rays_per_pass, count_rays=True)
-    if stats is not None:
+    if stats is not None and n_rays is not None:
         stats["rays"] = n_rays
     return film, camera
 
@@ -121,6 +134,10 @@ def main(argv=None):
     ap.add_argument("--maxdepth", type=int, default=None)
     ap.add_argument("--cpu", action="store_true",
                     help="render on the CPU instead of the CUDA card")
+    ap.add_argument("--sampler", default=None, choices=["refsobol"],
+                    help="override the scene's sampler; 'refsobol' runs the "
+                         "matched-RNG parity integrator (pbrt's Sobol' "
+                         "stream and estimator structure)")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.WARNING if args.quiet
                         else logging.INFO, format="%(message)s")
@@ -137,13 +154,14 @@ def main(argv=None):
     t0 = time.perf_counter()
     film, _ = run_job(job, spp=1 if args.quick else args.spp,
                       max_depth=3 if args.quick else args.maxdepth,
-                      stats=stats)
+                      stats=stats, sampler_override=args.sampler)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
     if not args.quiet:
-        print(f"rendered in {dt:.1f}s ({stats['rays'] / dt:,.0f} rays/s on "
-              f"{device_name(device)})")
+        rate = (f"{stats['rays'] / dt:,.0f} rays/s on " if "rays" in stats
+                else "on ")
+        print(f"rendered in {dt:.1f}s ({rate}{device_name(device)})")
     write_outputs(job, film, args.outfile, args.quiet)
     return 0
 

@@ -1,10 +1,12 @@
 """Where the time of one render pass goes, on the card.
 
     python -m pbrt_tpu_torch.tools.profile_pass scene.pbrt [--rays 65536]
-        [--maxdepth N] [--top 12]
+        [--maxdepth N] [--top 12] [--sampler refsobol]
 
 Parses the scene on the first CUDA card, traces one pass (sample 0 of
-the first `--rays` pixels, through `path.trace_paths`) three times
+the first `--rays` pixels, through `path.trace_paths`; with `--sampler
+refsobol`, of the first min(rays, W*H) pixels through the matched-RNG
+`refpath.trace_ref`, as `render_ref` traces a pass) three times
 unprofiled and once under torch.profiler, and prints: the wall time of
 each unprofiled pass; for the profiled one, its wall time, the device
 kernel events and their summed device time, the device's idle share
@@ -24,7 +26,7 @@ import torch
 from torch.autograd import DeviceType
 
 from pbrt_tpu_torch.core import device as devmod
-from pbrt_tpu_torch.integrators import path
+from pbrt_tpu_torch.integrators import path, refpath
 from pbrt_tpu_torch.ops import dense_intersect as dense
 from pbrt_tpu_torch.parser.api import parse_scene
 from pbrt_tpu_torch.samplers.samplers import SamplerConfig
@@ -38,6 +40,7 @@ def main(argv=None):
     ap.add_argument("--rays", type=int, default=65536)
     ap.add_argument("--maxdepth", type=int, default=None)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--sampler", default=None, choices=["refsobol"])
     args = ap.parse_args(argv)
     device = devmod.resolve(None)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -48,12 +51,26 @@ def main(argv=None):
     camera = cli.build_camera(job, W, H, device)
     cfg = SamplerConfig("sobol", 0, job.spp)
     depth = args.maxdepth or job.integrator_params["maxdepth"]
-    ids = torch.arange(args.rays, device=device)
+    if args.sampler == "refsobol":
+        ids = torch.arange(min(args.rays, W * H), device=device)
+        sampler = refpath.RefSampler.make(W, H)
+        lights = refpath.build_ref_lights(job.scene)
+
+        def trace():
+            ray, _, _, pid, sidx = refpath.camera_rays_ref(camera, W, H,
+                                                           sampler, ids, 0)
+            refpath.trace_ref(job.scene, lights, sampler, ray, pid, sidx,
+                              max_depth=depth)
+    else:
+        ids = torch.arange(args.rays, device=device)
+
+        def trace():
+            ray, _, _, pid, sidx = path.camera_rays_for_pixels(
+                camera, W, H, cfg, ids, 0)
+            path.trace_paths(job.scene, ray, pid, sidx, cfg, max_depth=depth)
 
     def one_pass():
-        ray, _, _, pid, sidx = path.camera_rays_for_pixels(camera, W, H,
-                                                           cfg, ids, 0)
-        path.trace_paths(job.scene, ray, pid, sidx, cfg, max_depth=depth)
+        trace()
         torch.cuda.synchronize()
 
     walls = []
@@ -71,7 +88,8 @@ def main(argv=None):
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and device_us(e) > 0]
     dev_ms = sum(device_us(e) for e in kernels) / 1e3
-    print(f"{args.scene}: {args.rays} rays, depth {depth}, on {card}")
+    print(f"{args.scene}: {len(ids)} rays, depth {depth}, sampler "
+          f"{args.sampler or job.sampler_kind}, on {card}")
     print("unprofiled passes: " + ", ".join(f"{w:.2f} ms" for w in walls))
     if not kernels:
         print("profiled pass: no device time in the trace (not measured)")

@@ -4,7 +4,9 @@ Tolerances: the counter-based RNG, the Owen scramble and the Sobol'
 sampler are integer hashes and must be bit-exact; spectra and transforms
 are f32/f64 host math and agree within 1e-6.
 """
+import glob
 import os
+import re
 import subprocess
 import sys
 
@@ -151,6 +153,35 @@ def test_frames():
     loc = tgeom.world_to_frame(ss, ts, tv, w)
     np.testing.assert_allclose(tgeom.frame_to_world(ss, ts, tv, loc).numpy(),
                                w.numpy(), atol=1e-5)
+
+
+# an import statement, or an import by name, of jax, flax or pbrt_tpu
+# (pbrt_tpu_torch is not pbrt_tpu)
+_REFERENCE_IMPORT = re.compile(
+    r"^\s*(?:import|from)\s+(?:jax|flax|pbrt_tpu)(?![\w])"
+    r"|(?:import_module|__import__)\(\s*['\"](?:jax|flax|pbrt_tpu)(?![\w])",
+    re.M)
+
+
+def test_port_sources_name_no_jax():
+    """No line of pbrt_tpu_torch/ or chip_smoke.py imports jax, flax or
+    pbrt_tpu, not even inside a function that importing the module never
+    runs (which test_port_imports_no_jax cannot see)."""
+    files = sorted(glob.glob(os.path.join(REPO, "pbrt_tpu_torch", "**",
+                                          "*.py"), recursive=True))
+    files.append(os.path.join(REPO, "chip_smoke.py"))
+    assert len(files) > 40
+    bad = []
+    for path in files:
+        with open(path) as f:
+            text = f.read()
+        bad += [(os.path.relpath(path, REPO), m.group(0).strip())
+                for m in _REFERENCE_IMPORT.finditer(text)]
+    assert not bad, bad
+    assert _REFERENCE_IMPORT.search("    from pbrt_tpu.core import lds")
+    assert _REFERENCE_IMPORT.search("import jax.numpy as jnp")
+    assert _REFERENCE_IMPORT.search("importlib.import_module('flax')")
+    assert not _REFERENCE_IMPORT.search("from pbrt_tpu_torch.core import x")
 
 
 def test_port_imports_no_jax():

@@ -497,3 +497,76 @@ def test_static_k2_at_1024_triangle_chunks(device):
                                   case["na"])
     torch.cuda.synchronize()
     _contract(*got, *plain, r16, case["W"])
+
+
+def _refrng(device):
+    import os
+    from pbrt_tpu_torch.parser.api import parse_scene
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return parse_scene(os.path.join(root, "scenes", "cornell_refrng.pbrt"),
+                       device=device)
+
+
+def test_k2_on_the_matched_rng_mixed_batch(device):
+    """K1 and K2 on the matched-RNG integrator's camera and first-bounce
+    batches of scenes/cornell_refrng.pbrt at 128x128 (16,384 rays; 3 x
+    16,384 continuation, probe and shadow rays, the last third any-hit):
+    the contract of test_kernels_match_plain, but for the triangle a
+    closest-hit lane finds.  Raw Sobol' samples on axis-aligned geometry
+    send rays through shared mesh edges, where two f32 evaluations may
+    each pick one of the edge's triangles: every lane whose triangle
+    differs from the plain version's must be such a tie
+    (dense.loop_prim_tie), and every any-hit lane whose occluded flag
+    differs must have found a triangle that an f32 evaluation may accept
+    or reject (dense.loop_hit_marginal)."""
+    from pbrt_tpu_torch.tools import pbrt as cli
+    job = _refrng(device)
+    scene = job.scene
+    batches = kernel_workloads.refpath_batches(
+        scene, cli.build_camera(job, 128, 128, device), 128, 128, 5)
+    assert batches["bounce1"][0].shape[0] == 3 * 128 * 128
+    assert int((batches["bounce1"][0][:, 12] > 0.5).sum()) == 128 * 128
+    for r16, tmax, _ in batches.values():
+        cl, na = dense.tile_chunk_lists(r16, tmax, scene.dense_cb)
+        cl_p, na_p = dense.tile_chunk_lists_plain(r16, tmax, scene.dense_cb)
+        assert torch.equal(cl, cl_p) and torch.equal(na, na_p)
+        t, p = dense.loop_hits(r16, tmax, scene.dense_w, cl, na)
+        tp, pp = dense.loop_hits_plain(r16, tmax, scene.dense_w, cl, na)
+        torch.cuda.synchronize()
+        assert ((p >= 0) == (pp >= 0)).float().mean() >= 0.9999
+        anyhit = r16[:, 12] > 0.5
+        occ = anyhit & ((p >= 0) != (pp >= 0))
+        assert dense.loop_hit_marginal(r16[occ], tmax[occ], scene.dense_w,
+                                       torch.maximum(p, pp)[occ]).all()
+        differ = ~anyhit & (p >= 0) & (pp >= 0) & (p != pp)
+        assert dense.loop_prim_tie(r16[differ], scene.dense_w, p[differ],
+                                   pp[differ]).all()
+        closest = ~anyhit & (p == pp) & (p >= 0)
+        t64, bound = dense.loop_t_reference(r16[closest], scene.dense_w,
+                                            p[closest])
+        for tt in (t, tp):
+            assert ((tt[closest].double() - t64).abs()
+                    <= bound * t64.abs()).all()
+
+
+def test_trace_ref_on_the_card_matches_the_cpu(device):
+    """trace_ref on 2,048 lanes of the 128x128 raster (rows 56-71) on the
+    card and on the CPU (the kernels against their plain versions inside
+    the whole integrator): image means within 1e-3, >= 99% of lanes
+    within 1e-2 relative."""
+    from pbrt_tpu_torch.integrators import refpath
+    from pbrt_tpu_torch.tools import pbrt as cli
+    out = []
+    for dev in (device, torch.device("cpu")):
+        job = _refrng(dev)
+        sampler = refpath.RefSampler.make(128, 128)
+        ids = torch.arange(56 * 128, 72 * 128, device=dev)
+        ray, _, _, pid, sidx = refpath.camera_rays_ref(
+            cli.build_camera(job, 128, 128, dev), 128, 128, sampler, ids, 1)
+        L = refpath.trace_ref(job.scene, refpath.build_ref_lights(job.scene),
+                              sampler, ray, pid, sidx, max_depth=5)
+        out.append(L.sum(-1).cpu().numpy())
+    g, c = out
+    assert np.isfinite(g).all() and (g >= 0).all()
+    assert abs(g.mean() / c.mean() - 1) < 1e-3
+    assert (np.abs(g - c) <= 1e-2 * np.abs(c)).mean() >= 0.99

@@ -266,3 +266,31 @@ def test_wrappers_take_plain_path_on_cpu_only():
     assert tdense.LAUNCHES == before              # plain versions never count
     with pytest.raises(ValueError):
         tdense.tile_queue(r16.to("meta"), tmax, cb)
+
+
+def test_loop_prim_tie_and_marginal_hits():
+    """loop_prim_tie on a unit quad split along its diagonal (triangles 0
+    and 1) and a copy of it one unit lower (2 and 3): a ray down through
+    the diagonal is a tie of 0 and 1; one through the middle of 0 is not
+    (1 is outside), nor is 0 against 2 under it (another t).
+    loop_hit_marginal: a hit on the diagonal or at tmax may round either
+    way, one well inside may not."""
+    v = np.array([[0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0]], np.float32)
+    tris = np.array([[0, 1, 2], [0, 2, 3]])
+    tv = np.concatenate([v[tris], v[tris] - [0, 0, 1]])
+    tab = tdense.build_dense_tables(tv[:, 0], tv[:, 1] - tv[:, 0],
+                                    tv[:, 2] - tv[:, 0])
+    o = torch.tensor([[0.5, 0.5, 1.0], [0.8, 0.2, 1.0], [0.8, 0.2, 1.0],
+                      [0.25, 0.25, 1.0]])
+    d = torch.tensor([[0.0, 0.0, -1.0]]).expand(4, 3)
+    r16 = tdense.ray_vectors(o, d, torch.from_numpy(tab["center"]))
+    W = torch.from_numpy(tab["W"])
+    tie = tdense.loop_prim_tie(r16, W, torch.tensor([0, 0, 0, 1]),
+                               torch.tensor([1, 1, 2, 0]))
+    assert tie.tolist() == [True, False, False, True]
+    # marginal hits: through the diagonal, or at t = tmax (1 for the quad
+    # from z = 1); not through the middle of triangle 0 well inside tmax
+    marginal = tdense.loop_hit_marginal(
+        r16, torch.tensor([5.0, 5.0, 1.0, 5.0]), W,
+        torch.tensor([0, 0, 0, 2]))
+    assert marginal.tolist() == [True, False, True, True]
