@@ -58,6 +58,40 @@ each again with the counts set to 0 just before and read just after:
   pixels within 1e-2 (each band runs its own Russian roulette on its
   masked beta, so the two agree statistically, not bit for bit).
 
+Phases 14-17 drive the lens cameras, the samplers and the pixel filters,
+each render again with the counts set to 0 just before and read just
+after (K1 and the static K2 six times a pass, four times that for
+spectralpath); the Cornell model at 256x256, depth 5, 65,536 rays a
+pass:
+
+- 14: a realistic camera at Cornell's LookAt with the double-Gauss 50 mm
+  of pbrt_tpu_torch/scenes/lenses/dgauss.50mm.dat, an 8 mm stop,
+  focused by the paraxial sweep on the box's middle (7 units), a 35 mm
+  film diagonal, 4 spp, through `path.render`;
+- 15: the same lens with chromatic aberration, through spectralpath (4
+  bands, each regenerating its rays at its wavelength), 4 spp: its mean
+  within 2% of phase 14's;
+- 16: omni, a JSON lens made by the port's lenstool from the same .dat
+  with a 64x64 microlens array of jittered centres inserted, at
+  simulation radius 1, 2 spp; and realisticEye, the 5-surface eye of
+  pbrt_tpu_torch/scenes/lenses/eye5.txt in metres with its four media's
+  IoRs and HURB diffraction at the pupil, 2 spp;
+- 17: the CLI's `run_job` on pbrt_tpu_torch/scenes/cornell_lens.pbrt
+  (the realistic camera, no Sampler line so halton, mitchell) at 2 spp;
+  then the Cornell model at 2 spp under each of the six sampler kinds
+  and under the triangle, mitchell and sinc filters, each mean within
+  2% of the Sobol' / Gaussian render's.
+
+Every lens render is finite, non-negative and non-black.  Mitchell's
+and sinc's negative lobes make some developed pixels negative where the
+image has a sharp edge (the reference clamps them when it writes the
+image), so for those two the raw film is held non-negative and the
+developed image finite, and the negative pixels are counted.  Each new
+phase prints its ms a pass and, for one more pass under torch.profiler,
+its kernel launches a pass and device time.  compare_cpu also renders
+the realistic, omni and eye cameras, spectralpath with chromatic
+aberration, and the halton and maxmindist samplers at 32x32 2 spp.
+
 Any failed check raises, so the exit code is non-zero; there is no
 fallback to the CPU or to a plain version.
 
@@ -88,7 +122,10 @@ import numpy as np
 os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")
 
 import torch  # noqa: E402  (after the device mask)
+from torch.autograd import DeviceType  # noqa: E402
 
+from pbrt_tpu_torch.cameras import lens  # noqa: E402
+from pbrt_tpu_torch.core import transform as tfm  # noqa: E402
 from pbrt_tpu_torch.film import film as filmmod  # noqa: E402
 from pbrt_tpu_torch.film import io as filmio  # noqa: E402
 from pbrt_tpu_torch.integrators import path  # noqa: E402
@@ -103,6 +140,7 @@ from pbrt_tpu_torch.tools import ablate_k2  # noqa: E402
 from pbrt_tpu_torch.tools import dissect_intersect  # noqa: E402
 from pbrt_tpu_torch.tools import dump_tile  # noqa: E402
 from pbrt_tpu_torch.tools import kernel_workloads as kw  # noqa: E402
+from pbrt_tpu_torch.tools import lenstool  # noqa: E402
 from pbrt_tpu_torch.tools import pbrt as cli  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -120,6 +158,21 @@ REF_W = REF_H = 128
 META_SCENE = os.path.join(ROOT, "scenes", "metadata_depth.pbrt")
 META_REF = os.path.join(ROOT, "tests", "data", "ref_metadata_depth.npz")
 CA_BANDS = 4
+LENS_DIR = os.path.join(ROOT, "pbrt_tpu_torch", "scenes", "lenses")
+DGAUSS = os.path.join(LENS_DIR, "dgauss.50mm.dat")
+EYE_SPEC = os.path.join(LENS_DIR, "eye5.txt")
+LENS_SCENE = os.path.join(ROOT, "pbrt_tpu_torch", "scenes",
+                          "cornell_lens.pbrt")
+CORNELL_LOOK = ([2.5, -4.5, 2.5], [2.5, 2.5, 2.5], [0, 0, 1])
+# the eye's media on the film side of each surface (cornea, aqueous,
+# lens, vitreous; tests/test_lens.py)
+EYE_IORS = (1.377, 1.337, 1.42, 1.336)
+SAMPLERS = ("independent", "stratified", "sobol", "halton",
+            "zerotwosequence", "maxmindist")
+NEW_FILTERS = ("triangle", "mitchell", "sinc")
+# a sampler's or filter's image mean against the Sobol' / Gaussian one's,
+# and spectralpath with chromatic aberration against phase 14's
+MEAN_GAP = 0.02
 W = H = 256
 SPP = 4
 GATE_SPP = 2
@@ -455,6 +508,99 @@ def motion_32(dev):
     return cli.run_job(job, spp=2, max_depth=DEPTH)[0]
 
 
+def realistic_camera(dev, ca=False):
+    """The double-Gauss 50 mm at Cornell's LookAt, stopped to 8 mm and
+    focused on the box's middle by the paraxial sweep."""
+    return lens.build_lens_camera(
+        "realistic", tfm.look_at(*CORNELL_LOOK),
+        lens.read_dat_lens(DGAUSS, 8.0), focus_distance=7.0,
+        film_diag=0.035, ca_enabled=ca, device=dev)
+
+
+def omni_lens_file(d):
+    """The port's lenstool: the .dat lens converted to omni JSON (its stop
+    opened to the 8 mm of phase 14; `convert` keeps the .dat reader's
+    default 1 mm), a 64x64 microlens array inserted, its lenslets'
+    centres jittered by up to 20 um."""
+    lenstool.convert(DGAUSS, os.path.join(d, "dgauss.json"))
+    out = os.path.join(d, "dgauss_ml.json")
+    lenstool.insert_microlens(
+        os.path.join(d, "dgauss.json"), out, 64, 64,
+        [{"radius": 0.25, "thickness": 0.4, "ior": 1.5,
+          "semi_aperture": 0.2, "conic_constant": 0.0}])
+    with open(out) as f:
+        j = json.load(f)
+    for srf in j["surfaces"]:
+        if srf["radius"] == 0:
+            srf["semi_aperture"] = 4.0
+    j["microlens"]["offsets"] = np.random.RandomState(7).uniform(
+        -2e-5, 2e-5, (64 * 64, 2)).tolist()
+    with open(out, "w") as f:
+        json.dump(j, f)
+    return out
+
+
+def omni_camera(dev, path_json):
+    surfs, micro = lens.read_json_lens(path_json)
+    return lens.build_lens_camera(
+        "omni", tfm.look_at(*CORNELL_LOOK), surfs, focus_distance=7.0,
+        film_diag=0.035, microlens=micro, microlens_sensor_offset=0.001,
+        microlens_sim_radius=1, device=dev)
+
+
+def eye_camera(dev):
+    """The 5-surface eye in metres (the spec's mm times 1e-3) with its
+    media's IoRs and HURB diffraction at the 4 mm pupil."""
+    _, surfs = lens.read_eye_spec(EYE_SPEC, 1e-3)
+    return lens.build_lens_camera(
+        "realisticEye", tfm.look_at(*CORNELL_LOOK), surfs,
+        film_distance=16.32e-3, retina_radius=12e-3,
+        retina_semi_diam=4e-3, film_diag=8e-3,
+        ior_spectra=[np.full(31, v, np.float32) for v in EYE_IORS],
+        pupil_diameter=4e-3, diffraction=True, device=dev)
+
+
+def render_32(camera_fn, kind="sobol", trace=None):
+    """A render(dev) of the Cornell model at 32x32, 2 spp, through the
+    camera camera_fn(dev) (None: Cornell's perspective one), the sampler
+    `kind` and trace(camera) (None: trace_paths)."""
+    def render(dev):
+        scene, cam = flagship.cornell(device=dev)
+        cam = cam(32, 32) if camera_fn is None else camera_fn(dev)
+        return path.render(scene, cam,
+                           filmmod.make_film(32, 32, "gaussian", device=dev),
+                           SamplerConfig(kind, 0, 2), 2, max_depth=DEPTH,
+                           trace_fn=None if trace is None else trace(cam))
+    return render
+
+
+def pass_profile(scene, camera, cfg, trace=None):
+    """One 65,536-ray pass (sample 0 of the first 65,536 pixels: camera
+    rays, then trace(scene, ...), default trace_paths) under
+    torch.profiler, after the timed render of the same cell warmed it:
+    (device ms, kernel launches) or None if the trace held no device
+    time."""
+    ids = torch.arange(RAYS_PER_PASS, device=scene.dense_w.device)
+    trace = trace or path.trace_paths
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        ray, _, _, pid, sidx = path.camera_rays_for_pixels(
+            camera, W, H, cfg, ids, 0)
+        trace(scene, ray, pid, sidx, cfg, max_depth=DEPTH)
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and kw.device_us(e) > 0]
+    if not ev:
+        return None
+    return (sum(kw.device_us(e) for e in ev) / 1e3,
+            sum(e.count for e in ev))
+
+
+def _prof(p):
+    return ("not measured" if p is None
+            else f"{p[1]:.0f} launches, {p[0]:.2f} ms device time a pass")
+
+
 def phase10(scene, card):
     """The kernel harnesses (s1-s7) through the tools' entry points, with
     the counts set to 0 just before and read just after; then each
@@ -558,6 +704,168 @@ def phase10(scene, card):
         "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
         "workload": f"tiny600 tile 0, picks {TINY_PICKS}"})
     return {"counts": counts, "rows": rows}
+
+
+def lens_phases(scene, pcam, cfg, run_path, card, tmpdir):
+    """Phases 14-17 (see the module docstring) on the Cornell model, its
+    perspective camera pcam, through run_path (main's counted runs)."""
+    device = scene.dense_w.device
+    per_pass = {"dense_queue": DEPTH + 1, "dense_queue_cull": 0,
+                "dense_loop": DEPTH + 1, "dense_loop_motion": 0}
+
+    def expect(n_passes, bands=1):
+        return {k: v * n_passes * bands for k, v in per_pass.items()}
+
+    def render(camera, spp, kind="sobol", filt="gaussian", trace=None):
+        return path.render(scene, camera,
+                           filmmod.make_film(W, H, filt, device=device),
+                           SamplerConfig(kind, 0, spp), spp,
+                           max_depth=DEPTH, max_rays_per_pass=RAYS_PER_PASS,
+                           trace_fn=trace)
+
+    def timed(what, fn, spp, bands=1):
+        t0 = time.perf_counter()
+        out, counts = run_path(what, fn, expect(spp, bands), scene)
+        return out, counts, (time.perf_counter() - t0) * 1e3 / spp
+
+    walls = {}
+    t_phase = time.perf_counter()
+
+    def lap(name):
+        nonlocal t_phase
+        now = time.perf_counter()
+        walls[name] = now - t_phase
+        t_phase = now
+
+    # --- phase 14: realistic ---
+    t0 = time.perf_counter()
+    lcam = realistic_camera(device)
+    build_s = time.perf_counter() - t0
+    ids = torch.arange(RAYS_PER_PASS, device=device)
+    _, w0, _, _, _ = path.camera_rays_for_pixels(lcam, W, H, cfg, ids, 0)
+    survive = (w0 > 0).float().mean().item()
+    render(lcam, 1)
+    lfilm, counts, ms = timed("realistic render", lambda: render(lcam, SPP),
+                              SPP)
+    l_img = filmmod.develop_spectral(lfilm)
+    check_image(l_img, "realistic render")
+    prof = pass_profile(scene, lcam, cfg)
+    print(f"phase 14 realistic dgauss.50mm f/6.25 (8 mm stop), film "
+          f"distance {lcam.film_distance.item() * 1e3:.3f} mm, Cornell "
+          f"{W}x{H} {SPP} spp depth {DEPTH}: camera build {build_s:.3f} s, "
+          f"camera rays surviving the stack {survive:.4f}, "
+          f"{ms:.2f} ms/pass, image mean {l_img.mean().item():.6f}, "
+          f"{_prof(prof)}, launches {counts} on {card}")
+
+    lap("14")
+
+    # --- phase 15: spectralpath with chromatic aberration ---
+    ccam = realistic_camera(device, ca=True)
+
+    def spectral(cam, w=W, h=H):
+        return spectralpath.make_trace_spectral(CA_BANDS, camera=cam,
+                                                width=w, height=h)
+    sfilm, counts, ms = timed(
+        "spectralpath CA render",
+        lambda: render(ccam, SPP, trace=spectral(ccam)), SPP, CA_BANDS)
+    s_img = filmmod.develop_spectral(sfilm)
+    check_image(s_img, "spectralpath CA render")
+    gap = abs(s_img.mean().item() / l_img.mean().item() - 1.0)
+    prof = pass_profile(scene, ccam, cfg, spectral(ccam))
+    print(f"phase 15 spectralpath {CA_BANDS} bands, chromatic aberration "
+          f"on, dgauss, Cornell {W}x{H} {SPP} spp: {ms:.2f} ms/pass, image "
+          f"mean {s_img.mean().item():.6f} vs phase 14's "
+          f"{l_img.mean().item():.6f} (gap {gap:.3e}, limit {MEAN_GAP}), "
+          f"{_prof(prof)}, launches {counts} on {card}")
+    check(gap < MEAN_GAP, f"spectralpath CA: mean off phase 14's by {gap}")
+
+    lap("15")
+
+    # --- phase 16: omni with a microlens array, and the eye ---
+    ml_json = omni_lens_file(tmpdir)
+    for name, cam_fn in (("omni", lambda dev: omni_camera(dev, ml_json)),
+                         ("realisticEye", eye_camera)):
+        cam = cam_fn(device)
+        _, w0, _, _, _ = path.camera_rays_for_pixels(cam, W, H, cfg, ids, 0)
+        film, counts, ms = timed(f"{name} render",
+                                 lambda: render(cam, GATE_SPP), GATE_SPP)
+        img = filmmod.develop_spectral(film)
+        check_image(img, f"{name} render")
+        prof = pass_profile(scene, cam, cfg)
+        extra = (f"microlens {cam.ml_dims} sim radius {cam.ml_sim_radius}, "
+                 f"offsets {cam.ml_has_offsets}" if name == "omni" else
+                 f"HURB {cam.diffraction}, IoRs {EYE_IORS}")
+        print(f"phase 16 {name} ({extra}) Cornell {W}x{H} {GATE_SPP} spp: "
+              f"camera rays surviving {(w0 > 0).float().mean().item():.4f}, "
+              f"{ms:.2f} ms/pass, image mean {img.mean().item():.6f}, "
+              f"{_prof(prof)}, launches {counts} on {card}")
+
+    lap("16")
+
+    # --- phase 17: the CLI on cornell_lens.pbrt, samplers, filters ---
+    job = parse_scene(LENS_SCENE, device=device)
+    check(job.sampler_kind == "halton" and job.filter_name == "mitchell"
+          and job.camera_kind == "realistic", "cornell_lens.pbrt parse")
+    (cfilm, _), counts, ms = timed(
+        "CLI cornell_lens.pbrt",
+        lambda: cli.run_job(job, spp=GATE_SPP, max_depth=DEPTH), GATE_SPP)
+    check_image(cfilm.raw, "CLI cornell_lens.pbrt (raw)")
+    c_img = filmmod.develop_spectral(cfilm)
+    check(bool(torch.isfinite(c_img).all()), "cornell_lens.pbrt: non-finite")
+    print(f"phase 17 CLI cornell_lens.pbrt (realistic, halton, mitchell) "
+          f"{W}x{H} {GATE_SPP} spp: {ms:.2f} ms/pass, raw mean "
+          f"{cfilm.raw.mean().item():.6f}, developed pixels below 0 "
+          f"{int((c_img < 0).any(-1).sum())} of {W * H}, launches {counts}"
+          f" on {card}")
+    means = {}
+    for kind in SAMPLERS:
+        film, counts, ms = timed(
+            f"{kind} render", lambda: render(pcam, GATE_SPP,
+                                             kind), GATE_SPP)
+        img = filmmod.develop_spectral(film)
+        check_image(img, f"{kind} render")
+        means[kind] = img.mean().item()
+        prof = pass_profile(scene, pcam,
+                            SamplerConfig(kind, 0, GATE_SPP))
+        print(f"phase 17 sampler {kind} Cornell {W}x{H} {GATE_SPP} spp: "
+              f"{ms:.2f} ms/pass, {_prof(prof)}, image mean "
+              f"{means[kind]:.6f}, launches {counts}")
+    for kind in SAMPLERS:
+        gap = abs(means[kind] / means["sobol"] - 1.0)
+        print(f"phase 17 sampler {kind}: mean gap to sobol's {gap:.3e} "
+              f"(limit {MEAN_GAP})")
+        check(gap < MEAN_GAP, f"sampler {kind}: mean off sobol's by {gap}")
+    for filt in NEW_FILTERS:
+        film, counts, ms = timed(
+            f"{filt} render", lambda: render(pcam, GATE_SPP,
+                                             filt=filt), GATE_SPP)
+        img = filmmod.develop_spectral(film)
+        check_image(film.raw, f"{filt} render (raw)")
+        check(bool(torch.isfinite(img).all()) and img.mean().item() > 0,
+              f"{filt} render: developed image")
+        neg = int((img < 0).any(-1).sum())
+        if filt == "triangle":
+            check(neg == 0, "triangle render: negative pixels")
+        gap = abs(img.mean().item() / means["sobol"] - 1.0)
+        print(f"phase 17 filter {filt} Cornell {W}x{H} {GATE_SPP} spp: "
+              f"{ms:.2f} ms/pass, image mean {img.mean().item():.6f}, gap "
+              f"to gaussian's {gap:.3e} (limit {MEAN_GAP}), developed "
+              f"pixels below 0 {neg} of {W * H}, launches {counts}")
+        check(gap < MEAN_GAP, f"filter {filt}: mean off gaussian's by {gap}")
+
+    lap("17")
+    compare_cpu([
+        ("realistic", render_32(realistic_camera)),
+        ("omni", render_32(lambda dev: omni_camera(dev, ml_json))),
+        ("realisticEye", render_32(eye_camera)),
+        ("spectralpath CA", render_32(
+            lambda dev: realistic_camera(dev, ca=True),
+            trace=lambda cam: spectral(cam, 32, 32))),
+        ("halton", render_32(None, "halton")),
+        ("maxmindist", render_32(None, "maxmindist"))])
+    lap("compare_cpu")
+    print("phases 14-17 lens cameras, samplers and filters pass; wall s "
+          + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
 
 
 def main():
@@ -801,6 +1109,11 @@ def main():
     check(gap < 1e-2, f"spectralpath: image mean off path's by {gap}")
     check(close >= 0.95, f"spectralpath: only {close} of pixels agree with "
           "path's within 1e-2")
+
+    # --- phases 14-17: the lens cameras, the samplers, the filters ---
+    tmpdir = tempfile.TemporaryDirectory()
+    lens_phases(scene, camera, cfg, run_path, card, tmpdir.name)
+    tmpdir.cleanup()
 
     rows = []
     for k, (src, rep) in KERNELS.items():

@@ -1,10 +1,13 @@
-"""Sobol' samples as pure counter-based functions (port of the Sobol'
-part of pbrt_tpu.core.lds): Owen-scrambled for the production sampler,
-plain and on the reference's GlobalSampler index map for the matched-RNG
-integrator (integrators/refpath.py).
+"""Low-discrepancy sequences as pure counter-based functions (port of
+pbrt_tpu.core.lds): Owen-scrambled Sobol' for the production sampler,
+plain Sobol' on the reference's GlobalSampler index map for the
+matched-RNG integrator (integrators/refpath.py), scrambled radical
+inverses (Halton), the (0,2)-sequence and the maximized-minimal-distance
+generator matrices.
 
-Direction numbers come from the JAX package's `data/sobol_matrices.npy`
-([1024, 30] uint32), read by path.  Words ride in int64 (see core/rng.py).
+Direction numbers and generator matrices come from the JAX package's
+`data/sobol_matrices.npy` ([1024, 30] uint32) and `data/maxmindist.npz`
+([17, 32] uint32), read by path.  Words ride in int64 (see core/rng.py).
 """
 
 from __future__ import annotations
@@ -75,6 +78,116 @@ def sobol_sample(index, dim: int, scramble_seed=None):
         x = _rng.owen_scramble(x, scramble_seed)
     f = x.to(torch.float32) * _INV_2_32
     return torch.clamp(f, max=_rng.ONE_MINUS_EPS)
+
+
+# ---------------------------------------------------------------------------
+# radical inverse (Halton)
+# ---------------------------------------------------------------------------
+
+def _primes(n):
+    sieve = np.ones(20000, dtype=bool)
+    sieve[:2] = False
+    for i in range(2, 142):
+        if sieve[i]:
+            sieve[i * i::i] = False
+    return np.nonzero(sieve)[0][:n]
+
+
+#: first 1024 primes (the reference uses 1000, lowdiscrepancy.cpp
+#: PrimeTableSize)
+PRIMES = _primes(1024)
+
+
+def _to_unit(bits):
+    """A 32-bit fixed-point word as a float in [0, 1)."""
+    return torch.clamp(bits.to(torch.float32) * _INV_2_32,
+                       max=_rng.ONE_MINUS_EPS)
+
+
+def radical_inverse_base2(index):
+    """Base-2 radical inverse: the reversed bits as a fraction."""
+    return _to_unit(_rng.reverse_bits32(index))
+
+
+@functools.lru_cache(maxsize=None)
+def _digit_factors(base, n_digits):
+    """base^-(d+1) for each digit d, as the JAX package forms them: one
+    f32 product a digit (python floats holding the f32 values).  A
+    factor that falls below f32's normal range is flushed to zero, as
+    XLA on the CPU flushes it; its terms lie far below the ulp of the
+    sum either way."""
+    inv = np.float32(1.0 / base)
+    f, out = np.float32(1.0), []
+    for _ in range(n_digits):
+        f = np.float32(f * inv)
+        if abs(f) < np.finfo(np.float32).tiny:
+            f = np.float32(0.0)
+        out.append(float(f))
+    return tuple(out)
+
+
+def radical_inverse(index, base: int, n_digits=20, perm_seed=None):
+    """Radical inverse of `index` (int64 tensor of 32-bit words) in prime
+    `base`, with an optional per-digit scramble keyed on (perm_seed,
+    digit position).  All n_digits digits are formed even where the
+    index has fewer: the scramble adds a term to each (reference:
+    lowdiscrepancy.h ScrambledRadicalInverse)."""
+    index = _rng.u32(index)
+    out = torch.zeros(index.shape, dtype=torch.float32, device=index.device)
+    for d, factor in enumerate(_digit_factors(base, n_digits)):
+        digit = index % base
+        if perm_seed is not None:
+            h = _rng.hash_combine(perm_seed, d)
+            digit = (digit + h % base) % base
+        out = out + digit.to(torch.float32) * factor
+        index = index // base
+    return torch.clamp(out, max=_rng.ONE_MINUS_EPS)
+
+
+def halton_sample(index, dim: int, perm_seed=None):
+    """Halton point coordinate of dimension `dim` (an int)."""
+    base = int(PRIMES[dim])
+    if base == 2 and perm_seed is None:
+        return radical_inverse_base2(index)
+    seed = None if perm_seed is None else _rng.hash_combine(perm_seed, dim)
+    return radical_inverse(index, base, perm_seed=seed)
+
+
+# ---------------------------------------------------------------------------
+# (0,2)-sequence and generator matrices (reference: lowdiscrepancy.h
+# Sample02 / VanDerCorput / MultiplyGenerator, the zerotwosequence and
+# maxmin samplers)
+# ---------------------------------------------------------------------------
+
+_MAXMIN_NP = np.load(os.path.join(DATA_DIR, "maxmindist.npz"))["C"]
+
+
+def maxmin_matrix(log2_spp):
+    """CMaxMinDist generator matrix for 2^log2_spp samples (the
+    reference's data constants, lowdiscrepancy.cpp:249)."""
+    return _MAXMIN_NP[min(max(log2_spp, 0), 16)]
+
+
+def generator_matrix_sample(index, matrix_rows, scramble=None):
+    """XOR of the matrix rows (32 uint32, numpy) that the bits of `index`
+    select, xor-scrambled, as a float in [0, 1)."""
+    idx = _rng.u32(index)
+    v = torch.zeros_like(idx)
+    for b in range(32):
+        row = int(matrix_rows[b])
+        if row:
+            v = v ^ (((idx >> b) & 1) * row)
+    if scramble is not None:
+        v = v ^ _rng.u32(scramble)
+    return _to_unit(v)
+
+
+def sample_02(index, scramble_x, scramble_y):
+    """2D (0,2)-sequence point with xor scrambles (32-bit words)."""
+    index = _rng.u32(index)
+    x_bits = _rng.reverse_bits32(index) ^ _rng.u32(scramble_x)
+    y_bits = (sobol_u32(index, 1) << 2) ^ _rng.u32(scramble_y)
+    return _to_unit(x_bits), _to_unit(y_bits)
 
 
 # ---------------------------------------------------------------------------

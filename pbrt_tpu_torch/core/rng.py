@@ -73,3 +73,25 @@ def owen_scramble(x_bits, seed):
     x = reverse_bits32(x_bits)
     x = laine_karras_permutation(x, seed)
     return reverse_bits32(x)
+
+
+def _unit_float(bits):
+    """The top 24 bits of a 32-bit word as a float in [0, 1), clamped to
+    OneMinusEpsilon (the reference's rng.h UniformFloat)."""
+    return torch.clamp((bits >> 8).to(torch.float32) * (1.0 / 16777216.0),
+                       max=ONE_MINUS_EPS)
+
+
+def uniform_u32(*counters):
+    return hash_combine(*counters)
+
+
+def uniform_float(*counters):
+    """U[0,1) from counters; 24 mantissa bits (reference rng.h UniformFloat)."""
+    return _unit_float(hash_combine(*counters))
+
+
+def uniform_float2(*counters):
+    """Two decorrelated U[0,1) from one counter set."""
+    h = hash_combine(*counters)
+    return _unit_float(h), _unit_float(pcg_hash(h ^ 0x68bc21eb))

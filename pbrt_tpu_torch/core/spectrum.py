@@ -116,6 +116,21 @@ def from_sampled(lambdas, values, n_sub=8):
     return out
 
 
+def value_at_wavelength(s, lam):
+    """Point-evaluate binned spectra s [..., 31] at wavelengths lam (nm)
+    by linear interpolation between bin centres, clamped to the first
+    and last centre (the fork's GetValueAtWavelength, spectrum.h:439-473).
+    """
+    centers = torch.as_tensor(BIN_CENTERS, dtype=s.dtype, device=s.device)
+    lam = torch.clamp(torch.as_tensor(lam, dtype=s.dtype, device=s.device),
+                      centers[0], centers[-1])
+    idx = torch.clamp(torch.searchsorted(centers, lam) - 1, 0,
+                      N_SPECTRAL_SAMPLES - 2)
+    t = (lam - centers[idx]) / (centers[idx + 1] - centers[idx])
+    return ((1 - t) * torch.take_along_dim(s, idx, -1)
+            + t * torch.take_along_dim(s, idx + 1, -1))
+
+
 def _xyz_matrix(s):
     return torch.as_tensor(np.stack([CIE_X, CIE_Y, CIE_Z], -1),
                            dtype=s.dtype, device=s.device)

@@ -107,6 +107,14 @@ def perspective(fov_deg, znear, zfar):
     return Transform(np.diag([inv_tan, inv_tan, 1.0, 1.0]) @ p)
 
 
+def orthographic(znear, zfar):
+    """Orthographic projection (reference: transform.cpp Orthographic)."""
+    m = np.eye(4)
+    m[2, 2] = 1.0 / (zfar - znear)
+    m[2, 3] = -znear / (zfar - znear)
+    return Transform(m)
+
+
 def xform_point(m, p):
     """[..., 3] points through a [4,4] tensor (with the projective divide)."""
     ph = p @ m[:3, :3].T + m[:3, 3]

@@ -21,16 +21,22 @@ from pbrt_tpu_torch.core import device as devmod
 from pbrt_tpu_torch.core import spectrum as spec
 
 FILTER_TABLE_WIDTH = 16
-_RADIUS = {"box": (0.5, 0.5), "gaussian": (2.0, 2.0)}
-FILTER_PARAMS = {"box": (), "gaussian": ("alpha",)}
+_RADIUS = {"box": (0.5, 0.5), "triangle": (2.0, 2.0),
+           "gaussian": (2.0, 2.0), "mitchell": (2.0, 2.0),
+           "sinc": (4.0, 4.0)}
+#: the parameters the filters read (each reads its own; others are ignored)
+FILTER_PARAMS = ("alpha", "B", "C", "tau")
 
 
 def filter_eval(name, x, y, rx, ry, params=None):
-    """Box or Gaussian (parameter `alpha`, default 2) filter at offsets
-    (x, y) (numpy; the other reference filters are not ported yet)."""
+    """The reference's filters (src/filters/{box,triangle,gaussian,
+    mitchell,sinc}.cpp) at offsets (x, y) from the sample (numpy)."""
     params = params or {}
+    ax, ay = np.abs(x), np.abs(y)
     if name == "box":
-        return np.where((np.abs(x) <= rx) & (np.abs(y) <= ry), 1.0, 0.0)
+        return np.where((ax <= rx) & (ay <= ry), 1.0, 0.0)
+    if name == "triangle":
+        return np.maximum(0.0, rx - ax) * np.maximum(0.0, ry - ay)
     if name == "gaussian":
         alpha = params.get("alpha", 2.0)
 
@@ -38,7 +44,32 @@ def filter_eval(name, x, y, rx, ry, params=None):
             return np.maximum(0.0, np.exp(-alpha * d * d)
                               - np.exp(-alpha * r * r))
         return g(x, rx) * g(y, ry)
-    raise NotImplementedError(f"filter {name!r} is not ported yet")
+    if name == "mitchell":
+        B = params.get("B", 1.0 / 3.0)
+        C = params.get("C", 1.0 / 3.0)
+
+        def m1d(v):
+            v = np.abs(2.0 * v)
+            out = np.where(
+                v > 1,
+                ((-B - 6 * C) * v ** 3 + (6 * B + 30 * C) * v * v
+                 + (-12 * B - 48 * C) * v + (8 * B + 24 * C)) * (1.0 / 6.0),
+                ((12 - 9 * B - 6 * C) * v ** 3
+                 + (-18 + 12 * B + 6 * C) * v * v + (6 - 2 * B)) * (1.0 / 6.0))
+            return np.where(v > 2, 0.0, out)
+        return m1d(x / rx) * m1d(y / ry)
+    if name == "sinc":
+        tau = params.get("tau", 3.0)
+
+        def ws(v, r):
+            v = np.abs(v)
+            s = np.where(v < 1e-5, 1.0,
+                         np.sin(np.pi * v) / np.maximum(np.pi * v, 1e-9))
+            lanczos = np.where(v < 1e-5, 1.0, np.sin(np.pi * v / tau)
+                               / np.maximum(np.pi * v / tau, 1e-9))
+            return np.where(v > r, 0.0, s * lanczos)
+        return ws(x, rx) * ws(y, ry)
+    raise ValueError(f"unknown filter {name}")
 
 
 @dataclass
@@ -78,11 +109,11 @@ def make_film(width, height, filter_name="box", radius=None, device=None,
     parameters.  pbrt_boundary: the reference's inclusive pixel set (see
     Film)."""
     if filter_name not in _RADIUS:
-        raise NotImplementedError(f"filter {filter_name!r} is not ported yet")
-    unknown = set(filter_params) - set(FILTER_PARAMS[filter_name])
+        raise ValueError(f"unknown filter {filter_name}")
+    unknown = set(filter_params) - set(FILTER_PARAMS)
     if unknown:
-        raise NotImplementedError(f"{filter_name} filter parameters "
-                                  f"{sorted(unknown)} are not ported")
+        raise NotImplementedError(f"filter parameters {sorted(unknown)} "
+                                  "are not ported")
     device = devmod.resolve(device)
     rx, ry = radius or _RADIUS[filter_name]
     ox = (np.arange(FILTER_TABLE_WIDTH) + 0.5) * rx / FILTER_TABLE_WIDTH

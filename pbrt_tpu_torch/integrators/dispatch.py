@@ -45,12 +45,15 @@ def render_with_integrator(job, camera, film, cfg, spp, max_depth,
     if job.max_sample_luminance < 1e30:
         raise NotImplementedError("maxsampleluminance is not ported")
     trace_fn = None
+    gen = pathmod.generate_fn(camera)
     if kind == "spectralpath":
         trace_fn = spectralpath.make_trace_spectral(
-            num_ca_bands=ip.get("numCABands", 4), camera=camera)
+            num_ca_bands=ip.get("numCABands", 4), camera=camera,
+            generate_rays=gen, width=film.width, height=film.height)
     elif kind == "metadata":
         trace_fn = metadata.make_trace_metadata(ip.get("strategy", "depth"))
     return pathmod.render(job.scene, camera, film, cfg, spp,
                           max_depth=max_depth,
                           max_rays_per_pass=max_rays_per_pass,
-                          count_rays=count_rays, trace_fn=trace_fn)
+                          count_rays=count_rays, trace_fn=trace_fn,
+                          generate_rays=gen)

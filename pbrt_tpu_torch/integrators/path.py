@@ -18,7 +18,7 @@ import inspect
 import numpy as np
 import torch
 
-from pbrt_tpu_torch.cameras import projective
+from pbrt_tpu_torch.cameras import lens, projective
 from pbrt_tpu_torch.core import geometry as geom
 from pbrt_tpu_torch.core import sampling
 from pbrt_tpu_torch.core import spectrum as spec
@@ -168,23 +168,40 @@ def trace_paths(scene: ir.SceneData, ray: geom.Ray, pixel_id, sample_idx,
     return L
 
 
-def camera_rays_for_pixels(camera, W, H, cfg, pixel_id, sample_idx,
-                           generate_rays=projective.generate_rays):
-    """Camera rays for a chunk of pixel ids (int64 tensor of 32-bit words;
-    ids >= W*H are padding) at one sample index.
+def generate_fn(camera):
+    """The ray generator of a camera: the lens stack's or the projective
+    cameras' (the JAX package's dispatch._generate_fn)."""
+    return (lens.generate_rays if isinstance(camera, lens.LensCamera)
+            else projective.generate_rays)
 
-    Returns (ray, weight, pfilm, pid, sidx)."""
-    sidx = torch.full_like(pixel_id, int(sample_idx))
-    valid = pixel_id < W * H
-    pid = torch.where(valid, pixel_id, 0)
+
+def camera_samples(cfg, W, pid, sidx):
+    """The film point (pixel + jitter) [B,2], lens sample [B,2] and time
+    sample [B] of pixel ids pid (< W*H) at sample indices sidx."""
     ix = (pid % W).to(torch.float32)
     iy = (pid // W).to(torch.float32)
     pfilm = torch.stack([ix + sample_dim(cfg, pid, sidx, DIM_PIXEL_X),
                          iy + sample_dim(cfg, pid, sidx, DIM_PIXEL_Y)], -1)
     ulens = torch.stack([sample_dim(cfg, pid, sidx, DIM_LENS_U),
                          sample_dim(cfg, pid, sidx, DIM_LENS_V)], -1)
-    utime = sample_dim(cfg, pid, sidx, DIM_TIME)
-    ray, weight = generate_rays(camera, pfilm, ulens, utime)
+    return pfilm, ulens, sample_dim(cfg, pid, sidx, DIM_TIME)
+
+
+def camera_rays_for_pixels(camera, W, H, cfg, pixel_id, sample_idx,
+                           generate_rays=None):
+    """Camera rays for a chunk of pixel ids (int64 tensor of 32-bit words;
+    ids >= W*H are padding) at one sample index, from generate_rays
+    (default: the camera's, generate_fn).
+
+    Returns (ray, weight, pfilm, pid, sidx)."""
+    if generate_rays is None:
+        generate_rays = generate_fn(camera)
+    sidx = torch.full_like(pixel_id, int(sample_idx))
+    valid = pixel_id < W * H
+    pid = torch.where(valid, pixel_id, 0)
+    pfilm, ulens, utime = camera_samples(cfg, W, pid, sidx)
+    ray, weight = generate_rays(camera, pfilm, ulens, utime, width=W,
+                                height=H)
     weight = torch.where(valid, weight, 0.0)
     # padded lanes: zero-length rays drop out of the intersect queue
     ray = ray.replace(tmax=torch.where(valid, ray.tmax, -1.0))
@@ -192,12 +209,14 @@ def camera_rays_for_pixels(camera, W, H, cfg, pixel_id, sample_idx,
 
 
 def render(scene, camera, film, cfg: SamplerConfig, spp, max_depth=5,
-           max_rays_per_pass=1 << 18, count_rays=False, trace_fn=None):
+           max_rays_per_pass=1 << 18, count_rays=False, trace_fn=None,
+           generate_rays=None):
     """Full render: fixed-shape passes over (sample, pixel chunk); the
     samples of every pass splat into `film` in place.
 
     trace_fn(scene, ray, pixel_id, sample_idx, cfg, max_depth=...) -> L
-    [B,31] traces a pass (default trace_paths).  Returns the film, or
+    [B,31] traces a pass (default trace_paths); generate_rays makes the
+    camera rays (default: the camera's, generate_fn).  Returns the film, or
     (film, rays traced) with count_rays: rays as trace_paths counts them
     with count_rays=True, or None when trace_fn takes no count_rays."""
     H, W = film.height, film.width
@@ -216,7 +235,7 @@ def render(scene, camera, film, cfg: SamplerConfig, spp, max_depth=5,
     for s in range(spp):
         for pixel_ids in id_chunks:
             ray, weight, pfilm, pid, sidx = camera_rays_for_pixels(
-                camera, W, H, cfg, pixel_ids, s)
+                camera, W, H, cfg, pixel_ids, s, generate_rays)
             if counts:
                 L, n = trace_fn(scene, ray, pid, sidx, cfg,
                                 max_depth=max_depth, count_rays=True)

@@ -678,7 +678,8 @@ def camera_rays_ref(camera, W, H, sampler: RefSampler, pixel_id,
                          (pid // W).to(torch.float32) + jy], -1)
     utime = sampler.dim(idx, 2)
     ulens = torch.stack([sampler.dim(idx, 3), sampler.dim(idx, 4)], -1)
-    ray, weight = projective.generate_rays(camera, pfilm, ulens, utime)
+    ray, weight = projective.generate_rays(camera, pfilm, ulens, utime,
+                                           width=W, height=H)
     weight = torch.where(valid, weight, 0.0)
     ray = ray.replace(tmax=torch.where(valid, ray.tmax, -1.0))
     return ray, weight, pfilm, pid, sidx

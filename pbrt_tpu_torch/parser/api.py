@@ -3,8 +3,11 @@ that the ported slice renders; reference: src/core/api.{h,cpp}).
 
 Directives: Identity, Translate, Scale, Rotate, LookAt, Transform,
 ConcatTransform, ActiveTransform, TransformTimes (0 1 only),
-TransformBegin/End, Camera "perspective", Film "image", PixelFilter
-"box"/"gaussian", Sampler, Integrator, Include, WorldBegin/End,
+TransformBegin/End, Camera "perspective"/"orthographic"/"environment"/
+"realistic"/"omni"/"realisticEye" (and its aliases), Film "image",
+PixelFilter "box"/"triangle"/"gaussian"/"mitchell"/"sinc", Sampler (its
+aliases mapped, an unknown kind falling back to halton with a warning,
+as in the JAX package), Integrator, Include, WorldBegin/End,
 AttributeBegin/End, ReverseOrientation, Material "matte"/"plastic"/
 "mirror"/"glass" (constant parameters), AreaLightSource "diffuse", and
 Shape "trianglemesh"/"sphere".  Each keeps the JAX package's semantics,
@@ -23,11 +26,13 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from pbrt_tpu_torch.cameras.lens import LENS_KINDS
 from pbrt_tpu_torch.core import device as devmod
 from pbrt_tpu_torch.core import transform as tfm
 from pbrt_tpu_torch.parser.paramset import ParamSet, parse_param_list
 from pbrt_tpu_torch.parser.tokenizer import (TokenStream, tokenize,
                                              tokenize_file, unquote)
+from pbrt_tpu_torch.samplers.samplers import SAMPLER_TYPES
 from pbrt_tpu_torch.scene import ir
 from pbrt_tpu_torch.scene.ir import MaterialSpec, SceneBuilder
 
@@ -66,13 +71,29 @@ class RenderJob:
     integrator_params: dict
     instance_names: dict
     material_names: dict
+    film_diagonal: float = 35.0     # mm (the lens cameras' film)
     max_sample_luminance: float = 1e30
     # second camera keyframe (camera motion blur); None for a static camera
     cam_to_world1: object = None
 
 
+CAMERA_KINDS = ("perspective", "orthographic", "environment") + LENS_KINDS
+FILTER_KINDS = ("box", "triangle", "gaussian", "mitchell", "sinc")
+
+
 def _unported(what):
     return NotImplementedError(f"{what} is not ported to pbrt_tpu_torch")
+
+
+def _map_sampler(kind):
+    """The JAX package's sampler aliases; an unknown kind renders with
+    halton, with a warning."""
+    kind = {"random": "independent", "lowdiscrepancy": "zerotwosequence",
+            "02sequence": "zerotwosequence"}.get(kind, kind)
+    if kind not in SAMPLER_TYPES:
+        log.warning("unknown sampler %r; using halton", kind)
+        return "halton"
+    return kind
 
 
 def _check_unused(ps: ParamSet, where):
@@ -204,7 +225,7 @@ class PbrtAPI:
     # ------------------------------------------------------------ options
     def _d_Camera(self, s):
         self.camera_kind = unquote(s.next())
-        if self.camera_kind != "perspective":
+        if self.camera_kind not in CAMERA_KINDS:
             raise _unported(f'Camera "{self.camera_kind}"')
         self.camera_params = parse_param_list(s)
         self.camera_to_world = self.ctm[0].inverse()
@@ -220,14 +241,12 @@ class PbrtAPI:
 
     def _d_PixelFilter(self, s):
         self.filter_name = unquote(s.next())
-        if self.filter_name not in ("box", "gaussian"):
+        if self.filter_name not in FILTER_KINDS:
             raise _unported(f'PixelFilter "{self.filter_name}"')
         self.filter_params = parse_param_list(s)
 
     def _d_Sampler(self, s):
         self.sampler_kind = unquote(s.next())
-        if self.sampler_kind != "sobol":
-            raise _unported(f'Sampler "{self.sampler_kind}"')
         self.sampler_params = parse_param_list(s)
 
     def _d_Integrator(self, s):
@@ -364,13 +383,19 @@ class PbrtAPI:
         _check_unused(ps, f"shape {sname}")
 
     # ------------------------------------------------------------ finish
+    def _filename(self, ps, name):
+        """A file parameter, relative to the scene file's directory."""
+        f = ps.find_one_string(name, "")
+        return os.path.join(self.scene_dir, f) if f and not \
+            os.path.isabs(f) else f
+
     def _d_WorldEnd(self, s):
         fp = self.film_params
         crop = fp.find_floats("cropwindow")
-        filt_params = {}
-        if "alpha" in self.filter_params.items:
-            filt_params["alpha"] = self.filter_params.find_one_float(
-                "alpha", 2.0)
+        # every filter parameter the scene gives; each filter reads its own
+        filt_params = {k: self.filter_params.find_one_float(k, None)
+                       for k in ("alpha", "B", "C", "tau")
+                       if k in self.filter_params.items}
         xw = self.filter_params.find_one_float("xwidth", -1.0)
         yw = self.filter_params.find_one_float("ywidth", -1.0)
         if xw > 0 or yw > 0:
@@ -388,19 +413,26 @@ class PbrtAPI:
                 "focaldistance": cp.find_one_float("focaldistance", 1e6),
                 "shutteropen": cp.find_one_float("shutteropen", 0.0),
                 "shutterclose": cp.find_one_float("shutterclose", 1.0),
-                "screenwindow": None if sw is None else tuple(sw)},
+                "screenwindow": None if sw is None else tuple(sw),
+                # the lens cameras' keys, exactly the JAX parser's
+                "lensfile": self._filename(cp, "lensfile"),
+                "aperturediameter": cp.find_one_float("aperturediameter",
+                                                      1.0),
+                "filmdistance": cp.find_one_float("filmdistance", 70.0),
+                "filmdiag": cp.find_one_float("filmdiag", 35.0)},
             cam_to_world=self.camera_to_world,
             cam_to_world1=self.camera_to_world1,
             film_width=fp.find_one_int("xresolution", 1280),
             film_height=fp.find_one_int("yresolution", 720),
             film_filename=fp.find_one_string("filename", "pbrt.exr"),
+            film_diagonal=fp.find_one_float("diagonal", 35.0),
             film_scale=fp.find_one_float("scale", 1.0),
             spectral_flag=fp.find_one_bool("spectralFlag", True),
             max_sample_luminance=fp.find_one_float("maxsampleluminance",
                                                    1e30),
             crop_window=(0.0, 1.0, 0.0, 1.0) if crop is None else tuple(crop),
             filter_name=self.filter_name, filter_params=filt_params,
-            sampler_kind=self.sampler_kind,
+            sampler_kind=_map_sampler(self.sampler_kind),
             spp=self.sampler_params.find_one_int("pixelsamples", 16),
             integrator_kind=self.integrator_kind,
             integrator_params={

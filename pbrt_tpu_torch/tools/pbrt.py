@@ -6,8 +6,10 @@ src/main/pbrt.cpp).
         [--sampler refsobol]
 
 Parses the scene (parser/api.py lists the ported directives; the others
-raise NotImplementedError), builds it on the first CUDA card, or on the
-CPU with --cpu only, renders it with the scene's integrator (path,
+raise NotImplementedError), builds it and its camera (perspective,
+orthographic, environment, or the lens cameras realistic, omni and
+realisticEye) on the first CUDA card, or on the CPU with --cpu only,
+renders it with the scene's sampler and integrator (path,
 spectralpath or metadata; `--sampler refsobol`: the matched-RNG parity
 integrator, integrators/refpath.py), and writes the
 RGB image (EXR or PNG by extension, else PNG), the ISET spectral
@@ -27,6 +29,7 @@ import time
 import numpy as np
 import torch
 
+from pbrt_tpu_torch.cameras import lens as lenscam
 from pbrt_tpu_torch.cameras import projective
 from pbrt_tpu_torch.core import device as devmod
 from pbrt_tpu_torch.film import film as filmmod
@@ -37,9 +40,25 @@ from pbrt_tpu_torch.samplers.samplers import SamplerConfig
 
 
 def build_camera(job, width, height, device=None):
-    """The job's perspective camera (thin lens, screen window and camera
-    motion included) on `device`."""
+    """The job's camera on `device`: a lens camera (realistic, omni,
+    realisticEye), orthographic, environment or perspective (thin lens,
+    screen window and camera motion included)."""
     cp = job.camera_params
+    kind = job.camera_kind
+    if kind in lenscam.LENS_KINDS:
+        # a broken lens description is a scene error, not something to
+        # paper over with a perspective render (the reference Error()s
+        # out, api.cpp MakeCamera)
+        return lenscam.make_lens_camera(job, width, height, device)
+    if kind == "orthographic":
+        return projective.make_orthographic(
+            job.cam_to_world, width, height,
+            lens_radius=cp["lensradius"], focal_distance=cp["focaldistance"],
+            screen=cp["screenwindow"], shutter_open=cp["shutteropen"],
+            shutter_close=cp["shutterclose"], device=device)
+    if kind == "environment":
+        return projective.make_environment(job.cam_to_world, width, height,
+                                           device=device)
     return projective.make_perspective(
         job.cam_to_world, cp["fov"], width, height,
         lens_radius=cp["lensradius"], focal_distance=cp["focaldistance"],
@@ -60,10 +79,13 @@ def run_job(job, spp=None, max_depth=None, max_rays_per_pass=1 << 18,
     pixel by pixel with the reference binary at equal spp)."""
     if sampler_override not in (None, "refsobol"):
         raise ValueError(f"unknown sampler override {sampler_override!r}")
-    if sampler_override is None and job.sampler_kind != "sobol":
+    if sampler_override == "refsobol" and \
+            job.camera_kind in lenscam.LENS_KINDS:
+        # the JAX CLI hands the matched-RNG integrator the projective
+        # generator only (pbrt_tpu/tools/pbrt.py:185)
         raise NotImplementedError(
-            f'Sampler "{job.sampler_kind}" is not ported to pbrt_tpu_torch '
-            "(only sobol)")
+            f'the matched-RNG integrator with Camera "{job.camera_kind}" '
+            "is not ported")
     device = job.scene.dense_w.device
     W, H = job.film_width, job.film_height
     camera = build_camera(job, W, H, device)
@@ -72,7 +94,7 @@ def run_job(job, spp=None, max_depth=None, max_rays_per_pass=1 << 18,
     film = filmmod.make_film(W, H, job.filter_name, radius=radius,
                              device=device, **fp)
     spp = spp or job.spp
-    cfg = SamplerConfig(kind="sobol", seed=0, spp=spp)
+    cfg = SamplerConfig(kind=job.sampler_kind, seed=0, spp=spp)
     max_depth = max_depth or job.integrator_params["maxdepth"]
     if sampler_override == "refsobol":
         film = refpath.render_ref(

@@ -49,7 +49,7 @@ def main(argv=None):
     job = parse_scene(args.scene, device=device)
     W, H = job.film_width, job.film_height
     camera = cli.build_camera(job, W, H, device)
-    cfg = SamplerConfig("sobol", 0, job.spp)
+    cfg = SamplerConfig(job.sampler_kind, 0, job.spp)
     depth = args.maxdepth or job.integrator_params["maxdepth"]
     if args.sampler == "refsobol":
         ids = torch.arange(min(args.rays, W * H), device=device)

@@ -92,8 +92,10 @@ def test_sobol_sample_dim_bit_exact(seed):
 
 
 def test_unported_sampler_raises():
-    with pytest.raises(NotImplementedError):
-        tsamp.sample_dim(tsamp.SamplerConfig("halton", 0, 4),
+    """Every sampler kind of pbrt_tpu is ported (test_torch_samplers.py);
+    a kind that is none of them raises as pbrt_tpu's sample_dim does."""
+    with pytest.raises(ValueError, match="unknown sampler pmj02bn"):
+        tsamp.sample_dim(tsamp.SamplerConfig("pmj02bn", 0, 4),
                          torch.zeros(4, dtype=torch.int64),
                          torch.zeros(4, dtype=torch.int64), 0)
 

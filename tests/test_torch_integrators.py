@@ -183,7 +183,22 @@ def test_spectralpath_matches_jax(cornell):
     assert torch.equal(one.weighted, plain.weighted)
 
 
-def test_spectralpath_waits_for_lens_cameras():
+def test_spectralpath_waits_for_lens_cameras(tmp_path):
+    """Lens cameras are ported: spectralpath regenerates their rays per
+    band (tests/test_torch_lens.py holds the render against pbrt_tpu's);
+    it needs the film's size for that, and a camera of no ported kind
+    still raises."""
+    from pbrt_tpu_torch.cameras import lens as tlens
+    from pbrt_tpu_torch.core import transform as ttfm
+    dat = tmp_path / "singlet.dat"
+    dat.write_text("50 4 1.5 20\n-50 0 1 20\n")
+    cam = tlens.build_lens_camera(
+        "realistic", ttfm.Transform(), tlens.read_dat_lens(str(dat)),
+        focus_distance=1e6, device=DEV)
+    assert callable(tspec.make_trace_spectral(4, camera=cam, width=8,
+                                              height=8))
+    with pytest.raises(ValueError, match="width and height"):
+        tspec.make_trace_spectral(4, camera=cam)
     with pytest.raises(NotImplementedError, match="lens"):
         tspec.make_trace_spectral(4, camera=object())
 

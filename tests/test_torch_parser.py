@@ -180,9 +180,9 @@ def test_unported_world_directives_raise(snippet, name):
 
 
 @pytest.mark.parametrize("snippet,name", [
-    ('Camera "orthographic"', "orthographic"),
-    ('Sampler "halton"', "halton"),
-    ('PixelFilter "mitchell"', "mitchell"),
+    ('Camera "fisheye"', "fisheye"),
+    ('Accelerator "kdtree"', "Accelerator"),
+    ('PixelFilter "lanczos"', "lanczos"),
     ('Film "rgb"', "rgb"),
     ("TransformTimes 0 2", "TransformTimes"),
 ])
