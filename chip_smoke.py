@@ -82,6 +82,29 @@ pass:
   and under the triangle, mitchell and sinc filters, each mean within
   2% of the Sobol' / Gaussian render's.
 
+Phases 18-19 drive the surface materials, textures, bump maps and ray
+differentials:
+
+- 18: the CLI's `run_job` on pbrt_tpu_torch/scenes/cornell_materials.pbrt
+  (cornell_bench's box and camera at 256x256, Sobol, 4 spp, depth 5; an
+  imagemap floor, a checkerboard wall, metal, uber at opacity 0.5,
+  substrate, translucent, retroreflective, disney, rough glass, a mix of
+  two named materials, a Beckmann plastic and a wrinkled bump map),
+  counted as phase 5 is (K1 and the static K2 six times a pass): ms a
+  pass, launches and device ms of one pass, the share of first-hit lanes
+  whose uv derivatives are nonzero (the camera's ray differentials reach
+  the EWA lookup); the imagemap's table entry must hold floor.png and
+  not the parser's 0.5 fallback; a 32x32 2 spp render on the GPU against
+  the CPU at phase 8's limits.
+- 19: each ported BSDF family, Beckmann where it applies: eval_f, pdf_f
+  and sample_f at B = 2^16 on the card against the CPU (the tolerances
+  of tests/test_torch_materials.py); then at B = 2^20 on the card alone,
+  sample_f's f and pdf against eval_f and pdf_f at the sampled
+  directions (tests/test_bsdfs.py::test_sample_eval_pdf_consistency's
+  limits) and the albedo E[f cos / pdf] of the non-delta samples against
+  a uniform-sphere estimate of the integral of f |cos| (within 5
+  standard errors).
+
 Every lens render is finite, non-negative and non-black.  Mitchell's
 and sinc's negative lobes make some developed pixels negative where the
 image has a sharp edge (the reference clamps them when it writes the
@@ -131,11 +154,19 @@ from pbrt_tpu_torch.film import io as filmio  # noqa: E402
 from pbrt_tpu_torch.integrators import path  # noqa: E402
 from pbrt_tpu_torch.integrators import refpath  # noqa: E402
 from pbrt_tpu_torch.integrators import spectralpath  # noqa: E402
+from pbrt_tpu_torch.materials import bsdf  # noqa: E402
 from pbrt_tpu_torch.models import flagship  # noqa: E402
 from pbrt_tpu_torch.ops import cuda_kernels  # noqa: E402
 from pbrt_tpu_torch.ops import dense_intersect as dense  # noqa: E402
+from pbrt_tpu_torch.ops import intersect as isect  # noqa: E402
 from pbrt_tpu_torch.parser.api import parse_scene  # noqa: E402
 from pbrt_tpu_torch.samplers.samplers import SamplerConfig  # noqa: E402
+from pbrt_tpu_torch.scene.ir import (  # noqa: E402
+    MAT_DISNEY, MAT_GLASS, MAT_MATTE, MAT_METAL, MAT_MIRROR, MAT_NONE,
+    MAT_PLASTIC, MAT_RETRO, MAT_ROUGHGLASS, MAT_SUBSTRATE, MAT_TRANSLUCENT,
+    MAT_UBER)
+from pbrt_tpu_torch.textures.textures import RES as TEX_RES  # noqa: E402
+from pbrt_tpu_torch.textures.textures import TEX_IMAGE  # noqa: E402
 from pbrt_tpu_torch.tools import ablate_k2  # noqa: E402
 from pbrt_tpu_torch.tools import dissect_intersect  # noqa: E402
 from pbrt_tpu_torch.tools import dump_tile  # noqa: E402
@@ -163,6 +194,8 @@ DGAUSS = os.path.join(LENS_DIR, "dgauss.50mm.dat")
 EYE_SPEC = os.path.join(LENS_DIR, "eye5.txt")
 LENS_SCENE = os.path.join(ROOT, "pbrt_tpu_torch", "scenes",
                           "cornell_lens.pbrt")
+MATS_SCENE = os.path.join(ROOT, "pbrt_tpu_torch", "scenes",
+                          "cornell_materials.pbrt")
 CORNELL_LOOK = ([2.5, -4.5, 2.5], [2.5, 2.5, 2.5], [0, 0, 1])
 # the eye's media on the film side of each surface (cornea, aqueous,
 # lens, vitreous; tests/test_lens.py)
@@ -576,17 +609,23 @@ def render_32(camera_fn, kind="sobol", trace=None):
 
 def pass_profile(scene, camera, cfg, trace=None):
     """One 65,536-ray pass (sample 0 of the first 65,536 pixels: camera
-    rays, then trace(scene, ...), default trace_paths) under
+    rays, then trace(scene, ...), default trace_paths, with the keywords
+    and ray differentials `path.render` would give it) under
     torch.profiler, after the timed render of the same cell warmed it:
     (device ms, kernel launches) or None if the trace held no device
     time."""
     ids = torch.arange(RAYS_PER_PASS, device=scene.dense_w.device)
     trace = trace or path.trace_paths
+    opts, use_rd = path.trace_options(scene, camera, trace)
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         ray, _, _, pid, sidx = path.camera_rays_for_pixels(
             camera, W, H, cfg, ids, 0)
-        trace(scene, ray, pid, sidx, cfg, max_depth=DEPTH)
+        if use_rd:
+            opts["ray_diff"] = path.camera_ray_differentials(
+                camera, W, H, cfg, pid, sidx, path.generate_fn(camera),
+                cfg.spp)
+        trace(scene, ray, pid, sidx, cfg, max_depth=DEPTH, **opts)
         torch.cuda.synchronize()
     ev = [e for e in prof.key_averages()
           if e.device_type == DeviceType.CUDA and kw.device_us(e) > 0]
@@ -704,6 +743,280 @@ def phase10(scene, card):
         "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
         "workload": f"tiny600 tile 0, picks {TINY_PICKS}"})
     return {"counts": counts, "rows": rows}
+
+
+def materials_32(dev):
+    job = parse_scene(MATS_SCENE, device=dev)
+    job.film_width = job.film_height = 32
+    return cli.run_job(job, spp=2, max_depth=DEPTH)[0]
+
+
+def bsdf_params(B, t, dev, rough=0.2, eta=1.5, sigma=0.0, opacity=1.0,
+                beckmann=False, disney=None):
+    """A MaterialParams of B lanes of family t with the constant
+    parameters of tests/test_bsdfs.py::_params (kd 0.6, ks 0.4, kr = kt =
+    1, alpha 0.2, eta 1.5, conductor eta 0.2 and k 3), that family alone
+    compiled."""
+    def full(v, shape=()):
+        return torch.full((B,) + shape, float(v), device=dev)
+    sp = dict(kd=0.6, ks=0.4, kr=1.0, kt=1.0)
+    return bsdf.MaterialParams(
+        type=torch.full((B,), t, dtype=torch.int64, device=dev),
+        **{k: full(v, (31,)) for k, v in sp.items()},
+        rough_u=full(rough), rough_v=full(rough), eta=full(eta),
+        sigma=full(sigma), eta_spec=full(0.2, (31,)),
+        k_spec=full(3.0, (31,)), opacity=full(opacity, (31,)),
+        beckmann=(torch.ones(B, dtype=torch.bool, device=dev) if beckmann
+                  else None),
+        disney=(torch.tensor(disney or [0.0] * 8, device=dev).expand(
+            B, 8).contiguous() if t == MAT_DISNEY else None),
+        families=(t,))
+
+
+# phase 19's card against CPU tolerance: the card contracts multiply-adds
+# and its transcendentals differ from the CPU's by ulps, which grow where
+# a formula cancels (z = sqrt(1 - r^2) at the horizon, 1 - F near total
+# internal reflection)
+GPU_RTOL = 1e-3
+GPU_ATOL = 1e-4
+# Beckmann's sampled directions: the card's erfinv differs from the CPU's
+# by ulps, and the 10 Newton steps on the erf-based CDF carry that into
+# the slopes: at most 1.9e-3 on all but 1-3 lanes in 65,536, those up to
+# 3.2e-2 (PERF.md)
+BECKMANN_WI_TOL = 5e-3
+BECKMANN_WI_SHARE = 0.9999
+
+
+def _bsdf_close(a, b, rtol, mask=None, atol=2e-6):
+    """max |a - b| over rtol |b| + atol times b's largest value, on mask."""
+    atol = atol * float(b.abs().max().clamp(min=1e-30))
+    if mask is not None:
+        a, b = a[mask], b[mask]
+    if a.numel() == 0:
+        return 0.0
+    return float(((a - b).abs() / (rtol * b.abs() + atol)).max())
+
+
+def phase18(run_path, card, device):
+    """The materials scene through the CLI's run_job (module docstring)."""
+    t0 = time.perf_counter()
+    job = parse_scene(MATS_SCENE, device=device)
+    parse_s = time.perf_counter() - t0
+    sc = job.scene
+    check(job.film_width == W and job.film_height == H and job.spp == SPP
+          and job.sampler_kind == "sobol"
+          and job.integrator_params["maxdepth"] == DEPTH,
+          "cornell_materials.pbrt settings")
+    # the imagemap really loaded: its table entry is the PNG, not the 0.5
+    # constant the parser falls back to
+    tt = sc.tex_type.tolist()
+    check(TEX_IMAGE in tt[1:], "cornell_materials: no image texture")
+    tid = tt.index(TEX_IMAGE, 1)
+    img = sc.tex_images[tid][:TEX_RES]
+    check(float(img.std()) > 0.05 and bool((sc.mat_kd_tex == tid).any()),
+          "cornell_materials: the imagemap did not load")
+    png = filmio.read_image(os.path.join(os.path.dirname(MATS_SCENE),
+                                         "textures", "floor.png"))
+    check(abs(float(img.mean()) - float(png.mean())) < 0.02,
+          "cornell_materials: the image table does not hold floor.png")
+    camera = cli.build_camera(job, W, H, device)
+    cfg = SamplerConfig("sobol", 0, SPP)
+    # the first hits' uv derivatives: ray differentials reach EWA
+    ids = torch.arange(RAYS_PER_PASS, device=device)
+    ray, _, _, pid, sidx = path.camera_rays_for_pixels(camera, W, H, cfg,
+                                                       ids, 0)
+    rd = path.camera_ray_differentials(camera, W, H, cfg, pid, sidx,
+                                       path.generate_fn(camera), SPP)
+    hit = isect.intersect_full(sc, ray, presorted=True, ray_diff=rd)
+    share = float(((hit.duv != 0).any(-1) & hit.valid).sum()
+                  / hit.valid.sum())
+    check(share > 0.5, f"first-hit lanes with duv: {share}")
+    _, use_rd = path.trace_options(sc, camera, path.trace_paths)
+    check(use_rd, "render passes no ray differentials")
+    cli.run_job(job, spp=1, max_depth=DEPTH)
+    torch.cuda.synchronize()
+    passes = SPP * (-(-W * H // (1 << 18)))
+    t0 = time.perf_counter()
+    (film, _), counts = run_path(
+        "materials render", lambda: cli.run_job(job, spp=SPP,
+                                                max_depth=DEPTH),
+        {"dense_queue": (DEPTH + 1) * passes, "dense_queue_cull": 0,
+         "dense_loop": (DEPTH + 1) * passes, "dense_loop_motion": 0}, sc)
+    ms = (time.perf_counter() - t0) * 1e3 / passes
+    m_img = filmmod.develop_spectral(film)
+    check_image(m_img, "materials render")
+    prof = pass_profile(sc, camera, cfg)
+    print(f"phase 18 CLI cornell_materials.pbrt {W}x{H} {SPP} spp depth "
+          f"{DEPTH} (families {sc.mat_families}, texture kinds "
+          f"{sc.tex_kinds}, bump {sc.has_bump}, mix {sc.has_mix}, Beckmann "
+          f"{sc.has_beckmann}): parse + build {parse_s:.2f} s, "
+          f"{ms:.2f} ms/pass, image mean {m_img.mean().item():.6f}, "
+          f"first-hit lanes with nonzero duv {share:.4f}, imagemap "
+          f"{tuple(img.shape)} std {float(img.std()):.4f}, {_prof(prof)}, "
+          f"launches {counts} on {card}")
+    compare_cpu([("materials", materials_32)])
+
+
+# phase 19: tests/test_bsdfs.py::test_sample_eval_pdf_consistency's cases
+# (its Sw exit lobe is not ported), uber at opacity 0.5, the delta
+# families, and Beckmann where a family takes it
+BSDF_CASES = (
+    ("matte", MAT_MATTE, {}),
+    ("matte sigma 20", MAT_MATTE, {"sigma": 20.0}),
+    ("plastic", MAT_PLASTIC, {}),
+    ("metal", MAT_METAL, {}),
+    ("substrate", MAT_SUBSTRATE, {}),
+    ("translucent", MAT_TRANSLUCENT, {}),
+    ("retroreflective", MAT_RETRO, {}),
+    ("roughglass 0.3", MAT_ROUGHGLASS, {"rough": 0.3}),
+    ("disney", MAT_DISNEY, {}),
+    ("disney metallic", MAT_DISNEY,
+     {"disney": [1.0, 0.0, 0.0, 0.5, 0.0, 1.0, 0.0, 0.0]}),
+    ("disney sheen clearcoat", MAT_DISNEY,
+     {"disney": [0.0, 0.5, 1.0, 0.5, 1.0, 0.8, 0.0, 0.0]}),
+    ("disney specTrans", MAT_DISNEY,
+     {"rough": 0.3, "disney": [0.0, 0.0, 0.0, 0.5, 0.0, 1.0, 0.9, 0.0]}),
+    ("uber opacity 0.5", MAT_UBER, {"opacity": 0.5}),
+    ("mirror", MAT_MIRROR, {}),
+    ("glass", MAT_GLASS, {}),
+    ("none", MAT_NONE, {}),
+    ("plastic beckmann", MAT_PLASTIC, {"beckmann": True}),
+    ("metal beckmann", MAT_METAL, {"beckmann": True}),
+    ("uber beckmann", MAT_UBER, {"opacity": 0.5, "beckmann": True}),
+    ("roughglass beckmann", MAT_ROUGHGLASS, {"rough": 0.3,
+                                             "beckmann": True}),
+)
+BSDF_B_CPU = 1 << 16
+BSDF_B = 1 << 20
+WO_FIXED = (0.3, -0.2, 0.93)      # tests/test_bsdfs.py's WO
+
+
+def phase19(card, dev, ref="cpu"):
+    """Each family's eval_f / pdf_f / sample_f on the card against the
+    CPU at B = 2^16 (random wo, wi, uniforms), then at B = 2^20 on the
+    card alone: sample_f's f and pdf against eval_f / pdf_f at the
+    sampled directions (rtol 1e-4, atol 1e-6, > half the lanes with pdf >
+    1e-6: tests/test_bsdfs.py's limits), and the albedo E[f cos / pdf] of
+    its non-delta samples against a uniform-sphere estimate of the
+    integral of f |cos| (within 5 standard errors)."""
+    g = torch.Generator(device="cpu").manual_seed(19)
+    B = BSDF_B_CPU
+
+    def unit(n):
+        v = torch.randn(n, 3, generator=g)
+        return v / v.norm(dim=-1, keepdim=True)
+    wo, wi, u = unit(B), unit(B), torch.rand(3, B, generator=g)
+    worst, bad = {}, []
+    t0 = time.perf_counter()
+    for name, t, opts in BSDF_CASES:
+        out = {}
+        for d in (dev, ref):
+            p = bsdf_params(B, t, d, **opts)
+            a, b, uu = wo.to(d), wi.to(d), u.to(d)
+            out[d] = ((bsdf.eval_f(p, a, b), bsdf.pdf_f(p, a, b))
+                      + tuple(bsdf.sample_f(p, a, uu[0], uu[1], uu[2])))
+        ge, gp, gwi, gf, gpdf, gspec, gtr, geta = (x.cpu()
+                                                   for x in out[dev])
+        ce, cp, cwi, cf, cpdf, cspec, ctr, ceta = (x.cpu()
+                                                   for x in out[ref])
+        # the card's sampled f and pdf against the CPU's eval_f / pdf_f
+        # at the card's own directions (non-delta lanes), so that a
+        # direction an ulp apart on a steep lobe does not count twice;
+        # delta lanes against the CPU's sample_f
+        pc = bsdf_params(B, t, ref, **opts)
+        ce_s, cp_s = bsdf.eval_f(pc, wo, gwi), bsdf.pdf_f(pc, wo, gwi)
+        beck = opts.get("beckmann", False)
+        same = (gtr == ctr) & ((gwi - cwi).abs().amax(-1) < 5e-2)
+        peak = torch.zeros_like(same)
+        if t == MAT_DISNEY:
+            # the clearcoat's GTR1 cancellation (tests/test_torch_
+            # materials.py): held to 0.25 within 2e-2 rad of the normal
+            wh = wo + gwi
+            wh = wh / wh.norm(dim=-1, keepdim=True)
+            peak = wh[:, 2].abs() > float(np.cos(2e-2))
+        ns = ~gspec
+        ratios = {
+            "f": _bsdf_close(ge, ce, GPU_RTOL, atol=GPU_ATOL),
+            "pdf": _bsdf_close(gp, cp, GPU_RTOL, atol=GPU_ATOL),
+            "sampled f": max(
+                _bsdf_close(gf, ce_s, GPU_RTOL, ns & ~peak, GPU_ATOL),
+                _bsdf_close(gf, ce_s, 0.25, ns & peak, GPU_ATOL),
+                _bsdf_close(gf, cf, GPU_RTOL, gspec & same, GPU_ATOL)),
+            "sampled pdf": max(
+                _bsdf_close(gpdf, cp_s, GPU_RTOL, ns & ~peak, GPU_ATOL),
+                _bsdf_close(gpdf, cp_s, 0.25, ns & peak, GPU_ATOL),
+                _bsdf_close(gpdf, cpdf, GPU_RTOL, gspec & same, GPU_ATOL)),
+            "eta_fac": _bsdf_close(geta, ceta, 1e-6, same, 0.0)}
+        agree = float(same.float().mean())
+        spec_eq = bool(torch.equal(gspec, cspec))
+        dwi = (gwi - cwi).abs().amax(-1)[same]
+        wi_err = float(dwi.max())
+        # GGX: every lane within 1e-4; Beckmann: a share (the erfinv
+        # tails), the rest within the 5e-2 of `same`
+        wi_ok = (float((dwi <= BECKMANN_WI_TOL).float().mean())
+                 >= BECKMANN_WI_SHARE if beck else wi_err <= 1e-4)
+        worst[name] = (max(ratios.values()), agree, wi_err)
+        if not (max(ratios.values()) <= 1.0 and agree >= 0.999 and spec_eq
+                and wi_ok):
+            bad.append(f"{name}: error / tolerance {ratios}, same choice "
+                       f"{agree}, specular flags equal {spec_eq}, wi "
+                       f"{wi_err}")
+    cpu_s = time.perf_counter() - t0
+    print(f"phase 19 eval_f / pdf_f / sample_f GPU vs CPU at B = {B} "
+          f"({len(BSDF_CASES)} cases, {cpu_s:.1f} s; f and pdf within "
+          f"{GPU_RTOL} relative or {GPU_ATOL} of the batch's largest, "
+          "sampled f and pdf against the CPU's at the card's directions, "
+          f"sampled wi within 1e-4 (Beckmann: {BECKMANN_WI_SHARE} of the "
+          f"lanes within {BECKMANN_WI_TOL})): worst "
+          "error / "
+          "tolerance, lanes with the same discrete choice, sampled wi "
+          "error: " + "; ".join(f"{k} {v[0]:.3f} {v[1]:.5f} {v[2]:.1e}"
+                                for k, v in worst.items()))
+    check(not bad, "phase 19 GPU vs CPU: " + " | ".join(bad))
+
+    B = BSDF_B
+    wo = torch.tensor(WO_FIXED, device=dev)
+    wo = (wo / wo.norm()).expand(B, 3).contiguous()
+    gd = torch.Generator(device=dev).manual_seed(20)
+    lines, bad = [], []
+    for name, t, opts in BSDF_CASES:
+        p = bsdf_params(B, t, dev, **opts)
+        u = torch.rand(3, B, generator=gd, device=dev)
+        wi, f, pdf, spec, _, _ = bsdf.sample_f(p, wo, u[0], u[1], u[2])
+        ok = pdf > 1e-6
+        f2, p2 = bsdf.eval_f(p, wo, wi), bsdf.pdf_f(p, wo, wi)
+        m = ok & ~spec
+        cons = (bool(((f[m] - f2[m]).abs()
+                      <= 1e-6 + 1e-4 * f2[m].abs()).all())
+                and bool(((pdf[m] - p2[m]).abs()
+                          <= 1e-6 + 1e-4 * p2[m].abs()).all()))
+        okf = float(ok.float().mean())
+        if not cons or okf <= 0.5:
+            bad.append(f"{name}: sample_f's f / pdf against eval_f / pdf_f "
+                       f"{cons}, pdf > 1e-6 on {okf} of the lanes")
+        if not bool(m.any()):
+            lines.append(f"{name} delta only")
+            continue
+        est = torch.where(m, f[:, 15] * wi[:, 2].abs()
+                          / pdf.clamp(min=1e-6), 0.0)
+        uu = torch.rand(2, B, generator=gd, device=dev)
+        z = 1.0 - 2.0 * uu[0]
+        rr = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+        phi = 2.0 * np.pi * uu[1]
+        wu = torch.stack([rr * torch.cos(phi), rr * torch.sin(phi), z], -1)
+        gu = bsdf.eval_f(p, wo, wu)[:, 15] * z.abs() * (4.0 * np.pi)
+        e_is, e_u = float(est.mean()), float(gu.mean())
+        se = float(np.sqrt(float(est.var()) / B + float(gu.var()) / B))
+        zs = (e_is - e_u) / max(se, 1e-12)
+        lines.append(f"{name} {e_is:.5f} vs {e_u:.5f} (z {zs:+.2f})")
+        if abs(zs) >= 5.0:
+            bad.append(f"{name}: albedo {e_is} by sample_f against {e_u} by "
+                       f"uniform sampling (z {zs})")
+    print(f"phase 19 at B = {B} on the card: sample_f against eval_f / "
+          "pdf_f consistent, pdf > 1e-6 on over half the lanes: "
+          f"{not bad}; albedo by sample_f vs uniform sphere: "
+          + "; ".join(lines) + f" on {card}")
+    check(not bad, "phase 19 on the card: " + " | ".join(bad))
 
 
 def lens_phases(scene, pcam, cfg, run_path, card, tmpdir):
@@ -1114,6 +1427,14 @@ def main():
     tmpdir = tempfile.TemporaryDirectory()
     lens_phases(scene, camera, cfg, run_path, card, tmpdir.name)
     tmpdir.cleanup()
+
+    # --- phases 18-19: the materials, textures and bump maps ---
+    t0 = time.perf_counter()
+    phase18(run_path, card, device)
+    t18 = time.perf_counter() - t0
+    phase19(card, device)
+    print(f"phases 18-19 materials pass; wall s 18 {t18:.1f}, 19 "
+          f"{time.perf_counter() - t0 - t18:.1f}")
 
     rows = []
     for k, (src, rep) in KERNELS.items():

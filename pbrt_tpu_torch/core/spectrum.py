@@ -100,6 +100,38 @@ def from_rgb_np(rgb, kind="reflectance"):
     return np.maximum(s, 0.0).astype(np.float32)
 
 
+def from_rgb(rgb, kind="reflectance"):
+    """Device-side [..., 3] RGB -> [..., 31] spectrum: from_rgb_np's
+    decomposition on tensors (the JAX package's spectrum.from_rgb)."""
+    if kind == "display":
+        prim = torch.as_tensor(_DISPLAY_PRIM, dtype=rgb.dtype,
+                               device=rgb.device)
+        return torch.clamp(rgb @ prim, min=0.0)
+    B = {k: torch.as_tensor(v, dtype=rgb.dtype, device=rgb.device)
+         for k, v in (_REFL_BASES if kind == "reflectance"
+                      else _ILLUM_BASES).items()}
+    r, g, b = rgb[..., 0:1], rgb[..., 1:2], rgb[..., 2:3]
+    s_r_gb = torch.where(
+        g <= b, r * B["white"] + (g - r) * B["cyan"] + (b - g) * B["blue"],
+        r * B["white"] + (b - r) * B["cyan"] + (g - b) * B["green"])
+    s_g_rb = torch.where(
+        r <= b, g * B["white"] + (r - g) * B["magenta"] + (b - r) * B["blue"],
+        g * B["white"] + (b - g) * B["magenta"] + (r - b) * B["red"])
+    s_b_rg = torch.where(
+        r <= g, b * B["white"] + (r - b) * B["yellow"] + (g - r) * B["green"],
+        b * B["white"] + (g - b) * B["yellow"] + (r - g) * B["red"])
+    s = torch.where((r <= g) & (r <= b), s_r_gb,
+                    torch.where((g <= r) & (g <= b), s_g_rb, s_b_rg))
+    return torch.clamp(s, min=0.0)
+
+
+def to_rgb_np(s):
+    """Host-side [..., 31] spectrum -> linear RGB (float32)."""
+    w = np.stack([CIE_X, CIE_Y, CIE_Z], -1)
+    xyz = np.asarray(s, np.float64) @ w * (BIN_WIDTH / CIE_Y_INTEGRAL)
+    return (xyz @ XYZ_TO_RGB.T).astype(np.float32)
+
+
 def from_sampled(lambdas, values, n_sub=8):
     """Piecewise-linear SPD (lambda, value) samples -> binned [31] spectrum:
     the interpolant averaged over each bin, constant beyond the sampled

@@ -21,11 +21,12 @@ STRATEGIES = ("depth", "material", "materialId", "mesh", "meshId",
 
 def make_trace_metadata(strategy="depth"):
     """A trace function for path.render that returns the metadata [B,31]
-    of each ray's first hit (0 where it misses)."""
+    of each ray's first hit (0 where it misses); other keywords are
+    ignored."""
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown metadata strategy {strategy!r}")
 
-    def trace(scene, ray, pixel_id, sample_idx, cfg, max_depth=0):
+    def trace(scene, ray, pixel_id, sample_idx, cfg, max_depth=0, **kw):
         hit = isect.intersect_full(scene, ray)
         NS = spec.N_SPECTRAL_SAMPLES
         if strategy in ("coordinates", "world"):

@@ -6,9 +6,18 @@ lanes with dead lanes masked.  The NEE shadow rays of a bounce are traced
 together with the next bounce's closest-hit rays in one batch
 (`trace_pair`).  Russian roulette follows path.cpp:185-191.
 
-Not ported yet: subsurface (BSSRDF probe), hair, ray differentials,
-environment lights, the "all" / "power" / "spatial" light strategies and
-the primary-sample-space `uniforms` hook.
+Textures: the first hit's texture lookups use the camera's ray
+differentials (EWA filtering) when `render` passes them, which it does
+for projective cameras in scenes with textures; the differentials follow
+specular bounces, and every other lookup takes the ray-cone footprint
+`tex_spread` (the camera's pixel spread, widened to 0.2 after the first
+bounce).  Bump maps perturb the shading normal before the shading frame
+is built, and a mix material picks its component with its own sampler
+dimension.
+
+Not ported yet: subsurface (BSSRDF probe), hair, environment lights,
+the "all" / "power" / "spatial" light strategies and the
+primary-sample-space `uniforms` hook.
 """
 
 from __future__ import annotations
@@ -46,14 +55,17 @@ def _bdim(bounce, k):
 
 def trace_paths(scene: ir.SceneData, ray: geom.Ray, pixel_id, sample_idx,
                 cfg: SamplerConfig, max_depth=5, count_rays=False,
-                wavelength_mask=None):
+                wavelength_mask=None, tex_spread=0.0, ray_diff=None):
     """Radiance [B,31] for a batch of camera rays.
 
     count_rays: also return the rays traced, counted as the JAX package
     counts them: True gives live closest-hit lanes + candidate shadow
     lanes, "full" the vector [closest, shadow, camera, path vertices]
     (int64).  wavelength_mask: an optional [B,31] 0/1 mask that confines
-    transport to a band of bins (integrators/spectralpath.py)."""
+    transport to a band of bins (integrators/spectralpath.py).
+    tex_spread: the camera's pixel spread (camera_pixel_spread); 0 keeps
+    every texture lookup at the finest level.  ray_diff: the camera rays'
+    differentials (camera_ray_differentials) or None."""
     B = ray.o.shape[0]
     dev = ray.o.device
 
@@ -74,7 +86,10 @@ def trace_paths(scene: ir.SceneData, ray: geom.Ray, pixel_id, sample_idx,
         n_cam = (ray.tmax > 0).sum()
         n_rays[0] += n_cam
         n_rays[2] += n_cam
-    hit = isect.intersect_full(scene, ray, presorted=True)
+    hit = isect.intersect_full(scene, ray, presorted=True,
+                               ray_diff=ray_diff)
+    rd = ray_diff          # followed through specular bounces below
+    textured = scene.tex_type.shape[0] > 1
     for bounce in range(max_depth + 1):
         # ---- emitted radiance at the hit, MIS'd against NEE ----
         le = lights.area_le(scene, hit.light, hit.ng, hit.wo)
@@ -95,7 +110,19 @@ def trace_paths(scene: ir.SceneData, ray: geom.Ray, pixel_id, sample_idx,
         if bounce == max_depth:
             break
 
-        mat = bsdf.gather_materials(scene, hit.material)
+        # the texture footprint: the camera's pixel cone, widened to a
+        # diffuse cone after the first bounce (texture.cpp's differentials
+        # stand-in); first hits with differentials filter by EWA instead
+        uv_w = None
+        if tex_spread > 0.0 and textured:
+            uv_w = hit.uv_density * hit.t * (
+                tex_spread if bounce == 0 else max(tex_spread, 0.2))
+        mat = bsdf.gather_materials(
+            scene, hit.material, uv=hit.uv, p=hit.p,
+            u_mix=sdim(_bdim(bounce, 7)) if scene.has_mix else None,
+            uv_width=uv_w, duv=hit.duv)
+        hit = hit.replace(ns=bsdf.bump_shading_normal(scene, hit.material,
+                                                      hit))
         ss, ts = geom.coordinate_system(hit.ns)
         wo_l = geom.world_to_frame(ss, ts, hit.ns, hit.wo)
 
@@ -124,7 +151,7 @@ def trace_paths(scene: ir.SceneData, ray: geom.Ray, pixel_id, sample_idx,
             sray = cand = contrib = None
 
         # ---- BSDF sampling (path.cpp:141-148) ----
-        wi_l, f, pdf, is_spec, _, eta_fac = bsdf.sample_f(
+        wi_l, f, pdf, is_spec, transmitted, eta_fac = bsdf.sample_f(
             mat, wo_l, sdim(_bdim(bounce, 3)), sdim(_bdim(bounce, 4)),
             sdim(_bdim(bounce, 5)))
         wi_w = geom.frame_to_world(ss, ts, hit.ns, wi_l)
@@ -137,6 +164,9 @@ def trace_paths(scene: ir.SceneData, ray: geom.Ray, pixel_id, sample_idx,
         specular = is_spec
         prev_pdf = pdf
         prev_p = hit.p
+        if rd is not None:
+            rd = _specular_differentials(rd, hit, mat, wi_w, transmitted,
+                                         alive & is_spec & hit.valid)
         nray = isect.spawn_ray(hit.p, hit.ng, wi_w, ray.wavelength,
                                time=ray.time)
         # dead lanes: zero-length rays drop out of the intersect queue
@@ -155,7 +185,7 @@ def trace_paths(scene: ir.SceneData, ray: geom.Ray, pixel_id, sample_idx,
         # ---- combined trace: next closest hit + this bounce's shadow ----
         if count_rays:
             n_rays[0] += (ray.tmax > 0).sum()
-        hit, occ = isect.trace_pair(scene, ray, sray)
+        hit, occ = isect.trace_pair(scene, ray, sray, ray_diff=rd)
         if sray is not None:
             L = L + torch.where((cand & ~occ)[:, None], contrib, 0.0)
 
@@ -166,6 +196,39 @@ def trace_paths(scene: ir.SceneData, ray: geom.Ray, pixel_id, sample_idx,
     if count_rays:
         return L, n_rays[0] + n_rays[1]
     return L
+
+
+def _specular_differentials(rd, hit, mat, wi_w, transmitted, keep):
+    """The ray differentials (rxo, rxd, ryo, ryd) after a bounce
+    (SpecularReflect / SpecularTransmit, integrator.cpp:344-429): lanes in
+    `keep` (specular) carry them through the bounce; the others get zero
+    directions, so their next texture lookup falls back to the cone."""
+    ns, wo = hit.ns, hit.wo
+    won = geom.dot(wo, ns)
+    eta_r = torch.where(won < 0, 1.0 / torch.clamp(mat.eta, min=1e-6),
+                        mat.eta)
+    wdn = geom.dot(-wo, ns)
+    widn = geom.dot(wi_w, ns)
+    safe_widn = torch.where(torch.abs(widn) > 1e-6, widn, 1e-6)
+    mu = eta_r * wdn - widn
+    dmu = eta_r - (eta_r * eta_r * wdn) / safe_widn
+    keep = keep[:, None]
+
+    def fin(a):
+        return torch.where(torch.isfinite(a), a, 0.0)
+
+    out = []
+    for rdir, dpd, dnd in ((rd[1], hit.dpdx, hit.dndx),
+                           (rd[3], hit.dpdy, hit.dndy)):
+        dwod = -rdir - wo
+        dDN = geom.dot(dwod, ns) + geom.dot(wo, dnd)
+        refl = wi_w - dwod + 2.0 * (won[:, None] * dnd + dDN[:, None] * ns)
+        tran = wi_w + eta_r[:, None] * dwod - (mu[:, None] * dnd
+                                               + (dmu * dDN)[:, None] * ns)
+        new_d = torch.where(transmitted[:, None], tran, refl)
+        out += [torch.where(keep, fin(hit.p + dpd), hit.p),
+                torch.where(keep, fin(new_d), 0.0)]
+    return tuple(out)
 
 
 def generate_fn(camera):
@@ -208,6 +271,65 @@ def camera_rays_for_pixels(camera, W, H, cfg, pixel_id, sample_idx,
     return ray, weight, pfilm, pid, sidx
 
 
+def camera_pixel_spread(camera):
+    """The angular size of one pixel at the image centre, the texture
+    footprint's cone spread; 0 for cameras without a raster_to_camera
+    matrix (the lens cameras: the finest mip level)."""
+    rtc = getattr(camera, "raster_to_camera", None)
+    if rtc is None:
+        return 0.0
+    rtc = rtc.detach().cpu().double().numpy() if torch.is_tensor(rtc) \
+        else np.asarray(rtc, np.float64)
+
+    def proj(x, y):
+        p = rtc @ np.array([x, y, 0.0, 1.0])
+        return p[:3] / p[3] if abs(p[3]) > 1e-12 else p[:3]
+
+    p0, p1 = proj(0.0, 0.0), proj(1.0, 0.0)
+    return float(np.linalg.norm(p1 - p0) / max(np.linalg.norm(p0), 1e-6))
+
+
+def camera_ray_differentials(camera, W, H, cfg, pid, sidx, generate_rays,
+                             spp):
+    """Probe-ray camera differentials (reference camera.cpp:60-95 and the
+    1/sqrt(spp) ScaleDifferentials of integrator.cpp:286): the camera ray
+    again at the same film sample shifted one pixel in x and in y (the
+    same lens and time samples), pulled toward the base ray by
+    1/sqrt(spp).  Returns (rxo, rxd, ryo, ryd)."""
+    valid = pid < W * H
+    pid0 = torch.where(valid, pid, 0)
+    base, ulens, utime = camera_samples(cfg, W, pid0, sidx)
+    ray0, _ = generate_rays(camera, base, ulens, utime, width=W, height=H)
+    dev = base.device
+    rx, _ = generate_rays(camera, base + torch.tensor([1.0, 0.0], device=dev),
+                          ulens, utime, width=W, height=H)
+    ry, _ = generate_rays(camera, base + torch.tensor([0.0, 1.0], device=dev),
+                          ulens, utime, width=W, height=H)
+    s = 1.0 / np.sqrt(np.float32(max(float(spp), 1.0)))
+
+    def lerp(a, b):
+        return a + (b - a) * s
+
+    return (lerp(ray0.o, rx.o), lerp(ray0.d, rx.d),
+            lerp(ray0.o, ry.o), lerp(ray0.d, ry.d))
+
+
+def trace_options(scene, camera, trace_fn):
+    """The keywords `render` gives trace_fn beyond its own (as the JAX
+    package's render picks them): tex_spread, the camera's pixel spread,
+    when trace_fn takes it; and whether to pass camera ray differentials,
+    which it does for a trace_fn that takes ray_diff, a projective camera
+    and a scene with textures."""
+    params = inspect.signature(trace_fn).parameters
+    kw = {}
+    if "tex_spread" in params:
+        kw["tex_spread"] = camera_pixel_spread(camera)
+    use_ray_diff = ("ray_diff" in params
+                    and getattr(camera, "raster_to_camera", None) is not None
+                    and scene.tex_type.shape[0] > 1)
+    return kw, use_ray_diff
+
+
 def render(scene, camera, film, cfg: SamplerConfig, spp, max_depth=5,
            max_rays_per_pass=1 << 18, count_rays=False, trace_fn=None,
            generate_rays=None):
@@ -230,18 +352,26 @@ def render(scene, camera, film, cfg: SamplerConfig, spp, max_depth=5,
                  for i in range(n_chunks)]
     if trace_fn is None:
         trace_fn = trace_paths
+    if generate_rays is None:
+        generate_rays = generate_fn(camera)
     counts = "count_rays" in inspect.signature(trace_fn).parameters
+    tkw, use_ray_diff = trace_options(scene, camera, trace_fn)
     total = torch.zeros((), dtype=torch.int64, device=dev)
     for s in range(spp):
         for pixel_ids in id_chunks:
             ray, weight, pfilm, pid, sidx = camera_rays_for_pixels(
                 camera, W, H, cfg, pixel_ids, s, generate_rays)
+            kw = dict(tkw)
+            if use_ray_diff:
+                kw["ray_diff"] = camera_ray_differentials(
+                    camera, W, H, cfg, pid, sidx, generate_rays, spp)
             if counts:
                 L, n = trace_fn(scene, ray, pid, sidx, cfg,
-                                max_depth=max_depth, count_rays=True)
+                                max_depth=max_depth, count_rays=True, **kw)
                 total += n
             else:
-                L = trace_fn(scene, ray, pid, sidx, cfg, max_depth=max_depth)
+                L = trace_fn(scene, ray, pid, sidx, cfg, max_depth=max_depth,
+                             **kw)
             filmmod.add_samples(film, pfilm, L, weight)
     if not count_rays:
         return film

@@ -20,8 +20,12 @@ reference binary pixel by pixel:
 - Lights: one DiffuseAreaLight per triangle of an area-lit mesh
   (api.cpp:1609), chosen uniformly.
 
-Supported: matte (sigma 0), plastic, mirror and smooth glass; triangle
-area lights; the perspective camera; no media.  Sphere area lights (the
+Supported: matte (sigma 0), plastic, mirror and smooth glass
+(SUPPORTED_MATS, the JAX package's), with textured Kd / Ks looked up at
+the finest level and mix materials resolved per lane by a hash of the hit
+point; triangle area lights; the perspective camera; no media.  A scene
+with another material family raises (the JAX package renders its lanes
+black).  Sphere area lights (the
 JAX package's cone sampling) wait for the port's quadric lights: the
 scene builder rejects them and `build_ref_lights` raises on them.
 
@@ -60,6 +64,7 @@ INV_PI = sampling.INV_PI
 # parity crop, scripts/measure_fp_envelope.py)
 REF_EPS_SCALE = 1.5e-6
 OFFSET_MODES = ("scaled", "pbrt")
+SUPPORTED_MATS = (ir.MAT_MATTE, ir.MAT_PLASTIC, ir.MAT_MIRROR, ir.MAT_GLASS)
 _GAMMA7 = float(7 * 2.0 ** -24 / (1 - 7 * 2.0 ** -24))
 _NEG_MIN_SUBNORMAL = int(np.float32(-1e-45).view(np.int32))
 
@@ -512,6 +517,11 @@ def trace_ref(scene: ir.SceneData, lt: RefLights, sampler: RefSampler,
     (module docstring)."""
     if offset not in OFFSET_MODES:
         raise ValueError(f"offset {offset!r} is not one of {OFFSET_MODES}")
+    other = set(scene.mat_families) - set(SUPPORTED_MATS) - {ir.MAT_MIX}
+    if other:
+        raise NotImplementedError(
+            f"refpath: material families {sorted(other)} (only matte, "
+            "plastic, mirror and glass, and mixes of them)")
     pbrt_off = offset == "pbrt"
     B = ray.o.shape[0]
     dev = ray.o.device
@@ -543,7 +553,8 @@ def trace_ref(scene: ir.SceneData, lt: RefLights, sampler: RefSampler,
         if bounce == max_depth:
             break
 
-        mat = bsdf.gather_materials(scene, hit.material)
+        mat = bsdf.gather_materials(scene, hit.material, uv=hit.uv,
+                                    p=hit.p)
         ss, ts, nss, ngg, p_err = _shading_frame(scene, hit)
         wo_l = geom.world_to_frame(ss, ts, nss, hit.wo)
         do_nee = alive & (_nonspec_counts(mat) > 0)

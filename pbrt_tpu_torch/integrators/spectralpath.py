@@ -43,8 +43,9 @@ def band_slices(num_bands):
 
 def make_trace_spectral(num_ca_bands=4, camera=None, generate_rays=None,
                         width=None, height=None):
-    """A trace function for path.render.  camera: the render's camera,
-    when known.  A lens camera's rays are regenerated per band by
+    """A trace function for path.render; its keywords beyond max_depth
+    go to each band's trace_paths.  camera: the render's camera, when
+    known.  A lens camera's rays are regenerated per band by
     generate_rays (default: the camera's, path.generate_fn) for a film of
     width x height; projective rays are reused."""
     if camera is not None and not isinstance(camera, (ProjectiveCamera,
@@ -60,7 +61,7 @@ def make_trace_spectral(num_ca_bands=4, camera=None, generate_rays=None,
         generate_rays = generate_rays or pathmod.generate_fn(camera)
     bands = band_slices(num_ca_bands)
 
-    def trace(scene, ray, pixel_id, sample_idx, cfg, max_depth=5):
+    def trace(scene, ray, pixel_id, sample_idx, cfg, max_depth=5, **kw):
         B = ray.o.shape[0]
         NS = spec.N_SPECTRAL_SAMPLES
         L = torch.zeros((B, NS), device=ray.o.device)
@@ -82,7 +83,8 @@ def make_trace_spectral(num_ca_bands=4, camera=None, generate_rays=None,
                     wavelength=torch.full_like(ray.tmax, lam))
             Lb = pathmod.trace_paths(scene, band_ray, pixel_id, sample_idx,
                                      cfg, max_depth=max_depth,
-                                     wavelength_mask=mask.expand(B, NS))
+                                     wavelength_mask=mask.expand(B, NS),
+                                     **kw)
             # stitch only this band's slice (spectralpath.cpp:310-316)
             L = L + Lb * mask
         return L

@@ -8,13 +8,20 @@ TransformBegin/End, Camera "perspective"/"orthographic"/"environment"/
 PixelFilter "box"/"triangle"/"gaussian"/"mitchell"/"sinc", Sampler (its
 aliases mapped, an unknown kind falling back to halton with a warning,
 as in the JAX package), Integrator, Include, WorldBegin/End,
-AttributeBegin/End, ReverseOrientation, Material "matte"/"plastic"/
-"mirror"/"glass" (constant parameters), AreaLightSource "diffuse", and
-Shape "trianglemesh"/"sphere".  Each keeps the JAX package's semantics,
-including the two-keyframe CTM that gives meshes and spheres motion blur.
-Every other directive, and every other kind of camera, film, filter,
-material, light or shape, raises NotImplementedError naming it: the
-parser never renders something other than what the scene asks for.
+AttributeBegin/End, ReverseOrientation, Texture (constant, scale, mix
+and bilerp folded to constants; imagemap, checkerboard, uv, dots, fbm,
+wrinkled, marble, windy), Material and MakeNamedMaterial / NamedMaterial
+for "" / "none", matte, plastic, mirror, glass (rough glass too), metal,
+uber, substrate, translucent, retroreflective, disney and mix, with
+texture-valued Kd / Ks, "string distribution" ("ggx" or "beckmann") and
+"texture bumpmap", AreaLightSource "diffuse", and Shape "trianglemesh"/
+"sphere".  Each keeps the JAX package's semantics and warnings,
+including the two-keyframe CTM that gives meshes and spheres motion blur
+and the imagemap that cannot be read becoming a 0.5 constant.  Every
+other directive, and every other kind of camera, film, filter, material
+(hair, fourier, subsurface, kdsubsurface), texture (ptex), light or
+shape, raises NotImplementedError naming it: the parser never renders
+something other than what the scene asks for.
 """
 
 from __future__ import annotations
@@ -22,19 +29,22 @@ from __future__ import annotations
 import copy
 import logging
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 
 from pbrt_tpu_torch.cameras.lens import LENS_KINDS
 from pbrt_tpu_torch.core import device as devmod
+from pbrt_tpu_torch.core import spectrum as spec
 from pbrt_tpu_torch.core import transform as tfm
+from pbrt_tpu_torch.materials.metal_data import conductor_eta_k
 from pbrt_tpu_torch.parser.paramset import ParamSet, parse_param_list
 from pbrt_tpu_torch.parser.tokenizer import (TokenStream, tokenize,
                                              tokenize_file, unquote)
 from pbrt_tpu_torch.samplers.samplers import SAMPLER_TYPES
 from pbrt_tpu_torch.scene import ir
 from pbrt_tpu_torch.scene.ir import MaterialSpec, SceneBuilder
+from pbrt_tpu_torch.textures import textures as texmod
 
 log = logging.getLogger("pbrt_tpu_torch")
 
@@ -45,9 +55,17 @@ class GraphicsState:
     material_id: int = 0
     area_light: dict | None = None
     reverse_orientation: bool = False
+    # name -> ("const", value) or ("tex", texture id), by texture type
+    float_textures: dict = field(default_factory=dict)
+    spectrum_textures: dict = field(default_factory=dict)
+    named_materials: dict = field(default_factory=dict)  # name -> id
 
     def clone(self):
-        return copy.copy(self)
+        g = copy.copy(self)
+        g.float_textures = dict(self.float_textures)
+        g.spectrum_textures = dict(self.spectrum_textures)
+        g.named_materials = dict(self.named_materials)
+        return g
 
 
 @dataclass
@@ -276,55 +294,279 @@ class PbrtAPI:
         self.graphics.reverse_orientation = \
             not self.graphics.reverse_orientation
 
+    # ----------------------------------------------------------- textures
+    def _d_Texture(self, s):
+        name = unquote(s.next())
+        ttype = unquote(s.next())       # "float" | "color" / "spectrum"
+        tclass = unquote(s.next())      # constant, scale, imagemap, ...
+        ps = parse_param_list(s)
+        value = self._make_texture(ttype, tclass, ps)
+        if ttype == "float":
+            self.graphics.float_textures[name] = value
+        else:
+            self.graphics.spectrum_textures[name] = value
+
+    def _make_texture(self, ttype, tclass, ps):
+        """Texture factory (reference: src/textures/*, api.cpp:627-697; the
+        JAX package's folding).  Returns ("const", value) or ("tex", id),
+        id indexing the builder's texture table."""
+        reg = self.builder.textures
+        half = 0.5 if ttype == "float" else np.full(31, 0.5, np.float32)
+        uscale = ps.find_one_float("uscale", 1.0)
+        vscale = ps.find_one_float("vscale", 1.0)
+        udelta = ps.find_one_float("udelta", 0.0)
+        vdelta = ps.find_one_float("vdelta", 0.0)
+        wscale = ps.find_one_float("scale", 1.0)
+        if tclass == "constant":
+            if ttype == "float":
+                return ("const", ps.find_one_float("value", 1.0))
+            return ("const", ps.find_one_spectrum("value", 1.0,
+                                                  "reflectance"))
+        if tclass == "scale":
+            return ("const", self._resolve_tex_value(ps, "tex1", 1.0, ttype)
+                    * self._resolve_tex_value(ps, "tex2", 1.0, ttype))
+        if tclass == "mix":
+            t1 = self._resolve_tex_value(ps, "tex1", 0.0, ttype)
+            t2 = self._resolve_tex_value(ps, "tex2", 1.0, ttype)
+            amt = ps.find_one_float("amount", 0.5)
+            return ("const", (1 - amt) * t1 + amt * t2)
+        if tclass == "bilerp":
+            # the mean of the four corners, as the JAX package folds it
+            vals = [self._resolve_tex_value(ps, f"v{i}", 0.0, ttype)
+                    for i in ("00", "01", "10", "11")]
+            return ("const", sum(vals) / 4)
+        if tclass == "imagemap":
+            fname = self._filename(ps, "filename")
+            try:
+                return ("tex", reg.add(texmod.TEX_IMAGE, image=fname,
+                                       uscale=uscale, vscale=vscale,
+                                       udelta=udelta, vdelta=vdelta))
+            except NotImplementedError:
+                if os.path.exists(fname):
+                    raise      # a file in a format the port does not read
+                log.warning("imagemap %r load failed (no such file); "
+                            "using 0.5", fname)
+                return ("const", half)
+            except Exception as e:
+                log.warning("imagemap %r load failed (%s); using 0.5",
+                            fname, e)
+                return ("const", half)
+        if tclass == "checkerboard":
+            c1 = self._resolve_tex_value(ps, "tex1", 1.0, "color")
+            c2 = self._resolve_tex_value(ps, "tex2", 0.0, "color")
+            return ("tex", reg.add(texmod.TEX_CHECKER, uscale=uscale,
+                                   vscale=vscale, udelta=udelta,
+                                   vdelta=vdelta, c1=spec.to_rgb_np(c1),
+                                   c2=spec.to_rgb_np(c2)))
+        if tclass == "uv":
+            return ("tex", reg.add(texmod.TEX_UV, uscale=uscale,
+                                   vscale=vscale))
+        if tclass == "dots":
+            c1 = self._resolve_tex_value(ps, "inside", 1.0, "color")
+            c2 = self._resolve_tex_value(ps, "outside", 0.0, "color")
+            return ("tex", reg.add(texmod.TEX_DOTS, uscale=uscale,
+                                   vscale=vscale, c1=spec.to_rgb_np(c1),
+                                   c2=spec.to_rgb_np(c2)))
+        if tclass in ("fbm", "wrinkled", "marble", "windy"):
+            tt = {"fbm": texmod.TEX_FBM, "wrinkled": texmod.TEX_WRINKLED,
+                  "marble": texmod.TEX_MARBLE,
+                  "windy": texmod.TEX_WINDY}[tclass]
+            return ("tex", reg.add(tt, wscale=wscale))
+        if tclass == "ptex":
+            raise _unported('Texture "ptex"')
+        log.warning("texture class %r unsupported; using 0.5", tclass)
+        return ("const", half)
+
+    def _resolve_tex_value(self, ps, name, default, ttype):
+        """The constant value of a parameter that may name a texture (for
+        folding); a non-constant texture folds to 0.5 with a warning."""
+        tex = ps.find_texture(name)
+        if tex is not None:
+            table = (self.graphics.float_textures if ttype == "float"
+                     else self.graphics.spectrum_textures)
+            entry = table.get(tex)
+            if entry is not None and entry[0] == "const":
+                return entry[1]
+            log.warning("texture %r folded to 0.5 inside %s", tex, name)
+            return 0.5 if ttype == "float" else np.full(31, 0.5, np.float32)
+        if ttype == "float":
+            return ps.find_one_float(name, default)
+        return ps.find_one_spectrum(name, default)
+
     # ---------------------------------------------------------- materials
     def _d_Material(self, s):
         mname = unquote(s.next())
         ps = parse_param_list(s)
         self.graphics.material_id = self._make_material(mname, ps)
 
-    def _spectrum(self, ps, name, default):
-        if ps.find_texture(name) is not None:
-            raise _unported(f"texture parameter {name!r}")
-        return ps.find_one_spectrum(name, default)
+    def _d_MakeNamedMaterial(self, s):
+        name = unquote(s.next())
+        ps = parse_param_list(s)
+        mtype = ps.find_one_string("type", "matte")
+        self.graphics.named_materials[name] = self._make_material(
+            mtype, ps, name=name)
 
-    def _float(self, ps, name, default):
-        if ps.find_texture(name) is not None:
-            raise _unported(f"texture parameter {name!r}")
+    def _d_NamedMaterial(self, s):
+        name = unquote(s.next())
+        mid = self.graphics.named_materials.get(name)
+        if mid is None:
+            log.warning("unknown named material %r", name)
+            return
+        self.graphics.material_id = mid
+
+    def _spectrum_or_texture(self, ps, name, default, kind="illuminant"):
+        """(spectrum [31], texture id or -1).  rgb parameters convert as
+        illuminants, reflectances too (paramset.cpp:116, spectrum.h:429).
+        A texture-bound parameter keeps 0.5 as its constant."""
+        tex = ps.find_texture(name)
+        if tex is not None:
+            entry = self.graphics.spectrum_textures.get(tex)
+            if entry is None:
+                fentry = self.graphics.float_textures.get(tex)
+                if fentry is not None:
+                    if fentry[0] == "const":
+                        return (np.full(31, float(fentry[1]), np.float32),
+                                -1)
+                    return np.full(31, 0.5, np.float32), fentry[1]
+                log.warning("unknown texture %r", tex)
+                return np.full(31, 0.5, np.float32), -1
+            if entry[0] == "const":
+                return np.asarray(entry[1], np.float32), -1
+            return np.full(31, 0.5, np.float32), entry[1]
+        return ps.find_one_spectrum(name, default, kind), -1
+
+    def _float_or_texture(self, ps, name, default):
+        """A float parameter; a non-constant texture gives the default."""
+        tex = ps.find_texture(name)
+        if tex is not None:
+            entry = self.graphics.float_textures.get(tex)
+            if entry is not None and entry[0] == "const":
+                return float(entry[1])
+            return default
         return ps.find_one_float(name, default)
 
-    def _make_material(self, mname, ps):
+    def _make_material(self, mname, ps, name=""):
         """reference dispatch api.cpp:552-625 + materials/*.cpp defaults;
-        the JAX package's _make_material for the four ported kinds.
-        Returns the builder's material id."""
-        m = MaterialSpec(name=mname)
-        if ps.find_one_string("distribution", "ggx") != "ggx":
-            raise _unported("a microfacet distribution other than ggx")
-        if mname == "matte":
+        the JAX package's _make_material.  Returns the builder's material
+        id."""
+        if mname in ir.UNPORTED_MATERIALS.values():
+            raise _unported(f'Material "{mname}"')
+        m = MaterialSpec(name=name or mname)
+        # an extension parameter: the microfacet NDF (microfacet.h:80)
+        m.distribution = ps.find_one_string("distribution", "ggx")
+        spt, flt = self._spectrum_or_texture, self._float_or_texture
+        if mname in ("", "none"):
+            m.type = ir.MAT_NONE
+        elif mname == "matte":
             m.type = ir.MAT_MATTE
-            m.kd = self._spectrum(ps, "Kd", 0.5)
-            m.sigma = self._float(ps, "sigma", 0.0)
+            m.kd, m.kd_tex = spt(ps, "Kd", 0.5)
+            m.sigma = flt(ps, "sigma", 0.0)
         elif mname == "plastic":
             m.type = ir.MAT_PLASTIC
-            m.kd = self._spectrum(ps, "Kd", 0.25)
-            m.ks = self._spectrum(ps, "Ks", 0.25)
-            m.rough_u = m.rough_v = self._float(ps, "roughness", 0.1)
+            m.kd, m.kd_tex = spt(ps, "Kd", 0.25)
+            m.ks, m.ks_tex = spt(ps, "Ks", 0.25)
+            m.rough_u = m.rough_v = flt(ps, "roughness", 0.1)
             m.remap_roughness = ps.find_one_bool("remaproughness", True)
         elif mname == "mirror":
             m.type = ir.MAT_MIRROR
-            m.kr = self._spectrum(ps, "Kr", 0.9)
+            m.kr = spt(ps, "Kr", 0.9)[0]
         elif mname == "glass":
-            m.type = ir.MAT_GLASS
-            m.kr = self._spectrum(ps, "Kr", 1.0)
-            m.kt = self._spectrum(ps, "Kt", 1.0)
-            m.eta = self._float(ps, "eta", self._float(ps, "index", 1.5))
-            if (self._float(ps, "uroughness", 0.0) > 0
-                    or self._float(ps, "vroughness", 0.0) > 0):
-                raise _unported('rough "glass"')
+            m.kr = spt(ps, "Kr", 1.0)[0]
+            m.kt = spt(ps, "Kt", 1.0)[0]
+            m.eta = flt(ps, "eta", flt(ps, "index", 1.5))
+            m.rough_u = flt(ps, "uroughness", 0.0)
+            m.rough_v = flt(ps, "vroughness", 0.0)
+            m.type = (ir.MAT_ROUGHGLASS if m.rough_u > 0 or m.rough_v > 0
+                      else ir.MAT_GLASS)
             m.remap_roughness = ps.find_one_bool("remaproughness", True)
+        elif mname == "metal":
+            m.type = ir.MAT_METAL
+            eta_d, k_d = conductor_eta_k("Cu")
+            m.eta_spec = ps.find_one_spectrum("eta", eta_d)
+            m.k_spec = ps.find_one_spectrum("k", k_d)
+            r = flt(ps, "roughness", 0.01)
+            m.rough_u = flt(ps, "uroughness", r)
+            m.rough_v = flt(ps, "vroughness", r)
+            m.ks = np.ones(31, np.float32)
+            m.remap_roughness = ps.find_one_bool("remaproughness", True)
+        elif mname == "uber":
+            m.type = ir.MAT_UBER
+            m.kd, m.kd_tex = spt(ps, "Kd", 0.25)
+            m.ks, m.ks_tex = spt(ps, "Ks", 0.25)
+            m.kr = spt(ps, "Kr", 0.0)[0]
+            m.kt = spt(ps, "Kt", 0.0)[0]
+            r = flt(ps, "roughness", 0.1)
+            m.rough_u = flt(ps, "uroughness", r)
+            m.rough_v = flt(ps, "vroughness", r)
+            m.eta = flt(ps, "eta", 1.5)
+            m.opacity = ps.find_one_spectrum("opacity", 1.0)
+            m.remap_roughness = ps.find_one_bool("remaproughness", True)
+        elif mname == "substrate":
+            m.type = ir.MAT_SUBSTRATE
+            m.kd, m.kd_tex = spt(ps, "Kd", 0.5)
+            m.ks, m.ks_tex = spt(ps, "Ks", 0.5)
+            m.rough_u = flt(ps, "uroughness", 0.1)
+            m.rough_v = flt(ps, "vroughness", 0.1)
+            m.remap_roughness = ps.find_one_bool("remaproughness", True)
+        elif mname == "translucent":
+            m.type = ir.MAT_TRANSLUCENT
+            m.kd, m.kd_tex = spt(ps, "Kd", 0.25)
+            m.ks, m.ks_tex = spt(ps, "Ks", 0.25)
+            m.kr = spt(ps, "reflect", 0.5)[0]
+            m.kt = spt(ps, "transmit", 0.5)[0]
+            m.rough_u = m.rough_v = flt(ps, "roughness", 0.1)
+        elif mname == "retroreflective":
+            # the fork's material (materials/retroreflective.cpp)
+            m.type = ir.MAT_RETRO
+            m.kd, m.kd_tex = spt(ps, "Kd", 0.5)
+            m.ks, m.ks_tex = spt(ps, "Ks", 0.5)
+            m.rough_u = m.rough_v = flt(ps, "roughness", 0.1)
+        elif mname == "disney":
+            # materials/disney.cpp: roughness and anisotropic folded into
+            # the GGX alphas (its aspect remap); the lobe weights ride in
+            # mat_disney
+            m.type = ir.MAT_DISNEY
+            m.kd = spt(ps, "color", 0.5)[0]
+            rough = flt(ps, "roughness", 0.5)
+            aniso = flt(ps, "anisotropic", 0.0)
+            aspect = float(np.sqrt(max(1.0 - 0.9 * aniso, 1e-4)))
+            m.rough_u = max(rough * rough / aspect, 1e-3)
+            m.rough_v = max(rough * rough * aspect, 1e-3)
+            m.remap_roughness = False
+            m.eta = flt(ps, "eta", 1.5)
+            m.disney = (flt(ps, "metallic", 0.0),
+                        flt(ps, "speculartint", 0.0),
+                        flt(ps, "sheen", 0.0),
+                        flt(ps, "sheentint", 0.5),
+                        flt(ps, "clearcoat", 0.0),
+                        flt(ps, "clearcoatgloss", 1.0),
+                        flt(ps, "spectrans", 0.0),
+                        aniso)
+            # specTrans transmits sqrt(baseColor) (disney.cpp, thin false)
+            m.kt = np.sqrt(np.maximum(np.asarray(m.kd, np.float32), 0.0))
+        elif mname == "mix":
+            # materials/mixmat.cpp: two named materials blended by amount,
+            # as a stochastic choice per lane
+            m.type = ir.MAT_MIX
+            n1 = ps.find_one_string("namedmaterial1", "").strip('"')
+            n2 = ps.find_one_string("namedmaterial2", "").strip('"')
+            m.mix_a = self.graphics.named_materials.get(n1, -1)
+            m.mix_b = self.graphics.named_materials.get(n2, -1)
+            m.mix_amt = float(np.asarray(
+                ps.find_one_spectrum("amount", 0.5)).mean())
+            if m.mix_a < 0 or m.mix_b < 0:
+                log.warning("mix references unknown materials %r/%r -> "
+                            "matte", n1, n2)
+                m.type = ir.MAT_MATTE
+                m.kd = np.full(31, 0.5, np.float32)
         else:
             raise _unported(f'Material "{mname}"')
-        if ps.find_texture("bumpmap") is not None:
-            raise _unported("bumpmap")
+        # a bump map binds to any material (reference material.h Bump)
+        btex = ps.find_texture("bumpmap")
+        if btex is not None:
+            entry = self.graphics.float_textures.get(btex)
+            if entry is not None and entry[0] == "tex":
+                m.bump_tex = entry[1]
         _check_unused(ps, f"material {mname}")
         return self.builder.add_material(m)
 

@@ -1,11 +1,15 @@
 """Scene intermediate representation (port of pbrt_tpu.scene.ir).
 
-`SceneBuilder` assembles triangle meshes, spheres, mesh area lights and
-the MATTE, PLASTIC, MIRROR and GLASS materials on the host, orders the
-primitives by the BVH, and returns a `SceneData`: a dataclass of tensors
-with only the columns the path tracer reads.  Per-primitive and
+`SceneBuilder` assembles triangle meshes, spheres, mesh area lights, the
+surface materials of PORTED_MATERIALS and the texture table on the host,
+orders the primitives by the BVH, and returns a `SceneData`: a dataclass
+of tensors with only the columns the path tracer reads, and the static
+flags (material families, texture kinds, bump, mix, Beckmann, Disney)
+that keep absent families out of the launch stream.  Per-primitive and
 per-material data are plain tables indexed per lane; the TPU package's
 one-gather packings (`shade_all`, `mat_packed`) are not carried over.
+Hair, fourier, the subsurface materials and ptex textures are not ported:
+the builder raises naming them.
 
 Two-keyframe motion blur: a mesh given a second object-to-world keyframe
 moves its vertices linearly over the shutter (`tri_motion`), and the
@@ -30,18 +34,38 @@ from pbrt_tpu_torch.core import spectrum as spec
 from pbrt_tpu_torch.core.transform import Transform, animated_pair
 from pbrt_tpu_torch.ops.dense_intersect import (build_dense_tables,
                                                 build_dense_tables_motion)
+from pbrt_tpu_torch.textures.textures import TEX_PTEX, TextureTable
 
 PRIM_TRIANGLE = 0
 PRIM_SPHERE = 1
 
 LIGHT_AREA = 2
 
-MAT_NONE = -1
+# material type tags (reference dispatch: api.cpp:552-625)
+MAT_NONE = -1          # "" / "none": a pass-through interface
 MAT_MATTE = 0
 MAT_PLASTIC = 1
 MAT_MIRROR = 2
 MAT_GLASS = 3
-PORTED_MATERIALS = (MAT_MATTE, MAT_PLASTIC, MAT_MIRROR, MAT_GLASS)
+MAT_METAL = 4
+MAT_UBER = 5
+MAT_SUBSTRATE = 6
+MAT_TRANSLUCENT = 7
+MAT_RETRO = 8          # the fork's retroreflective
+MAT_DISNEY = 9
+MAT_HAIR = 10
+MAT_FOURIER = 11
+MAT_MIX = 12
+MAT_ROUGHGLASS = 13    # glass with nonzero roughness
+MAT_SUBSURFACE = 14
+MAT_KDSUBSURFACE = 15
+MAT_SSW = 16           # the BSSRDF exit lobe (a lane tag, never a material)
+PORTED_MATERIALS = (MAT_NONE, MAT_MATTE, MAT_PLASTIC, MAT_MIRROR, MAT_GLASS,
+                    MAT_METAL, MAT_UBER, MAT_SUBSTRATE, MAT_TRANSLUCENT,
+                    MAT_RETRO, MAT_DISNEY, MAT_MIX, MAT_ROUGHGLASS)
+UNPORTED_MATERIALS = {MAT_HAIR: "hair", MAT_FOURIER: "fourier",
+                      MAT_SUBSURFACE: "subsurface",
+                      MAT_KDSUBSURFACE: "kdsubsurface", MAT_SSW: "ssw"}
 
 # scenes beyond these many primitives (animated meshes: the lower cap)
 # leave the dense kernels for the JAX package's BVH or kd-tree route,
@@ -57,12 +81,28 @@ QUAD_COLUMNS = ("quad_w2o", "quad_params", "quad_prim", "quad_anim_t",
                 "quad_anim_q", "quad_anim_s")
 MAT_COLUMNS = ("mat_type", "mat_kd", "mat_ks", "mat_kr", "mat_kt",
                "mat_rough_u", "mat_rough_v", "mat_eta", "mat_sigma",
-               "mat_remap_rough")
+               "mat_remap_rough", "mat_kd_tex", "mat_ks_tex", "mat_bump_tex",
+               "mat_mix_a", "mat_mix_b", "mat_mix_amt", "mat_disney")
+TEX_COLUMNS = ("tex_images", "tex_type", "tex_params", "tex_c1", "tex_c2",
+               "world_radius")
 LIGHT_COLUMNS = ("light_L", "light_two_sided", "light_area",
                  "light_tri_idx", "light_tri_cdf", "light_tri_packed")
-JAX_COLUMNS = PRIM_COLUMNS + QUAD_COLUMNS + MAT_COLUMNS + LIGHT_COLUMNS
+JAX_COLUMNS = (PRIM_COLUMNS + QUAD_COLUMNS + MAT_COLUMNS + LIGHT_COLUMNS
+               + TEX_COLUMNS)
+# what scene_from_jax reads from pbrt_tpu's packed material table, which
+# alone holds the Beckmann flag: its rows are [bf16-hi; f32 residual], and
+# hi + residual is the f32 value exactly
+PACKED_COLUMNS = ("mat_eta_spec", "mat_k_spec", "mat_opacity",
+                  "mat_beckmann")
+JAX_ARRAYS = JAX_COLUMNS + ("mat_packed",)
 JAX_STATICS = ("n_lights", "n_quadrics", "clip_quadrics", "dense_chunk",
-               "has_animated_mesh", "has_animated_quads", "dense_motion")
+               "has_animated_mesh", "has_animated_quads", "dense_motion",
+               "has_disney", "has_mix", "has_beckmann", "has_bump",
+               "mat_families", "tex_kinds")
+# pbrt_tpu/scene/ir.py's MPK_* offsets into a mat_packed row
+_NS = spec.N_SPECTRAL_SAMPLES
+_MPK_ETA_SPEC, _MPK_K_SPEC, _MPK_OPACITY = 4 * _NS, 5 * _NS, 6 * _NS
+_MPK_BECKMANN = 7 * _NS + 19 + 2 * _NS
 
 
 @dataclass
@@ -99,6 +139,19 @@ class SceneData:
     mat_eta: torch.Tensor
     mat_sigma: torch.Tensor        # [M] Oren-Nayar sigma (degrees)
     mat_remap_rough: torch.Tensor  # [M] bool
+    mat_kd_tex: torch.Tensor       # [M] texture index of Kd, -1: constant
+    mat_ks_tex: torch.Tensor       # [M] ... of Ks
+    mat_bump_tex: torch.Tensor     # [M] ... of the bump map, -1: none
+    mat_mix_a: torch.Tensor        # [M] mix: material id of namedmaterial1
+    mat_mix_b: torch.Tensor        # [M] ... of namedmaterial2
+    mat_mix_amt: torch.Tensor      # [M] mix: P(select a)
+    mat_disney: torch.Tensor       # [M,8] metallic, specTint, sheen,
+    #                                sheenTint, clearcoat, ccGloss,
+    #                                specTrans, anisotropic
+    mat_eta_spec: torch.Tensor     # [M,31] conductor eta (metal)
+    mat_k_spec: torch.Tensor       # [M,31] conductor k (metal)
+    mat_opacity: torch.Tensor      # [M,31] (uber; 1 elsewhere)
+    mat_beckmann: torch.Tensor     # [M] bool: Beckmann, not GGX
     # --- mesh area lights ---
     light_L: torch.Tensor          # [L,31]
     light_two_sided: torch.Tensor  # [L] bool
@@ -113,6 +166,14 @@ class SceneData:
     dense_static: torch.Tensor     # [C] bool: no triangle of the chunk
     #                                moves (all true for a static table)
     dense_center: torch.Tensor     # [3]
+    # --- textures (textures/textures.py); entry 0 is unused ---
+    tex_images: torch.Tensor       # [T,2*RES,RES,3] mip canvases
+    tex_type: torch.Tensor         # [T] TEX_*
+    tex_params: torch.Tensor       # [T,8] uscale vscale udelta vdelta
+    #                                wscale p5 p6 0
+    tex_c1: torch.Tensor           # [T,3]
+    tex_c2: torch.Tensor           # [T,3]
+    world_radius: torch.Tensor     # [] half the scene's diagonal + 1e-3
     # --- statics ---
     n_lights: int = 0
     n_quadrics: int = 0
@@ -121,6 +182,15 @@ class SceneData:
     has_animated_mesh: bool = False
     has_animated_quads: bool = False
     dense_motion: bool = False     # dense_w is the motion table
+    # the material families present (MAT_*, sorted) and the texture kinds
+    # bound (TEX_*, sorted): the BSDF and texture dispatch launch only
+    # these (None: every family)
+    mat_families: tuple = None
+    tex_kinds: tuple = None
+    has_disney: bool = False
+    has_mix: bool = False
+    has_beckmann: bool = False
+    has_bump: bool = False
 
     def to(self, device):
         return dataclasses.replace(self, **{
@@ -140,14 +210,27 @@ class MaterialSpec:
     rough_u: float = 0.0
     rough_v: float = 0.0
     eta: float = 1.5
+    eta_spec: np.ndarray = None    # [31] conductor eta (default 1)
+    k_spec: np.ndarray = None      # [31] conductor k
     sigma: float = 0.0
+    opacity: np.ndarray = None     # [31] (uber; default 1)
     remap_roughness: bool = True
+    kd_tex: int = -1
+    ks_tex: int = -1
+    bump_tex: int = -1
+    mix_a: int = -1
+    mix_b: int = -1
+    mix_amt: float = 0.5
+    disney: tuple = (0.0,) * 8
+    # microfacet NDF: "ggx" (TrowbridgeReitz) or "beckmann" (microfacet.h:80)
+    distribution: str = "ggx"
     name: str = ""
 
     def spectrum(self, key):
         v = getattr(self, key)
         if v is None:
-            return np.zeros(spec.N_SPECTRAL_SAMPLES, np.float32)
+            fill = 1.0 if key in ("eta_spec", "opacity") else 0.0
+            return np.full(spec.N_SPECTRAL_SAMPLES, fill, np.float32)
         return np.asarray(v, np.float32)
 
 
@@ -159,6 +242,7 @@ class SceneBuilder:
     quads: list = field(default_factory=list)      # (o2w, w2o, params, o2w1)
     material_names: dict = field(default_factory=dict)
     has_animated_mesh: bool = False
+    textures: TextureTable = field(default_factory=TextureTable)
     _chunks: list = field(default_factory=list)
     _mesh_light_tris: dict = field(default_factory=dict)
     _n_prims: int = 0
@@ -166,7 +250,8 @@ class SceneBuilder:
     def add_material(self, mspec: MaterialSpec) -> int:
         if mspec.type not in PORTED_MATERIALS:
             raise NotImplementedError(
-                f"material type {mspec.type} is not ported yet")
+                f"material {UNPORTED_MATERIALS.get(mspec.type, mspec.type)}"
+                " is not ported yet")
         self.materials.append(mspec)
         mid = len(self.materials) - 1
         if mspec.name:
@@ -343,6 +428,15 @@ class SceneBuilder:
         def mcol(key):
             return np.stack([m.spectrum(key) for m in mats])
 
+        def mlist(key, dtype):
+            return np.asarray([getattr(m, key) for m in mats], dtype)
+
+        tex_imgs, tex_t, tex_p, tex_a, tex_b = self.textures.arrays()
+        if np.any(tex_t == TEX_PTEX):
+            raise NotImplementedError("ptex textures are not ported yet")
+        world_radius = np.float32(
+            0.5 * float(np.linalg.norm(hi.max(0) - lo.min(0))) + 1e-3)
+
         # mesh area lights: padded per-light triangle lists + area CDFs
         Lc = max(len(self.lights), 1)
         inv_order = np.zeros(P, np.int64)
@@ -400,6 +494,19 @@ class SceneBuilder:
             mat_sigma=np.asarray([m.sigma for m in mats], np.float32),
             mat_remap_rough=np.asarray([m.remap_roughness for m in mats],
                                        bool),
+            mat_kd_tex=mlist("kd_tex", np.int32),
+            mat_ks_tex=mlist("ks_tex", np.int32),
+            mat_bump_tex=mlist("bump_tex", np.int32),
+            mat_mix_a=mlist("mix_a", np.int32),
+            mat_mix_b=mlist("mix_b", np.int32),
+            mat_mix_amt=mlist("mix_amt", np.float32),
+            mat_disney=mlist("disney", np.float32).reshape(len(mats), 8),
+            mat_eta_spec=mcol("eta_spec"), mat_k_spec=mcol("k_spec"),
+            mat_opacity=mcol("opacity"),
+            mat_beckmann=np.asarray([m.distribution == "beckmann"
+                                     for m in mats], bool),
+            tex_images=tex_imgs, tex_type=tex_t, tex_params=tex_p,
+            tex_c1=tex_a, tex_c2=tex_b, world_radius=world_radius,
             light_L=light_L,
             light_two_sided=two_sided,
             light_area=l_area, light_tri_idx=lt_idx, light_tri_cdf=lt_cdf,
@@ -408,7 +515,10 @@ class SceneBuilder:
                        clip_quadrics=bool(clip_q), dense_chunk=None,
                        has_animated_mesh=self.has_animated_mesh,
                        has_animated_quads=animated_quads,
-                       dense_motion=self.has_animated_mesh)
+                       dense_motion=self.has_animated_mesh,
+                       **material_statics(arrays["mat_type"],
+                                          arrays["mat_beckmann"],
+                                          arrays["mat_bump_tex"], tex_t))
         return _scene_from_arrays(arrays, statics, device)
 
 
@@ -427,6 +537,19 @@ def check_dense_cap(n_prims, animated):
             "is not ported")
 
 
+def material_statics(mat_type, beckmann, bump_tex, tex_type):
+    """The static flags of a material and texture table (as the JAX
+    package's builder sets them)."""
+    mat_type = np.asarray(mat_type)
+    return dict(
+        mat_families=tuple(sorted(int(t) for t in set(mat_type.tolist()))),
+        tex_kinds=tuple(sorted({int(t) for t in np.asarray(tex_type)[1:]})),
+        has_disney=bool(np.any(mat_type == MAT_DISNEY)),
+        has_mix=bool(np.any(mat_type == MAT_MIX)),
+        has_beckmann=bool(np.any(beckmann)),
+        has_bump=bool(np.any(np.asarray(bump_tex) >= 0)))
+
+
 def _scene_from_arrays(arrays, statics, device):
     if statics["dense_motion"]:
         dt = build_dense_tables_motion(
@@ -437,7 +560,7 @@ def _scene_from_arrays(arrays, statics, device):
                                 arrays["tri_e2"], chunk=statics["dense_chunk"])
         dt["chunk_static"] = np.ones(dt["W"].shape[0], bool)
     cols = {k: torch.as_tensor(np.array(arrays[k]), device=device)
-            for k in JAX_COLUMNS}
+            for k in JAX_COLUMNS + PACKED_COLUMNS}
     return SceneData(
         **cols,
         dense_w=torch.as_tensor(dt["W"], device=device),
@@ -450,24 +573,44 @@ def _scene_from_arrays(arrays, statics, device):
         dense_chunk=int(dt["chunk"]),
         has_animated_mesh=bool(statics["has_animated_mesh"]),
         has_animated_quads=bool(statics["has_animated_quads"]),
-        dense_motion=bool(statics["dense_motion"]))
+        dense_motion=bool(statics["dense_motion"]),
+        mat_families=tuple(statics["mat_families"]),
+        tex_kinds=tuple(statics["tex_kinds"]),
+        has_disney=bool(statics["has_disney"]),
+        has_mix=bool(statics["has_mix"]),
+        has_beckmann=bool(statics["has_beckmann"]),
+        has_bump=bool(statics["has_bump"]))
 
 
 def scene_from_jax(arrays: dict, statics: dict, device) -> SceneData:
     """The port's SceneData for a pbrt_tpu scene.
 
     arrays: {name: np.asarray(getattr(jax_scene, name))} for every name in
-    JAX_COLUMNS; statics: the static fields named in JAX_STATICS.  The
-    dense tables (static, or motion when `dense_motion`) are recomputed
-    from tri_v0/e1/e2 and tri_motion, since the JAX scene's `dense_w` is
-    the TPU's bf16x2 layout."""
-    for k in JAX_COLUMNS:
+    JAX_ARRAYS; statics: the static fields named in JAX_STATICS.  The
+    conductor spectra, the opacity and the Beckmann flag come from the
+    packed material table (PACKED_COLUMNS).  The dense tables (static, or
+    motion when `dense_motion`) are recomputed from tri_v0/e1/e2 and
+    tri_motion, since the JAX scene's `dense_w` is the TPU's bf16x2
+    layout."""
+    for k in JAX_ARRAYS:
         if k not in arrays:
             raise KeyError(f"scene_from_jax needs array {k!r}")
     types = set(np.asarray(arrays["mat_type"]).tolist())
-    if not types <= set(PORTED_MATERIALS):
-        raise NotImplementedError(f"material types {sorted(types)} include "
-                                  "ones not ported yet")
+    bad = sorted(types - set(PORTED_MATERIALS))
+    if bad:
+        raise NotImplementedError(
+            "materials " + ", ".join(UNPORTED_MATERIALS.get(t, str(t))
+                                     for t in bad) + " are not ported yet")
+    if np.any(np.asarray(arrays["tex_type"]) == TEX_PTEX):
+        raise NotImplementedError("ptex textures are not ported yet")
+    packed = np.asarray(arrays["mat_packed"], np.float32)
+    M = packed.shape[0] // 2
+    row = packed[:M] + packed[M:]          # bf16 hi + residual: exact f32
+    arrays = dict(arrays,
+                  mat_eta_spec=row[:, _MPK_ETA_SPEC:_MPK_ETA_SPEC + _NS],
+                  mat_k_spec=row[:, _MPK_K_SPEC:_MPK_K_SPEC + _NS],
+                  mat_opacity=row[:, _MPK_OPACITY:_MPK_OPACITY + _NS],
+                  mat_beckmann=row[:, _MPK_BECKMANN] > 0.5)
     if np.any(np.asarray(arrays["prim_type"]) > PRIM_SPHERE):
         raise NotImplementedError("only triangles and spheres are ported")
     n_lights = int(statics["n_lights"])

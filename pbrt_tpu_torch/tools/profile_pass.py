@@ -4,9 +4,10 @@
         [--maxdepth N] [--top 12] [--sampler refsobol]
 
 Parses the scene on the first CUDA card, traces one pass (sample 0 of
-the first `--rays` pixels, through `path.trace_paths`; with `--sampler
-refsobol`, of the first min(rays, W*H) pixels through the matched-RNG
-`refpath.trace_ref`, as `render_ref` traces a pass) three times
+the first `--rays` pixels, through `path.trace_paths` with the texture
+footprint and camera ray differentials `path.render` gives it; with
+`--sampler refsobol`, of the first min(rays, W*H) pixels through the
+matched-RNG `refpath.trace_ref`, as `render_ref` traces a pass) three times
 unprofiled and once under torch.profiler, and prints: the wall time of
 each unprofiled pass; for the profiled one, its wall time, the device
 kernel events and their summed device time, the device's idle share
@@ -63,11 +64,19 @@ def main(argv=None):
                               max_depth=depth)
     else:
         ids = torch.arange(args.rays, device=device)
+        opts, use_rd = path.trace_options(job.scene, camera,
+                                          path.trace_paths)
 
         def trace():
             ray, _, _, pid, sidx = path.camera_rays_for_pixels(
                 camera, W, H, cfg, ids, 0)
-            path.trace_paths(job.scene, ray, pid, sidx, cfg, max_depth=depth)
+            kw = dict(opts)
+            if use_rd:
+                kw["ray_diff"] = path.camera_ray_differentials(
+                    camera, W, H, cfg, pid, sidx, path.generate_fn(camera),
+                    job.spp)
+            path.trace_paths(job.scene, ray, pid, sidx, cfg, max_depth=depth,
+                             **kw)
 
     def one_pass():
         trace()

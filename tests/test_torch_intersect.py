@@ -17,11 +17,17 @@ import pytest
 import torch
 
 from pbrt_tpu.core import geometry as jgeom
+from pbrt_tpu.core import transform as jtfm
 from pbrt_tpu.models import flagship as jflag
 from pbrt_tpu.ops import intersect as jisect
+from pbrt_tpu.scene import ir as jir
+from pbrt_tpu.textures import textures as jtex
 from pbrt_tpu_torch.core import geometry as tgeom
+from pbrt_tpu_torch.core import transform as ttfm
 from pbrt_tpu_torch.models import flagship as tflag
 from pbrt_tpu_torch.ops import intersect as tisect
+from pbrt_tpu_torch.scene import ir as tir
+from pbrt_tpu_torch.textures import textures as ttex
 from test_torch_core import one_torch_thread  # noqa: F401  (autouse)
 
 N = 2048
@@ -151,3 +157,84 @@ def test_spawn_rays_match_jax():
     jr = jisect.spawn_ray(*(jnp.asarray(x) for x in (p, n, w, wl)))
     tr = tisect.spawn_ray(*(torch.from_numpy(x) for x in (p, n, w, wl)))
     np.testing.assert_allclose(tr.o.numpy(), np.asarray(jr.o), atol=1e-6)
+
+
+def _uv_sphere(n=24):
+    """A lat-long tessellated unit sphere with vertex normals and uvs."""
+    th = np.linspace(0.05, np.pi - 0.05, n)
+    ph = np.linspace(0, 2 * np.pi, 2 * n)
+    t, p = np.meshgrid(th, ph, indexing="ij")
+    v = np.stack([np.sin(t) * np.cos(p), np.sin(t) * np.sin(p),
+                  np.cos(t)], -1).reshape(-1, 3)
+    uv = np.stack([p / (2 * np.pi), t / np.pi], -1).reshape(-1, 2)
+    i, j = np.meshgrid(np.arange(n - 1), np.arange(2 * n - 1),
+                       indexing="ij")
+    a = (i * 2 * n + j).ravel()
+    idx = np.concatenate([np.stack([a, a + 2 * n, a + 1], -1),
+                          np.stack([a + 1, a + 2 * n, a + 2 * n + 1], -1)])
+    return v, idx, uv
+
+
+@pytest.mark.parametrize("textured", [False, True])
+def test_make_hit_ray_differentials_match_jax(textured):
+    """make_hit(ray_diff=): uv derivatives, footprint offsets and shading
+    normal derivatives on a smooth tessellated sphere, a uv-mapped floor
+    and a quadric sphere (zeros there), against pbrt_tpu's.  Tolerance:
+    the same f32 plane projections and 2x2 solves, 1e-4 relative to each
+    column's scale (the solves' conditioning on grazing lanes)."""
+    def build(ir, tfm, tex):
+        b = ir.SceneBuilder()
+        m = b.add_material(ir.MaterialSpec(kd=np.full(31, 0.5, np.float32)))
+        v, idx, uv = _uv_sphere()
+        b.add_triangle_mesh(v * 1.2 + [2.5, 2.5, 1.5], idx, m, normals=v,
+                            uvs=uv)
+        b.add_triangle_mesh([[0, 0, 0], [5, 0, 0], [5, 5, 0], [0, 5, 0]],
+                            [[0, 1, 2], [2, 3, 0]], m,
+                            uvs=[[0, 0], [3, 0], [3, 2], [0, 2]])
+        b.add_sphere(tfm.translate(4, 3, 1), 0.6, m)
+        if textured:
+            b.textures.add(tex.TEX_UV)
+        return b.build(device=DEV) if ir is tir else b.build()
+
+    js, ts = build(jir, jtfm, jtex), build(tir, ttfm, ttex)
+    rs = np.random.RandomState(21)
+    eye = np.array([2.5, -4.5, 2.5], np.float32)
+    tgt = np.stack([rs.uniform(0, 5, N), rs.uniform(1.5, 5, N),
+                    rs.uniform(0, 3, N)], -1)
+    d = (tgt - eye).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    cam = dict(o=np.tile(eye, (N, 1)), d=d,
+               tmax=np.full(N, np.inf, np.float32),
+               wavelength=np.full(N, 550.0, np.float32),
+               time=np.zeros(N, np.float32))
+    jr = _jray(cam)
+    jt, jp, _, _, jf = jisect.intersect(js, jr)
+    step = (rs.randn(2, N, 3) * 2e-3).astype(np.float32)
+    rd = (cam["o"] + step[0] * 0.1, d + step[0], cam["o"],
+          (d + step[1]).astype(np.float32))
+    jh = jisect.make_hit(js, jr, jt, jp, jnp.zeros_like(jt),
+                         jnp.zeros_like(jt), jf,
+                         ray_diff=tuple(jnp.asarray(x) for x in rd))
+    th = tisect.make_hit(ts, _tray(cam), torch.from_numpy(np.array(jt)),
+                         torch.from_numpy(np.array(jp)),
+                         torch.from_numpy(np.array(jf)),
+                         ray_diff=tuple(torch.from_numpy(np.asarray(x))
+                                        for x in rd))
+    valid = np.asarray(jf)
+    _compare_hits(jh, th, valid, 1e-5)
+    for k in ("duv", "dpdx", "dpdy", "dndx", "dndy", "uv_density"):
+        a, b = getattr(th, k).numpy(), np.asarray(getattr(jh, k))
+        assert np.isfinite(a).all(), k
+        np.testing.assert_allclose(a, b, rtol=1e-4,
+                                   atol=1e-4 * np.abs(b).max(), err_msg=k)
+    duv = th.duv.numpy()
+    tri = np.asarray(js.prim_type)[np.asarray(jh.prim)] == 0
+    assert (np.abs(duv[valid & tri]).sum(-1) > 0).mean() > 0.95
+    assert not np.abs(duv[valid & ~tri]).any()          # quadric hits
+    assert (np.abs(th.dndx.numpy()).sum(-1) > 0).any()  # smooth normals
+    # without differentials: no duv; uv_density only with textures
+    plain = tisect.make_hit(ts, _tray(cam), torch.from_numpy(np.array(jt)),
+                            torch.from_numpy(np.array(jp)),
+                            torch.from_numpy(np.array(jf)))
+    assert plain.duv is None
+    assert (plain.uv_density is not None) == textured

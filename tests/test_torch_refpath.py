@@ -384,7 +384,7 @@ def _normals_scene():
                         instance_id=2)
     b.add_sphere(jtfm.translate(0.4, -0.3, 0.6), 0.25, m, instance_id=3)
     js = b.build()
-    arrays = {k: np.asarray(getattr(js, k)) for k in tir.JAX_COLUMNS}
+    arrays = {k: np.asarray(getattr(js, k)) for k in tir.JAX_ARRAYS}
     statics = {k: getattr(js, k) for k in tir.JAX_STATICS}
     return js, tir.scene_from_jax(arrays, statics, DEV)
 

@@ -30,7 +30,7 @@ def scenes():
 
 
 def jax_arrays(js):
-    arrays = {k: np.asarray(getattr(js, k)) for k in tir.JAX_COLUMNS}
+    arrays = {k: np.asarray(getattr(js, k)) for k in tir.JAX_ARRAYS}
     statics = {k: getattr(js, k) for k in tir.JAX_STATICS}
     return arrays, statics
 
@@ -123,12 +123,14 @@ def test_camera_from_jax(scenes):
 
 def test_unported_features_raise(scenes):
     b = tir.SceneBuilder()
-    with pytest.raises(NotImplementedError):
-        b.add_material(tir.MaterialSpec(type=4))          # metal
+    for t, name in ((10, "hair"), (11, "fourier"), (14, "subsurface"),
+                    (15, "kdsubsurface")):
+        with pytest.raises(NotImplementedError, match=name):
+            b.add_material(tir.MaterialSpec(type=t))
     js = scenes[0]
     arrays, statics = jax_arrays(js)
-    arrays["mat_type"] = np.append(arrays["mat_type"], 9)  # disney
-    with pytest.raises(NotImplementedError):
+    arrays["mat_type"] = np.append(arrays["mat_type"], 10)  # hair
+    with pytest.raises(NotImplementedError, match="hair"):
         tir.scene_from_jax(arrays, statics, "cpu")
 
 
@@ -181,3 +183,37 @@ def test_generate_rays_matches_jax(lens_radius):
                                    np.asarray(getattr(jr, k)), rtol=1e-5,
                                    atol=1e-5, err_msg=k)
     assert np.array_equal(tw.numpy(), np.asarray(jw))
+
+
+def test_materials_scene_columns_from_packed_table():
+    """pbrt_tpu_torch/scenes/cornell_materials.pbrt parsed by both: the
+    port's SceneData equals scene_from_jax of pbrt_tpu's, whose conductor
+    spectra, opacity and Beckmann flag come only from the packed table's
+    bf16-hi + residual rows, and those sums are the f32 values exactly
+    (the hi rows alone are not)."""
+    import os
+    from pbrt_tpu.parser.api import parse_scene as jparse
+    from pbrt_tpu_torch.parser.api import parse_scene as tparse
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "pbrt_tpu_torch", "scenes",
+        "cornell_materials.pbrt")
+    js, ts = jparse(path).scene, tparse(path, device="cpu").scene
+    _assert_scene_equal(ts, tir.scene_from_jax(*jax_arrays(js), "cpu"))
+    packed = np.asarray(js.mat_packed)
+    M = packed.shape[0] // 2
+    for col, off in (("mat_eta_spec", jir.MPK_SPECTRA.index("eta_spec")),
+                     ("mat_k_spec", jir.MPK_SPECTRA.index("k_spec")),
+                     ("mat_opacity", jir.MPK_SPECTRA.index("opacity"))):
+        sl = slice(off * 31, off * 31 + 31)
+        want = getattr(ts, col).numpy()
+        assert np.array_equal(packed[:M, sl] + packed[M:, sl], want), col
+        assert np.array_equal(np.asarray(getattr(js, col)), want), col
+    assert not np.array_equal(packed[:M, 4 * 31:5 * 31],
+                              ts.mat_eta_spec.numpy())     # copper's eta
+    beck = ts.mat_beckmann.numpy()
+    assert beck.sum() == 1 and np.array_equal(
+        beck, packed[:M, jir.MPK_BECKMANN] > 0.5)
+    assert ts.mat_families == (0, 1, 4, 5, 6, 7, 8, 9, 12, 13)
+    assert ts.tex_kinds == (0, 1, 7) and ts.has_bump and ts.has_mix
+    assert ts.has_disney and ts.has_beckmann
+    assert float(ts.world_radius) == float(js.world_radius)
