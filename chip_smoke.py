@@ -105,6 +105,29 @@ differentials:
   a uniform-sphere estimate of the integral of f |cos| (within 5
   standard errors).
 
+Phase 20 drives every light kind: the CLI's `run_job` on
+pbrt_tpu_torch/scenes/cornell_lights.pbrt (cornell_bench's world at
+256x256, Sobol, 4 spp, depth 5, under the default spatial light
+strategy: its ceiling mesh light, an emissive sphere, point, spot,
+goniometric, projection and distant lights, and an infinite light with a
+Hosek sky map), counted as phase 5 is, with ms a pass and one profiled
+pass's launches, device ms and idle share; K1 and K2 against their plain
+versions on that path's camera and bounce-1 batches (shadow rays of tmax
+1e30, closest-hit lanes toward the sphere light), and that bounce's
+trace_pair through the kernels and through their plain versions, whose
+shadow masks must be equal bit for bit; the card against the CPU at
+32x32 2 spp (phase 8's limits) on the lights scene and on the
+matched-RNG render of pbrt_tpu_torch/scenes/refpath_sphere_sky.pbrt (a
+sphere light and the sky); the uniform, power and spatial strategies'
+image means of tests/test_lightdistrib.py's two point lights over a
+plane within STRATEGY_Z standard errors of their per-pixel difference
+(the lights scene's three means are printed: NEE's MIS weight leaves
+out the selection pdf, as pbrt_tpu's does, so there they differ); the
+furnace (a matte sphere of albedo 0.5 under a constant
+infinite light, centre within 2% of 0.5; a white one within 2% of 1) and
+a point light over a Lambertian plane (I cos / (pi r^2) rho, 2% at the
+centre, 5% at x = 0.5), tests/test_integrators.py's scenes at 256x256.
+
 Every lens render is finite, non-negative and non-black.  Mitchell's
 and sinc's negative lobes make some developed pixels negative where the
 image has a sharp edge (the reference clamps them when it writes the
@@ -131,6 +154,7 @@ staging buffers and the merge keys' fills.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -151,15 +175,17 @@ from pbrt_tpu_torch.cameras import lens  # noqa: E402
 from pbrt_tpu_torch.core import transform as tfm  # noqa: E402
 from pbrt_tpu_torch.film import film as filmmod  # noqa: E402
 from pbrt_tpu_torch.film import io as filmio  # noqa: E402
+from pbrt_tpu_torch.integrators import dispatch  # noqa: E402
 from pbrt_tpu_torch.integrators import path  # noqa: E402
 from pbrt_tpu_torch.integrators import refpath  # noqa: E402
 from pbrt_tpu_torch.integrators import spectralpath  # noqa: E402
+from pbrt_tpu_torch.lights import lights  # noqa: E402
 from pbrt_tpu_torch.materials import bsdf  # noqa: E402
 from pbrt_tpu_torch.models import flagship  # noqa: E402
 from pbrt_tpu_torch.ops import cuda_kernels  # noqa: E402
 from pbrt_tpu_torch.ops import dense_intersect as dense  # noqa: E402
 from pbrt_tpu_torch.ops import intersect as isect  # noqa: E402
-from pbrt_tpu_torch.parser.api import parse_scene  # noqa: E402
+from pbrt_tpu_torch.parser.api import PbrtAPI, parse_scene  # noqa: E402
 from pbrt_tpu_torch.samplers.samplers import SamplerConfig  # noqa: E402
 from pbrt_tpu_torch.scene.ir import (  # noqa: E402
     MAT_DISNEY, MAT_GLASS, MAT_MATTE, MAT_METAL, MAT_MIRROR, MAT_NONE,
@@ -326,7 +352,8 @@ def compare_kernels(scene, batches, card, k2, seams=False):
                 max_abs_err=e, ms=kw.time_ms(fn, 20, r16.device),
                 device=kw.device_ms(fn, 20),
                 plain_ms=kw.time_ms(plain, 20, r16.device),
-                bound=kw.queue_bound(mode, r16, tmax, cb))
+                bound=kw.queue_bound(mode, r16, tmax, cb),
+                active=na.float().mean().item())
 
         # --- K2: the kernel's lists into kernel and plain version ---
         if motion:
@@ -1019,6 +1046,260 @@ def phase19(card, dev, ref="cpu"):
     check(not bad, "phase 19 on the card: " + " | ".join(bad))
 
 
+LIGHTS_SCENE = os.path.join(ROOT, "pbrt_tpu_torch", "scenes",
+                            "cornell_lights.pbrt")
+REF_SPHERE_SCENE = os.path.join(ROOT, "pbrt_tpu_torch", "scenes",
+                                "refpath_sphere_sky.pbrt")
+STRATEGIES = ("uniform", "power", "spatial")
+# phase 20: two strategies' image means may differ by at most this many
+# standard errors of the mean of their per-pixel difference (the noise of
+# the two renders, the image's structure cancelling), on
+# tests/test_lightdistrib.py::test_strategies_unbiased's scene
+STRATEGY_Z = 5.0
+TWO_POINTS = """LookAt 0 0 3  0 0 0  0 1 0
+Camera "orthographic" "float screenwindow" [-30 30 -30 30]
+Integrator "path" "integer maxdepth" [1]
+WorldBegin
+Material "matte" "float Kd" [.5]
+Shape "trianglemesh" "point P" [-50 -50 0 50 -50 0 50 50 0 -50 50 0]
+    "integer indices" [0 1 2 2 3 0]
+LightSource "point" "float I" [100] "point from" [-20 0 5]
+LightSource "point" "float I" [1] "point from" [20 0 5]
+WorldEnd
+"""
+# the furnace and the point light over a plane: tests/test_integrators.py
+# :43-95's scenes and limits, at 256x256
+FURNACE = """LookAt 0 0 -4  0 0 0  0 1 0
+Camera "perspective" "float fov" [30]
+WorldBegin
+LightSource "infinite" "float L" [1]
+Material "matte" "float Kd" [{kd}]
+Shape "sphere" "float radius" [1]
+WorldEnd
+"""
+POINT_PLANE = """LookAt 0 0 3  0 0 0  0 1 0
+Camera "orthographic" "float screenwindow" [-1 1 -1 1]
+WorldBegin
+LightSource "point" "float I" [10] "point from" [0 0 1]
+Material "matte" "float Kd" [.6]
+Shape "trianglemesh" "point P" [-50 -50 0 50 -50 0 50 50 0 -50 50 0]
+    "integer indices" [0 1 2 2 3 0]
+WorldEnd
+"""
+
+
+def lights_32(dev):
+    job = parse_scene(LIGHTS_SCENE, device=dev)
+    job.film_width = job.film_height = 32
+    return cli.run_job(job, spp=2, max_depth=DEPTH)[0]
+
+
+def refpath_sphere_32(dev):
+    """The matched-RNG render of refpath_sphere_sky.pbrt (32x32, 2 spp):
+    its sphere light and its sky."""
+    job = parse_scene(REF_SPHERE_SCENE, device=dev)
+    n = job.film_width
+    film = filmmod.make_film(n, n, "box", radius=(0.5, 0.5), device=dev,
+                             pbrt_boundary=True)
+    return refpath.render_ref(job.scene, cli.build_camera(job, n, n, dev),
+                              film, n, n, job.spp,
+                              max_depth=job.integrator_params["maxdepth"])
+
+
+def shadow_mask_vs_plain(scene, camera, cfg, strategy):
+    """The first trace_pair of a pass (bounce-1 rays and bounce-0 shadow
+    rays; the lanes toward the sphere light closest-hit) through K1 and
+    K2, and again with their plain versions in their place, on the card:
+    the occluded masks must be equal bit for bit."""
+    calls = []
+    inner = isect.trace_pair
+
+    def record(*a, **k):
+        if not calls:
+            calls.append((a, k))
+        return inner(*a, **k)
+
+    isect.trace_pair = record
+    try:
+        ids = torch.arange(RAYS_PER_PASS, device=scene.dense_w.device)
+        ray, _, _, pid, sidx = path.camera_rays_for_pixels(camera, W, H,
+                                                           cfg, ids, 0)
+        path.trace_paths(scene, ray, pid, sidx, cfg, max_depth=1,
+                         light_strategy=strategy)
+    finally:
+        isect.trace_pair = inner
+    a, k = calls[0]
+    hit_k, occ_k = inner(*a, **k)
+    lists, loop = dense.tile_chunk_lists, dense.loop_hits
+    dense.tile_chunk_lists = dense.tile_chunk_lists_plain
+    dense.loop_hits = dense.loop_hits_plain
+    try:
+        hit_p, occ_p = inner(*a, **k)
+    finally:
+        dense.tile_chunk_lists, dense.loop_hits = lists, loop
+    sray, ign = a[2], k["ignore_light"]
+    live = sray.tmax > 0
+    out = dict(shadow=int(live.sum()), closest=int(((ign >= 0) & live)
+                                                   .sum()),
+               far=int((live & (sray.tmax > 1e29)).sum()),
+               occluded=int(occ_k.sum()),
+               mask_differs=int((occ_k != occ_p).sum()),
+               prim_agree=float((hit_k.prim == hit_p.prim).float().mean()))
+    check(out["closest"] > 0 and out["far"] > 0,
+          f"lights trace_pair: no closest-hit or unbounded shadow lanes "
+          f"{out}")
+    check(out["mask_differs"] == 0, f"lights trace_pair: the shadow mask "
+          f"differs from the plain path's on {out['mask_differs']} lanes")
+    check(out["prim_agree"] >= 0.999, f"lights trace_pair: hits {out}")
+    return out
+
+
+def _gate_render(run_path, job, spp, depth, what):
+    """run_job(job) through run_path (K1 and K2 (depth + 1) times a pass)
+    -> its developed image [H,W,31], checked finite, non-negative and
+    not black."""
+    passes = spp * (-(-job.film_width * job.film_height // (1 << 18)))
+    (film, _), _ = run_path(
+        what, lambda: cli.run_job(job, spp=spp, max_depth=depth),
+        {"dense_queue": (depth + 1) * passes, "dense_queue_cull": 0,
+         "dense_loop": (depth + 1) * passes, "dense_loop_motion": 0},
+        job.scene)
+    img = filmmod.develop_spectral(film)
+    check_image(img, what)
+    return img
+
+
+def phase20(run_path, card, device, res):
+    """Every light kind (module docstring)."""
+    t0 = time.perf_counter()
+    job = parse_scene(LIGHTS_SCENE, device=device)
+    parse_s = time.perf_counter() - t0
+    sc = job.scene
+    strategy = dispatch.light_strategy(job.integrator_params)
+    check(job.film_width == W and job.film_height == H and job.spp == SPP
+          and job.sampler_kind == "sobol" and strategy == "spatial"
+          and job.integrator_params["maxdepth"] == DEPTH,
+          "cornell_lights.pbrt settings")
+    check(sc.light_kinds == tuple(range(7)) and sc.has_mesh_lights
+          and sc.has_sphere_lights and sc.has_infinite
+          and tuple(sc.env_map.shape) == (128, 256, 31),
+          f"cornell_lights: light kinds {sc.light_kinds}")
+    camera = cli.build_camera(job, W, H, device)
+    cfg = SamplerConfig("sobol", 0, SPP)
+    # K1 and K2 on this path's own batches, and its shadow mask
+    batches = kw.main_path_batches(sc, camera, cfg, W, H, RAYS_PER_PASS,
+                                   DEPTH, light_strategy=strategy)
+    lres = compare_kernels(sc, {f"lights_{k}": v for k, v in
+                                batches.items()}, card, "dense_loop")
+    for k, v in lres.items():
+        res[k].update(v)
+    shadow = shadow_mask_vs_plain(sc, camera, cfg, strategy)
+    # env sampling's peak memory at B = 2^17: the row search gathers one
+    # cdf entry a lane a step, no [B, We+1] row and no [B, We, 31] map row
+    u = torch.rand(2, 1 << 17, device=device)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    lights.sample_env_direction(sc, u[0], u[1])
+    torch.cuda.synchronize()
+    env_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    check(env_peak < 64, f"env sampling at 2^17 lanes: {env_peak} MiB")
+    print(f"phase 20 lights first trace_pair: {shadow['shadow']} shadow "
+          f"lanes, {shadow['closest']} of them closest-hit (toward the "
+          f"sphere light), {shadow['far']} with tmax 1e30 (distant, sky), "
+          f"{shadow['occluded']} occluded; the mask equals the plain "
+          f"path's bit for bit, hits' prim agree {shadow['prim_agree']:.6f}"
+          f"; K1 active chunks/tile on bounce 1 "
+          f"{res['dense_queue']['lights_bounce1']['active']:.2f} (Cornell "
+          f"{res['dense_queue']['bounce1']['active']:.2f}), K2 device ms "
+          f"{_dev(res['dense_loop']['lights_bounce1'])} (Cornell "
+          f"{_dev(res['dense_loop']['bounce1'])}); env-map sampling of "
+          f"2^17 lanes peaks at {env_peak:.2f} MiB above what it was given")
+
+    # the render through the CLI
+    cli.run_job(job, spp=1, max_depth=DEPTH)
+    torch.cuda.synchronize()
+    passes = SPP * (-(-W * H // (1 << 18)))
+    t0 = time.perf_counter()
+    (film, _), counts = run_path(
+        "lights render", lambda: cli.run_job(job, spp=SPP, max_depth=DEPTH),
+        {"dense_queue": (DEPTH + 1) * passes, "dense_queue_cull": 0,
+         "dense_loop": (DEPTH + 1) * passes, "dense_loop_motion": 0}, sc)
+    ms = (time.perf_counter() - t0) * 1e3 / passes
+    l_img = filmmod.develop_spectral(film)
+    check_image(l_img, "lights render")
+    prof = pass_profile(sc, camera, cfg, trace=functools.partial(
+        path.trace_paths, light_strategy=strategy))
+    idle = ("not measured" if prof is None
+            else f"{1 - prof[0] / ms:.3f}")
+    print(f"phase 20 CLI cornell_lights.pbrt {W}x{H} {SPP} spp depth "
+          f"{DEPTH} ({sc.n_lights} lights, kinds {sc.light_kinds}, "
+          f"strategy {strategy}): parse + build {parse_s:.2f} s, "
+          f"{ms:.2f} ms/pass, image mean {l_img.mean().item():.6f}, "
+          f"{_prof(prof)}, idle share {idle}, launches {counts} on {card}")
+    compare_cpu([("lights", lights_32),
+                 ("refpath sphere light", refpath_sphere_32)])
+
+    # the three strategies: on tests/test_lightdistrib.py's two point
+    # lights over a plane (delta lights: no MIS) the same image within
+    # their noise; on the lights scene their means are printed, not held:
+    # NEE's MIS weight leaves out the selection pdf, as pbrt_tpu's does
+    # (ROADMAP Queue 3), so non-delta lights' images depend on it
+    for name in STRATEGIES:
+        job.integrator_params["lightsamplestrategy"] = name
+        m = float(_gate_render(run_path, job, GATE_SPP, DEPTH,
+                               f"lights {name}").mean())
+        print(f"phase 20 lights scene, strategy {name}, {GATE_SPP} spp: "
+              f"image mean {m:.6f} (not held to the others')")
+    job.integrator_params["lightsamplestrategy"] = strategy
+    lums = {}
+    for name in STRATEGIES:
+        j = PbrtAPI(device).parse_string(TWO_POINTS)
+        j.film_width, j.film_height = W, H
+        j.integrator_params["lightsamplestrategy"] = name
+        lums[name] = _gate_render(run_path, j, GATE_SPP, 1,
+                                  f"two point lights, {name}").sum(-1)
+    for name in STRATEGIES[1:]:
+        d = lums[name] - lums["uniform"]
+        z = abs(float(d.mean())) / (float(d.std()) / d.numel() ** 0.5)
+        rel = abs(float(lums[name].mean() / lums["uniform"].mean()) - 1)
+        print(f"phase 20 two point lights over a plane, strategy {name} vs "
+              f"uniform, {GATE_SPP} spp: image means "
+              f"{float(lums[name].mean()):.6f} vs "
+              f"{float(lums['uniform'].mean()):.6f} (rel {rel:.3e}), "
+              f"{z:.2f} standard errors of the mean pixel difference "
+              f"(limit {STRATEGY_Z})")
+        check(z < STRATEGY_Z, f"two point lights, {name}: mean off "
+              f"uniform's by {z} standard errors")
+
+    # the furnace and the point light over a plane, at 256x256
+    def scene_job(text, spp, depth, what):
+        j = PbrtAPI(device).parse_string(text)
+        j.film_width, j.film_height = W, H
+        return _gate_render(run_path, j, spp, depth, what).mean(-1)
+
+    c0, c1 = 7 * W // 16, 9 * W // 16          # the middle eighth
+    m0, m1 = W // 2 - 2, W // 2 + 2
+    x0 = int(0.75 * W)                         # world x = 0.5
+    half = float(scene_job(FURNACE.format(kd=0.5), 4, 5, "furnace 0.5")[
+        c0:c1, c0:c1].mean())
+    white = float(scene_job(FURNACE.format(kd=1.0), 4, 8,
+                            "furnace white").mean())
+    plane = scene_job(POINT_PLANE, 8, 2, "point light over a plane")
+    centre = float(plane[m0:m1, m0:m1].mean())
+    off = float(plane[m0:m1, x0 - 2:x0 + 2].mean())
+    want_c = 0.6 / np.pi * 10.0
+    want_o = want_c / 1.25 ** 1.5        # (0.5, 0, 0): r^2 1.25, cos r^-1
+    print(f"phase 20 furnace {W}x{H}: albedo 0.5 centre {half:.5f} (0.5 "
+          f"within 2%), white mean {white:.5f} (1 within 2%); point light "
+          f"over a plane: centre {centre:.5f} vs {want_c:.5f} (2%), x=0.5 "
+          f"{off:.5f} vs {want_o:.5f} (5%)")
+    check(abs(half - 0.5) < 0.02 * 0.5, f"furnace 0.5: {half}")
+    check(abs(white - 1.0) < 0.02, f"furnace white: {white}")
+    check(abs(centre / want_c - 1) < 0.02, f"point light centre {centre}")
+    check(abs(off / want_o - 1) < 0.05, f"point light off centre {off}")
+
+
 def lens_phases(scene, pcam, cfg, run_path, card, tmpdir):
     """Phases 14-17 (see the module docstring) on the Cornell model, its
     perspective camera pcam, through run_path (main's counted runs)."""
@@ -1436,6 +1717,11 @@ def main():
     print(f"phases 18-19 materials pass; wall s 18 {t18:.1f}, 19 "
           f"{time.perf_counter() - t0 - t18:.1f}")
 
+    # --- phase 20: every light kind ---
+    t0 = time.perf_counter()
+    phase20(run_path, card, device, res)
+    print(f"phase 20 lights pass; wall s {time.perf_counter() - t0:.1f}")
+
     rows = []
     for k, (src, rep) in KERNELS.items():
         r = res[k]
@@ -1472,13 +1758,20 @@ def main():
                 launches_init=init_launches[k],
                 tests_static_moving_bounce1=r["bounce1"]["tests"],
                 tests_static_moving_camera=r["camera"]["tests"])
-        if "refpath_bounce1" in r:
-            # the matched-RNG pass's batches (phase 11)
-            for b in ("refpath_camera", "refpath_bounce1"):
+        # the matched-RNG pass's batches (phase 11), the lights pass's
+        # (phase 20)
+        for b in ("refpath_camera", "refpath_bounce1", "lights_camera",
+                  "lights_bounce1"):
+            if b in r:
                 row.update({f"ms_{b}": r[b]["ms"],
                             f"device_ms_{b}": _ms(r[b]["device"]),
                             f"plain_ms_{b}": r[b]["plain_ms"],
                             f"bound_ms_{b}": r[b]["bound"][0]})
+                if "active" in r[b]:
+                    row[f"active_per_tile_{b}"] = r[b]["active"]
+        if "active" in r["bounce1"]:
+            row.update(active_per_tile_camera=r["camera"]["active"],
+                       active_per_tile_bounce1=r["bounce1"]["active"])
         if k in ALSO_REPLACES:
             row["also_replaces"] = ALSO_REPLACES[k]
         row["launches_harnesses"] = harness["counts"][k]

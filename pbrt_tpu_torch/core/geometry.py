@@ -7,6 +7,7 @@ tensors carrying the fork's per-ray wavelength tag.
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 
 import torch
@@ -48,6 +49,20 @@ def coordinate_system(v1):
                       -sign * v1[..., 0]], dim=-1)
     v3 = torch.stack([b, sign + v1[..., 1] ** 2 * a, -v1[..., 1]], dim=-1)
     return v2, v3
+
+
+def spherical_direction(sin_theta, cos_theta, phi):
+    return torch.stack([sin_theta * torch.cos(phi),
+                        sin_theta * torch.sin(phi), cos_theta], dim=-1)
+
+
+def spherical_theta(v):
+    return torch.arccos(torch.clamp(v[..., 2], -1.0, 1.0))
+
+
+def spherical_phi(v):
+    p = torch.atan2(v[..., 1], v[..., 0])
+    return torch.where(p < 0.0, p + 2.0 * math.pi, p)
 
 
 def reflect(wo, n):

@@ -1,5 +1,5 @@
 """Monte-Carlo warps and MIS weights (port of the parts of
-pbrt_tpu.core.sampling that the Cornell path reaches)."""
+pbrt_tpu.core.sampling that the path tracer and its lights reach)."""
 
 from __future__ import annotations
 
@@ -8,6 +8,7 @@ import torch
 
 PI = float(np.pi)
 INV_PI = float(1.0 / np.pi)
+INV_4PI = float(0.25 / np.pi)
 
 
 def concentric_sample_disk(u1, u2):
@@ -30,6 +31,17 @@ def cosine_sample_hemisphere(u1, u2):
     z = torch.sqrt(torch.clamp(1.0 - d[..., 0] ** 2 - d[..., 1] ** 2,
                                min=1e-14))
     return torch.stack([d[..., 0], d[..., 1], z], -1)
+
+
+def uniform_sample_sphere(u1, u2):
+    z = 1.0 - 2.0 * u1
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=1e-14))
+    phi = 2 * PI * u2
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], -1)
+
+
+def uniform_cone_pdf(cos_theta_max):
+    return 1.0 / (2 * PI * torch.clamp(1.0 - cos_theta_max, min=1e-9))
 
 
 def uniform_sample_triangle(u1, u2):

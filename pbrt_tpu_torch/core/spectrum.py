@@ -163,6 +163,32 @@ def value_at_wavelength(s, lam):
             + t * torch.take_along_dim(s, idx + 1, -1))
 
 
+# blackbody emission (reference: spectrum.cpp:1018 Blackbody /
+# BlackbodyNormalized); host numpy, as the JAX package computes it
+_H = 6.62606957e-34
+_C = 299792458.0
+_KB = 1.3806488e-23
+
+
+def blackbody(lam_nm, T):
+    """Planck spectral radiance at wavelengths [nm], W/(m^2 sr m)."""
+    lam = np.asarray(lam_nm, dtype=np.float64) * 1e-9
+    return (2 * _H * _C * _C) / (lam ** 5 *
+                                 np.expm1(_H * _C / (lam * _KB * T)))
+
+
+def blackbody_normalized(lam_nm, T):
+    """Planck's SPD divided by its value at Wien's peak (so its maximum
+    is 1)."""
+    lam_max = 2.8977721e-3 / T * 1e9
+    return blackbody(lam_nm, T) / blackbody(np.array([lam_max]), T)[0]
+
+
+def blackbody_spectrum(T, scale=1.0):
+    """The normalized blackbody at the bin centres times scale, [31]."""
+    return scale * blackbody_normalized(BIN_CENTERS, T)
+
+
 def _xyz_matrix(s):
     return torch.as_tensor(np.stack([CIE_X, CIE_Y, CIE_Z], -1),
                            dtype=s.dtype, device=s.device)

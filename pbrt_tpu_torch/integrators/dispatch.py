@@ -1,13 +1,13 @@
 """Integrator selection (port of pbrt_tpu.integrators.dispatch; reference
 dispatch: api.cpp:1764-1789).
 
-Ported: "path", "spectralpath" (parameter numCABands) and "metadata"
-(parameter strategy).  Every other integrator name raises
-NotImplementedError, as do the render settings the port does not carry
-(a crop window, a sample-luminance clamp, an rrthreshold other than 1,
-and for "path" a light strategy other than uniform in scenes with
-several lights; "spectralpath" samples lights uniformly, as the JAX
-package's does).
+Ported: "path" (parameter lightsamplestrategy: "uniform", "power" or
+"spatial", any other name meaning "spatial", as in the JAX package),
+"spectralpath" (parameter numCABands; it samples lights uniformly, as the
+JAX package's does) and "metadata" (parameter strategy).  Every other
+integrator name raises NotImplementedError, as do the render settings the
+port does not carry (a crop window, a sample-luminance clamp, an
+rrthreshold other than 1).
 """
 
 from __future__ import annotations
@@ -17,6 +17,14 @@ from pbrt_tpu_torch.integrators import path as pathmod
 from pbrt_tpu_torch.integrators import spectralpath
 
 INTEGRATORS = ("path", "spectralpath", "metadata")
+LIGHT_STRATEGIES = ("uniform", "power", "spatial")
+
+
+def light_strategy(integrator_params):
+    """The path integrator's light strategy: lightsamplestrategy when it
+    is one of LIGHT_STRATEGIES, else (pbrt's default too) "spatial"."""
+    s = integrator_params.get("lightsamplestrategy", "spatial")
+    return s if s in LIGHT_STRATEGIES else "spatial"
 
 
 def render_with_integrator(job, camera, film, cfg, spp, max_depth,
@@ -29,14 +37,6 @@ def render_with_integrator(job, camera, film, cfg, spp, max_depth,
         raise NotImplementedError(
             f'Integrator "{kind}" is not ported to pbrt_tpu_torch')
     ip = job.integrator_params
-    strategy = ip.get("lightsamplestrategy", "spatial")
-    # with one light every strategy picks it with probability 1, which is
-    # what the ported uniform selection does
-    if (kind == "path" and strategy != "uniform"
-            and job.scene.n_lights > 1):
-        raise NotImplementedError(
-            f'lightsamplestrategy "{strategy}" with {job.scene.n_lights} '
-            "lights is not ported (only uniform)")
     if ip.get("rrthreshold", 1.0) != pathmod.RR_THRESHOLD:
         raise NotImplementedError("rrthreshold other than "
                                   f"{pathmod.RR_THRESHOLD} is not ported")
@@ -45,8 +45,11 @@ def render_with_integrator(job, camera, film, cfg, spp, max_depth,
     if job.max_sample_luminance < 1e30:
         raise NotImplementedError("maxsampleluminance is not ported")
     trace_fn = None
+    trace_kwargs = {}
     gen = pathmod.generate_fn(camera)
-    if kind == "spectralpath":
+    if kind == "path":
+        trace_kwargs["light_strategy"] = light_strategy(ip)
+    elif kind == "spectralpath":
         trace_fn = spectralpath.make_trace_spectral(
             num_ca_bands=ip.get("numCABands", 4), camera=camera,
             generate_rays=gen, width=film.width, height=film.height)
@@ -56,4 +59,4 @@ def render_with_integrator(job, camera, film, cfg, spp, max_depth,
                           max_depth=max_depth,
                           max_rays_per_pass=max_rays_per_pass,
                           count_rays=count_rays, trace_fn=trace_fn,
-                          generate_rays=gen)
+                          generate_rays=gen, trace_kwargs=trace_kwargs)

@@ -15,9 +15,19 @@ bounce).  Bump maps perturb the shading normal before the shading frame
 is built, and a mix material picks its component with its own sampler
 dimension.
 
-Not ported yet: subsurface (BSSRDF probe), hair, environment lights,
-the "all" / "power" / "spatial" light strategies and the
-primary-sample-space `uniforms` hook.
+Lights: NEE picks one light per lane by the `light_strategy` ("uniform",
+"power" or "spatial", lights/distrib.py), and emission found by a BSDF
+sample (at an area light, or the infinite light on an escaped ray) is
+MIS-weighted against that strategy's selection pdf; delta lights take
+weight 1.  NEE's own MIS weight uses the light's pdf alone, without the
+selection pdf, as the JAX package's does, so the two weights sum to 1
+only where a light is picked with probability 1 and the image of a
+non-delta light depends on the strategy (a recorded deviation from the
+reference's estimator).  Shadow rays toward a sphere light ignore its
+own sphere (intersect.nee_ignore_light).
+
+Not ported yet: subsurface (BSSRDF probe), hair, the "all" strategy
+(directlighting's) and the primary-sample-space `uniforms` hook.
 """
 
 from __future__ import annotations
@@ -55,7 +65,8 @@ def _bdim(bounce, k):
 
 def trace_paths(scene: ir.SceneData, ray: geom.Ray, pixel_id, sample_idx,
                 cfg: SamplerConfig, max_depth=5, count_rays=False,
-                wavelength_mask=None, tex_spread=0.0, ray_diff=None):
+                wavelength_mask=None, tex_spread=0.0, ray_diff=None,
+                light_strategy="uniform"):
     """Radiance [B,31] for a batch of camera rays.
 
     count_rays: also return the rays traced, counted as the JAX package
@@ -65,7 +76,8 @@ def trace_paths(scene: ir.SceneData, ray: geom.Ray, pixel_id, sample_idx,
     transport to a band of bins (integrators/spectralpath.py).
     tex_spread: the camera's pixel spread (camera_pixel_spread); 0 keeps
     every texture lookup at the finest level.  ray_diff: the camera rays'
-    differentials (camera_ray_differentials) or None."""
+    differentials (camera_ray_differentials) or None.  light_strategy:
+    "uniform", "power" or "spatial" (lights/distrib.py)."""
     B = ray.o.shape[0]
     dev = ray.o.device
 
@@ -91,19 +103,34 @@ def trace_paths(scene: ir.SceneData, ray: geom.Ray, pixel_id, sample_idx,
     rd = ray_diff          # followed through specular bounces below
     textured = scene.tex_type.shape[0] > 1
     for bounce in range(max_depth + 1):
+        dnorm = geom.normalize(ray.d)
         # ---- emitted radiance at the hit, MIS'd against NEE ----
         le = lights.area_le(scene, hit.light, hit.ng, hit.wo)
         if bounce == 0:
             w_hit = torch.ones(B, device=dev)
         else:
-            sel = distrib.selection_pdf(scene, hit.t)
-            pdf_light = lights.pdf_li_area(
-                scene, hit.light, prev_p, geom.normalize(ray.d), hit.t,
-                hit.ng) * sel
+            sel = distrib.selection_pdf(scene, light_strategy, prev_p,
+                                        hit.light)
+            pdf_light = lights.pdf_li_area(scene, hit.light, prev_p, dnorm,
+                                           hit.t, hit.ng) * sel
             w_hit = torch.where(specular, 1.0, sampling.power_heuristic(
                 1.0, prev_pdf, 1.0, pdf_light))
         L = L + torch.where((alive & hit.valid)[:, None],
                             beta * le * w_hit[:, None], 0.0)
+        # ---- escaped rays: the infinite light (path.cpp:100-103) ----
+        if scene.has_infinite:
+            env = lights.env_le(scene, dnorm)
+            if bounce == 0:
+                w_env = torch.ones(B, device=dev)
+            else:
+                sel_env = distrib.selection_pdf(
+                    scene, light_strategy, prev_p,
+                    torch.full_like(hit.light, scene.inf_light_idx))
+                pdf_env = lights.pdf_li_infinite(scene, dnorm) * sel_env
+                w_env = torch.where(specular, 1.0, sampling.power_heuristic(
+                    1.0, prev_pdf, 1.0, pdf_env))
+            L = L + torch.where((alive & ~hit.valid)[:, None],
+                                beta * env * w_env[:, None], 0.0)
         alive = alive & hit.valid
         if count_rays:
             n_rays[3] += alive.sum()
@@ -129,7 +156,8 @@ def trace_paths(scene: ir.SceneData, ray: geom.Ray, pixel_id, sample_idx,
         # ---- NEE: one light, power-heuristic MIS; the shadow ray is
         # traced with the next bounce's closest-hit rays ----
         if scene.n_lights > 0:
-            l, sel_pdf = distrib.select_light(scene, sdim(_bdim(bounce, 0)))
+            l, sel_pdf = distrib.select_light(scene, light_strategy, hit.p,
+                                              sdim(_bdim(bounce, 0)))
             wi, li, pdf_l, dist, delta_l = lights.sample_li(
                 scene, l, hit.p, hit.ns, sdim(_bdim(bounce, 1)),
                 sdim(_bdim(bounce, 2)))
@@ -148,7 +176,7 @@ def trace_paths(scene: ir.SceneData, ray: geom.Ray, pixel_id, sample_idx,
             contrib = beta * f * li * (
                 w_l / torch.clamp(pdf_l * sel_pdf, min=1e-12))[:, None]
         else:
-            sray = cand = contrib = None
+            l = sray = cand = contrib = None
 
         # ---- BSDF sampling (path.cpp:141-148) ----
         wi_l, f, pdf, is_spec, transmitted, eta_fac = bsdf.sample_f(
@@ -185,7 +213,9 @@ def trace_paths(scene: ir.SceneData, ray: geom.Ray, pixel_id, sample_idx,
         # ---- combined trace: next closest hit + this bounce's shadow ----
         if count_rays:
             n_rays[0] += (ray.tmax > 0).sum()
-        hit, occ = isect.trace_pair(scene, ray, sray, ray_diff=rd)
+        hit, occ = isect.trace_pair(
+            scene, ray, sray, ignore_light=isect.nee_ignore_light(scene, l),
+            ray_diff=rd)
         if sray is not None:
             L = L + torch.where((cand & ~occ)[:, None], contrib, 0.0)
 
@@ -332,13 +362,14 @@ def trace_options(scene, camera, trace_fn):
 
 def render(scene, camera, film, cfg: SamplerConfig, spp, max_depth=5,
            max_rays_per_pass=1 << 18, count_rays=False, trace_fn=None,
-           generate_rays=None):
+           generate_rays=None, trace_kwargs=None):
     """Full render: fixed-shape passes over (sample, pixel chunk); the
     samples of every pass splat into `film` in place.
 
     trace_fn(scene, ray, pixel_id, sample_idx, cfg, max_depth=...) -> L
-    [B,31] traces a pass (default trace_paths); generate_rays makes the
-    camera rays (default: the camera's, generate_fn).  Returns the film, or
+    [B,31] traces a pass (default trace_paths), given trace_kwargs (e.g.
+    light_strategy) beyond its own; generate_rays makes the camera rays
+    (default: the camera's, generate_fn).  Returns the film, or
     (film, rays traced) with count_rays: rays as trace_paths counts them
     with count_rays=True, or None when trace_fn takes no count_rays."""
     H, W = film.height, film.width
@@ -356,6 +387,7 @@ def render(scene, camera, film, cfg: SamplerConfig, spp, max_depth=5,
         generate_rays = generate_fn(camera)
     counts = "count_rays" in inspect.signature(trace_fn).parameters
     tkw, use_ray_diff = trace_options(scene, camera, trace_fn)
+    tkw.update(trace_kwargs or {})
     total = torch.zeros((), dtype=torch.int64, device=dev)
     for s in range(spp):
         for pixel_ids in id_chunks:

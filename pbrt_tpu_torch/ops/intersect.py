@@ -12,10 +12,9 @@ and direction into the motion K2, and `make_hit` moves the winner's
 vertices to that time; moving spheres are intersected, and their normals
 taken, through the transform interpolated at the ray's time.
 
-Sphere area lights are not ported, so the JAX package's sphere-light
-exclusion for shadow rays (`nee_ignore_light`, `_shadow_anyhit`) reduces
-to "every shadow lane is an any-hit lane" and is folded into
-`trace_pair`.
+Shadow rays toward a sphere light run closest-hit and drop a hit on that
+light's own sphere (`nee_ignore_light`, `trace_pair(ignore_light=)`);
+every other shadow lane is an any-hit lane.
 """
 
 from __future__ import annotations
@@ -445,23 +444,52 @@ def intersect_full(scene: SceneData, ray: geom.Ray, presorted=False,
     return make_hit(scene, ray, t, prim, found, ray_diff=ray_diff)
 
 
-def trace_pair(scene: SceneData, nray: geom.Ray, sray, ray_diff=None):
+def nee_ignore_light(scene: SceneData, l):
+    """The light each shadow lane must not count as an occluder: the
+    sampled light l [B] where it is a sphere light, else -1; None when the
+    scene has no sphere lights.
+
+    Mesh and delta lights have an exact sample distance, so the shadow
+    ray's tmax shave (spawn_shadow_ray) keeps the light's own geometry
+    out of the segment, and a mesh light's own faces still occlude, as in
+    the reference (SpawnRayTo's 1 - ShadowEpsilon).  A sphere light's
+    sample distance is approximate in f32, so its own sphere is excluded
+    by id (the JAX package's rule)."""
+    if l is None or not scene.has_sphere_lights:
+        return None
+    lq = scene.light_quad[torch.clamp(l, 0, scene.light_quad.shape[0] - 1)]
+    return torch.where((l >= 0) & (lq >= 0), l, -1)
+
+
+def trace_pair(scene: SceneData, nray: geom.Ray, sray, ignore_light=None,
+               ray_diff=None):
     """Trace a bounce's closest-hit rays and NEE shadow rays as ONE batch
     (one sort, one K1 and one K2 launch).  Returns (Hit for nray,
-    occluded [B] for sray); the shadow half runs any-hit.  ray_diff: the
-    closest-hit rays' differentials (make_hit)."""
+    occluded [B] for sray).
+
+    The shadow half runs any-hit, but for lanes whose ignore_light [sB]
+    (nee_ignore_light) is a light: those run closest-hit, as in the JAX
+    package, and their winner does not occlude when it is that light's
+    own sphere.  ray_diff: the closest-hit rays' differentials
+    (make_hit)."""
     if sray is None:
         return intersect_full(scene, nray, ray_diff=ray_diff), None
     B = nray.o.shape[0]
+    dev = nray.o.device
     both = geom.Ray(*(torch.cat([getattr(nray, f), getattr(sray, f)])
                       for f in ("o", "d", "tmax", "wavelength", "time")))
-    amask = torch.cat([torch.zeros(B, dtype=torch.bool, device=nray.o.device),
-                       torch.ones(sray.o.shape[0], dtype=torch.bool,
-                                  device=nray.o.device)])
+    sh_any = (torch.ones(sray.o.shape[0], dtype=torch.bool, device=dev)
+              if ignore_light is None else ignore_light < 0)
+    amask = torch.cat([torch.zeros(B, dtype=torch.bool, device=dev), sh_any])
     t, prim, found = intersect(scene, both, anyhit_mask=amask)
     hit = make_hit(scene, nray, t[:B], prim[:B], found[:B],
                    ray_diff=ray_diff)
-    return hit, found[B:]
+    occ = found[B:]
+    if ignore_light is not None:
+        # the winner's light: a sphere light's id only on its sphere
+        hit_light = scene.prim_light[torch.clamp(prim[B:], min=0).long()]
+        occ = occ & ~((ignore_light >= 0) & (hit_light == ignore_light))
+    return hit, occ
 
 
 def spawn_ray(p, ng, direction, wavelength, time=None, tmax=None,

@@ -14,8 +14,12 @@ wrinkled, marble, windy), Material and MakeNamedMaterial / NamedMaterial
 for "" / "none", matte, plastic, mirror, glass (rough glass too), metal,
 uber, substrate, translucent, retroreflective, disney and mix, with
 texture-valued Kd / Ks, "string distribution" ("ggx" or "beckmann") and
-"texture bumpmap", AreaLightSource "diffuse", and Shape "trianglemesh"/
-"sphere".  Each keeps the JAX package's semantics and warnings,
+"texture bumpmap", LightSource "point"/"spot"/"distant"/"infinite"/
+"exinfinite" (an env map in any format film/io.py reads)/"goniometric"/
+"projection" (an unknown light skipped with a warning, as in the JAX
+package), AreaLightSource "diffuse" on a trianglemesh or a sphere, and
+Shape "trianglemesh"/"sphere".  Each keeps the JAX package's semantics
+and warnings,
 including the two-keyframe CTM that gives meshes and spheres motion blur
 and the imagemap that cannot be read becoming a 0.5 constant.  Every
 other directive, and every other kind of camera, film, filter, material
@@ -245,7 +249,7 @@ class PbrtAPI:
         self.camera_kind = unquote(s.next())
         if self.camera_kind not in CAMERA_KINDS:
             raise _unported(f'Camera "{self.camera_kind}"')
-        self.camera_params = parse_param_list(s)
+        self.camera_params = parse_param_list(s, self.scene_dir)
         self.camera_to_world = self.ctm[0].inverse()
         self.camera_to_world1 = (None if np.allclose(self.ctm[1].m,
                                                      self.ctm[0].m)
@@ -255,21 +259,21 @@ class PbrtAPI:
         name = unquote(s.next())
         if name != "image":
             raise _unported(f'Film "{name}"')
-        self.film_params = parse_param_list(s)
+        self.film_params = parse_param_list(s, self.scene_dir)
 
     def _d_PixelFilter(self, s):
         self.filter_name = unquote(s.next())
         if self.filter_name not in FILTER_KINDS:
             raise _unported(f'PixelFilter "{self.filter_name}"')
-        self.filter_params = parse_param_list(s)
+        self.filter_params = parse_param_list(s, self.scene_dir)
 
     def _d_Sampler(self, s):
         self.sampler_kind = unquote(s.next())
-        self.sampler_params = parse_param_list(s)
+        self.sampler_params = parse_param_list(s, self.scene_dir)
 
     def _d_Integrator(self, s):
         self.integrator_kind = unquote(s.next())
-        self.integrator_params = parse_param_list(s)
+        self.integrator_params = parse_param_list(s, self.scene_dir)
 
     def _d_Include(self, s):
         name = unquote(s.next())
@@ -299,7 +303,7 @@ class PbrtAPI:
         name = unquote(s.next())
         ttype = unquote(s.next())       # "float" | "color" / "spectrum"
         tclass = unquote(s.next())      # constant, scale, imagemap, ...
-        ps = parse_param_list(s)
+        ps = parse_param_list(s, self.scene_dir)
         value = self._make_texture(ttype, tclass, ps)
         if ttype == "float":
             self.graphics.float_textures[name] = value
@@ -396,12 +400,12 @@ class PbrtAPI:
     # ---------------------------------------------------------- materials
     def _d_Material(self, s):
         mname = unquote(s.next())
-        ps = parse_param_list(s)
+        ps = parse_param_list(s, self.scene_dir)
         self.graphics.material_id = self._make_material(mname, ps)
 
     def _d_MakeNamedMaterial(self, s):
         name = unquote(s.next())
-        ps = parse_param_list(s)
+        ps = parse_param_list(s, self.scene_dir)
         mtype = ps.find_one_string("type", "matte")
         self.graphics.named_materials[name] = self._make_material(
             mtype, ps, name=name)
@@ -571,11 +575,72 @@ class PbrtAPI:
         return self.builder.add_material(m)
 
     # ------------------------------------------------------------- lights
+    def _d_LightSource(self, s):
+        lname = unquote(s.next())
+        ps = parse_param_list(s, self.scene_dir)
+        xf = self.ctm[0]
+        sc = ps.find_one_spectrum("scale", 1.0)
+        b = self.builder
+
+        def from_to():
+            return (xf.apply_point(ps.find_one_point("from", [0, 0, 0])),
+                    xf.apply_point(ps.find_one_point("to", [0, 0, 1])))
+
+        if lname == "point":
+            I = ps.find_one_spectrum("I", 1.0) * sc
+            b.add_point_light(xf.apply_point(ps.find_one_point("from",
+                                                               [0, 0, 0])), I)
+        elif lname == "spot":
+            I = ps.find_one_spectrum("I", 1.0) * sc
+            frm, to = from_to()
+            cone = ps.find_one_float("coneangle", 30.0)
+            delta = ps.find_one_float("conedeltaangle", 5.0)
+            b.add_spot_light(frm, np.asarray(to) - np.asarray(frm), I,
+                             float(np.cos(np.radians(cone))),
+                             float(np.cos(np.radians(cone - delta))))
+        elif lname == "distant":
+            L = ps.find_one_spectrum("L", 1.0) * sc
+            frm, to = from_to()
+            b.add_distant_light(np.asarray(to) - np.asarray(frm), L)
+        elif lname in ("infinite", "exinfinite"):
+            L = ps.find_one_spectrum("L", 1.0) * sc
+            mapname = self._filename(ps, "mapname")
+            env = _load_env_map(mapname, L) if mapname else None
+            b.add_infinite_light(L, env_map=env, light_to_world=xf)
+        elif lname in ("goniometric", "projection"):
+            I = ps.find_one_spectrum("I", 1.0) * sc
+            p = xf.apply_point(np.zeros(3))
+            d = xf.apply_normal(np.asarray([0.0, 0.0, 1.0]))
+            d = d / max(np.linalg.norm(d), 1e-12)
+            mapname = self._filename(ps, "mapname")
+            tex_id = 0
+            if mapname:
+                try:
+                    tex_id = b.textures.add(texmod.TEX_IMAGE, image=mapname)
+                except NotImplementedError:
+                    if os.path.exists(mapname):
+                        raise  # a file in a format the port does not read
+                    log.warning("light map %r failed (no such file)",
+                                mapname)
+                except Exception as e:
+                    log.warning("light map %r failed (%s)", mapname, e)
+            fov = ps.find_one_float("fov", 45.0)
+            b.add_light(type=(ir.LIGHT_GONIO if lname == "goniometric"
+                              else ir.LIGHT_PROJECTION),
+                        pos=np.asarray(p, np.float32),
+                        dir=d.astype(np.float32), L=np.asarray(I, np.float32),
+                        params=np.array([0, 0, tex_id,
+                                         np.cos(np.radians(fov) / 2)],
+                                        np.float32))
+        else:
+            log.warning("unknown light %r; skipped", lname)
+        _check_unused(ps, f"light {lname}")
+
     def _d_AreaLightSource(self, s):
         lname = unquote(s.next())
         if lname not in ("diffuse", "area"):
             raise _unported(f'AreaLightSource "{lname}"')
-        ps = parse_param_list(s)
+        ps = parse_param_list(s, self.scene_dir)
         L = ps.find_one_spectrum("L", 1.0) * ps.find_one_spectrum("scale",
                                                                   1.0)
         self.graphics.area_light = {
@@ -587,7 +652,7 @@ class PbrtAPI:
         sname = unquote(s.next())
         if sname not in ("trianglemesh", "sphere"):
             raise _unported(f'Shape "{sname}"')
-        ps = parse_param_list(s)
+        ps = parse_param_list(s, self.scene_dir)
         xf = self.ctm[0]
         # a second CTM keyframe that differs gives the shape motion blur
         xf1 = None if np.allclose(self.ctm[1].m, xf.m) else self.ctm[1]
@@ -686,6 +751,13 @@ class PbrtAPI:
                 "strategy": ip.find_one_string("strategy", "depth")},
             instance_names=self.instance_names,
             material_names=self.builder.material_names)
+
+
+def _load_env_map(path, scale):
+    """An env map image as [H,W,31] illuminant spectra times scale [31]."""
+    from pbrt_tpu_torch.film.io import read_image
+    return (spec.from_rgb_np(read_image(path), "illuminant")
+            * scale[None, None, :])
 
 
 def parse_scene(path, device=None):

@@ -2,12 +2,15 @@
 src/core/paramset.{h,cpp}).
 
 Parses pbrt's `"type name" [values]` declarations into a dict-backed
-ParamSet with the reference's Find/FindOne lookup semantics.  Spectra are
-ported for `rgb`/`color` values and inline (lambda, value) pairs; `xyz`,
-`blackbody` and `.spd` files raise NotImplementedError.
+ParamSet with the reference's Find/FindOne lookup semantics.  Spectra:
+`rgb`/`color`, `xyz`, `blackbody` [T scale ...] pairs, and `spectrum` as
+inline (lambda, value) pairs or an `.spd` file, read relative to the
+scene's directory.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -20,9 +23,10 @@ PARAM_TYPES = {"integer", "float", "bool", "string", "point", "point2",
 
 
 class ParamSet:
-    def __init__(self):
+    def __init__(self, scene_dir="."):
         self.items = {}       # name -> (type, values list)
         self.used = set()
+        self.scene_dir = scene_dir
 
     def add(self, ptype, name, values):
         self.items[name] = (ptype, values)
@@ -59,6 +63,10 @@ class ParamSet:
         it = self._get(name)
         return np.asarray(it[1], np.int64) if it else None
 
+    def find_one_point(self, name, default):
+        it = self._get(name)
+        return np.asarray(it[1][:3] if it else default, np.float64)
+
     def find_points(self, name):
         it = self._get(name)
         return None if not it else np.asarray(it[1], np.float64).reshape(-1, 3)
@@ -72,7 +80,10 @@ class ParamSet:
         return str(it[1][0]) if it and it[0] == "texture" else None
 
     def find_one_spectrum(self, name, default, kind="illuminant"):
-        """A [31] spectrum; default: a scalar or a [31] array.
+        """A [31] spectrum; default: a scalar or a [31] array.  Takes
+        rgb/color, xyz, blackbody [T scale]... (each pair the normalized
+        blackbody times its scale, summed), spectrum [l v l v ...] and
+        spectrum "file.spd" (reference paramset.cpp:110-187).
 
         kind is "illuminant" by default because the reference converts
         every rgb parameter, reflectances included, as an illuminant
@@ -85,25 +96,45 @@ class ParamSet:
         ptype, vals = it
         if ptype in ("rgb", "color"):
             return spec.from_rgb_np(np.asarray(vals[:3], np.float64), kind)
-        if ptype == "spectrum" and not isinstance(vals[0], str):
+        if ptype == "xyz":
+            rgb = np.asarray(vals[:3], np.float64) @ spec.XYZ_TO_RGB.T
+            return spec.from_rgb_np(rgb, kind)
+        if ptype == "blackbody":
+            out = np.zeros(spec.N_SPECTRAL_SAMPLES)
+            for i in range(0, len(vals), 2):
+                scale = float(vals[i + 1]) if i + 1 < len(vals) else 1.0
+                out = out + spec.blackbody_spectrum(float(vals[i]), scale)
+            return out.astype(np.float32)
+        if ptype == "spectrum":
+            if isinstance(vals[0], str):
+                lam, v = read_spd(os.path.join(self.scene_dir, vals[0]))
+                return spec.from_sampled(lam, v).astype(np.float32)
             arr = np.asarray(vals, np.float64)
             return spec.from_sampled(arr[0::2], arr[1::2]).astype(np.float32)
         if ptype == "float":
             return np.full(spec.N_SPECTRAL_SAMPLES, float(vals[0]), np.float32)
-        if ptype in ("xyz", "blackbody", "spectrum"):
-            what = ".spd file" if ptype == "spectrum" else ptype
-            raise NotImplementedError(
-                f"param {name}: {what} spectra are not ported yet")
         raise ValueError(f"param {name}: type {ptype} is not a spectrum")
 
     def unused(self):
         return [n for n in self.items if n not in self.used]
 
 
-def parse_param_list(stream):
+def read_spd(path):
+    """Whitespace-separated (lambda, value) pairs, `#` comments (the
+    reference's ReadFloatFile and .spd convention, floatfile.cpp)."""
+    nums = []
+    with open(path) as f:
+        for line in f:
+            nums.extend(float(x) for x in line.split("#")[0].split())
+    arr = np.asarray(nums)
+    return arr[0::2], arr[1::2]
+
+
+def parse_param_list(stream, scene_dir="."):
     """Consume `"type name" [values...]` declarations until a non-quoted
-    token (the next directive) and return a ParamSet."""
-    ps = ParamSet()
+    token (the next directive) and return a ParamSet whose file
+    parameters are relative to scene_dir."""
+    ps = ParamSet(scene_dir)
     while True:
         tok = stream.peek()
         if tok is None or not is_quoted(tok):

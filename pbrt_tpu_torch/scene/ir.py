@@ -1,11 +1,15 @@
 """Scene intermediate representation (port of pbrt_tpu.scene.ir).
 
-`SceneBuilder` assembles triangle meshes, spheres, mesh area lights, the
-surface materials of PORTED_MATERIALS and the texture table on the host,
+`SceneBuilder` assembles triangle meshes, spheres, the lights (point,
+spot, distant, goniometric, projection, area lights on meshes and
+spheres, infinite lights with or without an env map), the surface
+materials of PORTED_MATERIALS and the texture table on the host,
 orders the primitives by the BVH, and returns a `SceneData`: a dataclass
 of tensors with only the columns the path tracer reads, and the static
 flags (material families, texture kinds, bump, mix, Beckmann, Disney)
-that keep absent families out of the launch stream.  Per-primitive and
+that keep absent families out of the launch stream (the light kinds
+among them).  The light-selection tables of lights/distrib.py and the
+env map's sampling tables are built here too.  Per-primitive and
 per-material data are plain tables indexed per lane; the TPU package's
 one-gather packings (`shade_all`, `mat_packed`) are not carried over.
 Hair, fourier, the subsurface materials and ptex textures are not ported:
@@ -39,7 +43,14 @@ from pbrt_tpu_torch.textures.textures import TEX_PTEX, TextureTable
 PRIM_TRIANGLE = 0
 PRIM_SPHERE = 1
 
-LIGHT_AREA = 2
+# light type tags
+LIGHT_POINT = 0
+LIGHT_DISTANT = 1
+LIGHT_AREA = 2          # emissive primitives (a mesh or a sphere)
+LIGHT_INFINITE = 3
+LIGHT_SPOT = 4
+LIGHT_GONIO = 5
+LIGHT_PROJECTION = 6
 
 # material type tags (reference dispatch: api.cpp:552-625)
 MAT_NONE = -1          # "" / "none": a pass-through interface
@@ -85,8 +96,14 @@ MAT_COLUMNS = ("mat_type", "mat_kd", "mat_ks", "mat_kr", "mat_kt",
                "mat_mix_a", "mat_mix_b", "mat_mix_amt", "mat_disney")
 TEX_COLUMNS = ("tex_images", "tex_type", "tex_params", "tex_c1", "tex_c2",
                "world_radius")
-LIGHT_COLUMNS = ("light_L", "light_two_sided", "light_area",
-                 "light_tri_idx", "light_tri_cdf", "light_tri_packed")
+LIGHT_COLUMNS = ("light_type", "light_L", "light_pos", "light_dir",
+                 "light_params", "light_quad", "light_two_sided",
+                 "light_area", "light_tri_idx", "light_tri_cdf",
+                 "light_tri_packed", "light_sph_center", "light_sph_radius",
+                 "light_power_cdf", "light_power_pmf", "light_spatial_cdf",
+                 "light_spatial_pmf", "env_map", "env_cond_cdf",
+                 "env_marg_cdf", "env_cond_int", "env_to_world",
+                 "env_to_light", "world_lo", "world_hi")
 JAX_COLUMNS = (PRIM_COLUMNS + QUAD_COLUMNS + MAT_COLUMNS + LIGHT_COLUMNS
                + TEX_COLUMNS)
 # what scene_from_jax reads from pbrt_tpu's packed material table, which
@@ -98,7 +115,8 @@ JAX_ARRAYS = JAX_COLUMNS + ("mat_packed",)
 JAX_STATICS = ("n_lights", "n_quadrics", "clip_quadrics", "dense_chunk",
                "has_animated_mesh", "has_animated_quads", "dense_motion",
                "has_disney", "has_mix", "has_beckmann", "has_bump",
-               "mat_families", "tex_kinds")
+               "mat_families", "tex_kinds", "light_kinds", "has_mesh_lights",
+               "has_sphere_lights", "has_infinite", "inf_light_idx")
 # pbrt_tpu/scene/ir.py's MPK_* offsets into a mat_packed row
 _NS = spec.N_SPECTRAL_SAMPLES
 _MPK_ETA_SPEC, _MPK_K_SPEC, _MPK_OPACITY = 4 * _NS, 5 * _NS, 6 * _NS
@@ -152,13 +170,37 @@ class SceneData:
     mat_k_spec: torch.Tensor       # [M,31] conductor k (metal)
     mat_opacity: torch.Tensor      # [M,31] (uber; 1 elsewhere)
     mat_beckmann: torch.Tensor     # [M] bool: Beckmann, not GGX
-    # --- mesh area lights ---
-    light_L: torch.Tensor          # [L,31]
+    # --- lights (a scene without lights holds one black point light) ---
+    light_type: torch.Tensor       # [L] LIGHT_*
+    light_L: torch.Tensor          # [L,31] radiance / intensity
+    light_pos: torch.Tensor        # [L,3] point, spot, mapped lights
+    light_dir: torch.Tensor        # [L,3] spot / distant / mapped axis
+    light_params: torch.Tensor     # [L,4] spot: cos total, cos falloff;
+    #                                mapped: -, -, texture id, cos(fov/2)
+    light_quad: torch.Tensor       # [L] quadric of a sphere light, -1
     light_two_sided: torch.Tensor  # [L] bool
-    light_area: torch.Tensor       # [L]
+    light_area: torch.Tensor       # [L] mesh or sphere area
     light_tri_idx: torch.Tensor    # [L,T] prim indices, -1 pad
     light_tri_cdf: torch.Tensor    # [L,T+1] area cdf
     light_tri_packed: torch.Tensor  # [L*T,10] v0|e1|e2|flip
+    light_sph_center: torch.Tensor  # [L,3] sphere light centre (world)
+    light_sph_radius: torch.Tensor  # [L] sphere light radius (world)
+    # light selection (lights/distrib.py): power, and per voxel of the
+    # GRID^3 grid over [world_lo, world_hi]
+    light_power_cdf: torch.Tensor   # [L+1]
+    light_power_pmf: torch.Tensor   # [L]
+    light_spatial_cdf: torch.Tensor  # [G^3,L+1]
+    light_spatial_pmf: torch.Tensor  # [G^3,L]
+    # the (last) infinite light's equirect map, 1x1 for a constant one
+    # (black without one), and its 2D sampling tables
+    env_map: torch.Tensor          # [He,We,31]
+    env_cond_cdf: torch.Tensor     # [He,We+1] per-row cdf
+    env_marg_cdf: torch.Tensor     # [He+1] row cdf
+    env_cond_int: torch.Tensor     # [He] row integrals
+    env_to_world: torch.Tensor     # [4,4]
+    env_to_light: torch.Tensor     # [4,4]
+    world_lo: torch.Tensor         # [3] scene bounds
+    world_hi: torch.Tensor         # [3]
     # --- dense intersector tables (ops/dense_intersect.py) ---
     dense_w: torch.Tensor          # [C,16,4*chunk] f32 sections s1|s2|num|s0
     #                                (motion: [C,16,N_COEF*4*chunk])
@@ -174,6 +216,9 @@ class SceneData:
     tex_c1: torch.Tensor           # [T,3]
     tex_c2: torch.Tensor           # [T,3]
     world_radius: torch.Tensor     # [] half the scene's diagonal + 1e-3
+    # the env map's luminance (the sampling tables' f32 product), so that
+    # env sampling gathers one value a lane, not a row of spectra
+    env_lum: torch.Tensor = None   # [He,We]
     # --- statics ---
     n_lights: int = 0
     n_quadrics: int = 0
@@ -191,6 +236,13 @@ class SceneData:
     has_mix: bool = False
     has_beckmann: bool = False
     has_bump: bool = False
+    # the light kinds present (LIGHT_*, sorted): sample_li launches only
+    # these; area lights on meshes and on spheres separately
+    light_kinds: tuple = ()
+    has_mesh_lights: bool = False
+    has_sphere_lights: bool = False
+    has_infinite: bool = False
+    inf_light_idx: int = 0         # the first infinite light's index
 
     def to(self, device):
         return dataclasses.replace(self, **{
@@ -238,7 +290,7 @@ class MaterialSpec:
 class SceneBuilder:
     """Host-side scene assembly -> SceneData."""
     materials: list = field(default_factory=list)
-    lights: list = field(default_factory=list)     # ([31] radiance, 2-sided)
+    lights: list = field(default_factory=list)     # dicts (add_light)
     quads: list = field(default_factory=list)      # (o2w, w2o, params, o2w1)
     material_names: dict = field(default_factory=dict)
     has_animated_mesh: bool = False
@@ -258,11 +310,50 @@ class SceneBuilder:
             self.material_names[mid] = mspec.name
         return mid
 
+    def add_light(self, **kw) -> int:
+        """A light record: type (LIGHT_*), L [31], pos, dir, params [4],
+        two_sided, and for an infinite light env_map [He,We,31] and
+        light_to_world (a Transform).  Returns its id."""
+        rec = dict(type=LIGHT_POINT,
+                   L=np.zeros(spec.N_SPECTRAL_SAMPLES, np.float32),
+                   pos=np.zeros(3, np.float32),
+                   dir=np.array([0, 0, 1], np.float32),
+                   params=np.zeros(4, np.float32), quad=-1, two_sided=False)
+        rec.update(kw)
+        self.lights.append(rec)
+        return len(self.lights) - 1
+
     def add_area_light(self, L, two_sided=False) -> int:
         """A diffuse area light with radiance L [31]; returns its id, which
-        a mesh takes as light_id."""
-        self.lights.append((np.asarray(L, np.float32), bool(two_sided)))
-        return len(self.lights) - 1
+        a mesh or a sphere takes as light_id."""
+        return self.add_light(type=LIGHT_AREA, L=np.asarray(L, np.float32),
+                              two_sided=two_sided)
+
+    def add_point_light(self, pos, I):
+        return self.add_light(type=LIGHT_POINT,
+                              pos=np.asarray(pos, np.float32),
+                              L=np.asarray(I, np.float32))
+
+    def add_distant_light(self, direction, L):
+        d = np.asarray(direction, np.float64)
+        d = d / np.linalg.norm(d)
+        return self.add_light(type=LIGHT_DISTANT, dir=d.astype(np.float32),
+                              L=np.asarray(L, np.float32))
+
+    def add_infinite_light(self, L, env_map=None, light_to_world=None):
+        return self.add_light(type=LIGHT_INFINITE,
+                              L=np.asarray(L, np.float32), env_map=env_map,
+                              light_to_world=light_to_world)
+
+    def add_spot_light(self, pos, direction, I, cos_total, cos_falloff):
+        d = np.asarray(direction, np.float64)
+        d = d / np.linalg.norm(d)
+        return self.add_light(type=LIGHT_SPOT,
+                              pos=np.asarray(pos, np.float32),
+                              dir=d.astype(np.float32),
+                              L=np.asarray(I, np.float32),
+                              params=np.array([cos_total, cos_falloff, 0, 0],
+                                              np.float32))
 
     def _add_chunk(self, F, tri_v, tri_ns, tri_uv, ptype, quad_ref,
                    material_id, light_id, instance_id, flip, tri_dv=None):
@@ -434,45 +525,12 @@ class SceneBuilder:
         tex_imgs, tex_t, tex_p, tex_a, tex_b = self.textures.arrays()
         if np.any(tex_t == TEX_PTEX):
             raise NotImplementedError("ptex textures are not ported yet")
-        world_radius = np.float32(
-            0.5 * float(np.linalg.norm(hi.max(0) - lo.min(0))) + 1e-3)
-
-        # mesh area lights: padded per-light triangle lists + area CDFs
-        Lc = max(len(self.lights), 1)
-        inv_order = np.zeros(P, np.int64)
-        inv_order[order] = np.arange(P)
-        max_lt = max([len(v) for v in self._mesh_light_tris.values()] + [1])
-        lt_idx = np.full((Lc, max_lt), -1, np.int32)
-        lt_cdf = np.zeros((Lc, max_lt + 1), np.float32)
-        l_area = np.zeros(Lc, np.float32)
-        for li in range(len(self.lights)):
-            tris = self._mesh_light_tris.get(li)
-            if not tris:
-                raise NotImplementedError(
-                    "area lights on quadrics are not ported yet")
-            t_old = np.asarray(tris)
-            v = soa["tri_v"][t_old]
-            areas = 0.5 * np.linalg.norm(
-                np.cross(v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]), axis=-1)
-            total = areas.sum()
-            lt_idx[li, :len(tris)] = inv_order[t_old]
-            lt_cdf[li, 1:len(tris) + 1] = np.cumsum(areas) / max(total, 1e-20)
-            lt_cdf[li, len(tris) + 1:] = 1.0
-            l_area[li] = total
-        flat_lt = lt_idx.reshape(-1)
-        lt_safe = np.clip(flat_lt, 0, P - 1)
-        lt_valid = (flat_lt >= 0).astype(np.float32)[:, None]
-        prim_flip = reorder("prim_flip", bool)
-        ltp = np.zeros((Lc * max_lt, 10), np.float32)
-        ltp[:, 0:3] = tri_v0[lt_safe] * lt_valid
-        ltp[:, 3:6] = tri_e1[lt_safe] * lt_valid
-        ltp[:, 6:9] = tri_e2[lt_safe] * lt_valid
-        ltp[:, 9] = prim_flip[lt_safe].astype(np.float32) * lt_valid[:, 0]
-        light_L = (np.stack([L for L, _ in self.lights]) if self.lights
-                   else np.zeros((1, spec.N_SPECTRAL_SAMPLES), np.float32))
-        two_sided = np.zeros(Lc, bool)
-        two_sided[:len(self.lights)] = [ts for _, ts in self.lights]
-
+        lo_w, hi_w = lo.min(0), hi.max(0)
+        radius = 0.5 * float(np.linalg.norm(hi_w - lo_w)) + 1e-3
+        world_radius = np.float32(radius)
+        light_arrays, light_statics = self._light_tables(
+            soa, order, reorder("prim_flip", bool), tri_v0, tri_e1, tri_e2,
+            lo_w, hi_w, radius)
         arrays = dict(
             prim_type=reorder("prim_type", np.int32),
             tri_v0=tri_v0, tri_e1=tri_e1, tri_e2=tri_e2,
@@ -482,7 +540,7 @@ class SceneBuilder:
             prim_material=reorder("prim_material", np.int32),
             prim_light=reorder("prim_light", np.int32),
             prim_instance=reorder("prim_instance", np.int32),
-            prim_flip_normal=prim_flip,
+            prim_flip_normal=reorder("prim_flip", bool),
             quad_w2o=q_w2o, quad_params=q_par, quad_prim=q_prim,
             quad_anim_t=q_at, quad_anim_q=q_aq, quad_anim_s=q_as,
             mat_type=np.asarray([m.type for m in mats], np.int32),
@@ -507,19 +565,144 @@ class SceneBuilder:
                                      for m in mats], bool),
             tex_images=tex_imgs, tex_type=tex_t, tex_params=tex_p,
             tex_c1=tex_a, tex_c2=tex_b, world_radius=world_radius,
-            light_L=light_L,
-            light_two_sided=two_sided,
-            light_area=l_area, light_tri_idx=lt_idx, light_tri_cdf=lt_cdf,
-            light_tri_packed=ltp)
-        statics = dict(n_lights=len(self.lights), n_quadrics=len(self.quads),
+            **light_arrays)
+        statics = dict(n_quadrics=len(self.quads),
                        clip_quadrics=bool(clip_q), dense_chunk=None,
                        has_animated_mesh=self.has_animated_mesh,
                        has_animated_quads=animated_quads,
                        dense_motion=self.has_animated_mesh,
+                       **light_statics,
                        **material_statics(arrays["mat_type"],
                                           arrays["mat_beckmann"],
                                           arrays["mat_bump_tex"], tex_t))
         return _scene_from_arrays(arrays, statics, device)
+
+    def _light_tables(self, soa, order, prim_flip, tri_v0, tri_e1, tri_e2,
+                      world_lo, world_hi, world_radius):
+        """The light records' arrays and statics, as the JAX package's
+        builder makes them (pbrt_tpu/scene/ir.py:731-846): mesh lights'
+        padded triangle lists and area cdfs, sphere lights' world centre
+        and radius, the selection tables and the env map's tables."""
+        from pbrt_tpu_torch.lights.distrib import build_distributions
+        P = len(order)
+        Lc = max(len(self.lights), 1)
+        lights = self.lights or [dict(type=LIGHT_POINT,
+                                      L=np.zeros(31, np.float32),
+                                      pos=np.zeros(3, np.float32),
+                                      dir=np.array([0, 0, 1], np.float32),
+                                      params=np.zeros(4, np.float32),
+                                      quad=-1, two_sided=False)]
+        inv_order = np.zeros(P, np.int64)
+        inv_order[order] = np.arange(P)
+        max_lt = max([len(v) for v in self._mesh_light_tris.values()] + [1])
+        lt_idx = np.full((Lc, max_lt), -1, np.int32)
+        lt_cdf = np.zeros((Lc, max_lt + 1), np.float32)
+        l_area = np.zeros(Lc, np.float32)
+        l_quad = np.full(Lc, -1, np.int32)
+        for li, rec in enumerate(lights):
+            if rec["type"] != LIGHT_AREA:
+                continue
+            tris = self._mesh_light_tris.get(li, [])
+            if tris:
+                t_old = np.asarray(tris)
+                v = soa["tri_v"][t_old]
+                areas = 0.5 * np.linalg.norm(
+                    np.cross(v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]), axis=-1)
+                total = areas.sum()
+                lt_idx[li, :len(tris)] = inv_order[t_old]
+                lt_cdf[li, 1:len(tris) + 1] = (np.cumsum(areas)
+                                               / max(total, 1e-20))
+                lt_cdf[li, len(tris) + 1:] = 1.0
+                l_area[li] = total
+            else:
+                # an area light on a sphere: its quadric
+                cand = np.nonzero((soa["prim_light"] == li)
+                                  & (soa["prim_type"] == PRIM_SPHERE))[0]
+                if len(cand):
+                    qi = int(soa["quad_refs"][cand[0]])
+                    l_quad[li] = qi
+                    r = float(self.quads[qi][2][0])
+                    # a uniform scale in o2w scales the radius
+                    s = np.linalg.norm(self.quads[qi][0][:3, 0])
+                    l_area[li] = 4 * np.pi * (r * s) ** 2
+        flat_lt = lt_idx.reshape(-1)
+        lt_safe = np.clip(flat_lt, 0, P - 1)
+        lt_valid = (flat_lt >= 0).astype(np.float32)[:, None]
+        ltp = np.zeros((Lc * max_lt, 10), np.float32)
+        ltp[:, 0:3] = tri_v0[lt_safe] * lt_valid
+        ltp[:, 3:6] = tri_e1[lt_safe] * lt_valid
+        ltp[:, 6:9] = tri_e2[lt_safe] * lt_valid
+        ltp[:, 9] = prim_flip[lt_safe].astype(np.float32) * lt_valid[:, 0]
+        l_sphc = np.zeros((Lc, 3), np.float32)
+        l_sphr = np.zeros(Lc, np.float32)
+        for li in range(Lc):
+            qi = int(l_quad[li])
+            if qi >= 0:
+                o2w_q = np.asarray(self.quads[qi][0], np.float32)
+                l_sphc[li] = o2w_q[:3, 3]
+                l_sphr[li] = (float(self.quads[qi][2][0])
+                              * float(np.linalg.norm(o2w_q[:3, 0])))
+
+        # the infinite light's env map (a constant one: 1x1); the last
+        # infinite light's, as in the JAX package
+        env = np.zeros((1, 1, spec.N_SPECTRAL_SAMPLES), np.float32)
+        env_to_world = np.eye(4, dtype=np.float32)
+        for rec in lights:
+            if rec["type"] == LIGHT_INFINITE:
+                if rec.get("env_map") is not None:
+                    env = np.asarray(rec["env_map"], np.float32)
+                else:
+                    env = rec["L"].reshape(1, 1, -1).astype(np.float32)
+                if rec.get("light_to_world") is not None:
+                    env_to_world = rec["light_to_world"].m.astype(np.float32)
+        # its importance distribution: luminance times sin(theta)
+        He, We = env.shape[:2]
+        lum = env @ spec.CIE_Y.astype(np.float32)
+        theta = (np.arange(He) + 0.5) / He * np.pi
+        f2d = lum * np.sin(theta)[:, None] + 1e-12
+        cond_cdf = np.zeros((He, We + 1), np.float32)
+        cond_int = f2d.mean(1)
+        cond_cdf[:, 1:] = np.cumsum(f2d, 1) / np.maximum(
+            f2d.sum(1, keepdims=True), 1e-20)
+        marg = np.zeros(He + 1, np.float32)
+        marg[1:] = np.cumsum(cond_int) / max(cond_int.sum(), 1e-20)
+        pw_cdf, pw_pmf, sp_cdf, sp_pmf = build_distributions(
+            self, world_lo, world_hi, l_area, world_radius)
+        arrays = dict(
+            light_type=np.asarray([rec["type"] for rec in lights], np.int32),
+            light_L=np.stack([rec["L"] for rec in lights]).astype(np.float32),
+            light_pos=np.stack([rec["pos"] for rec in lights]).astype(
+                np.float32),
+            light_dir=np.stack([rec["dir"] for rec in lights]).astype(
+                np.float32),
+            light_params=np.stack([rec["params"] for rec in lights]).astype(
+                np.float32),
+            light_quad=l_quad,
+            light_two_sided=np.asarray([bool(rec["two_sided"])
+                                        for rec in lights]),
+            light_area=l_area, light_tri_idx=lt_idx, light_tri_cdf=lt_cdf,
+            light_tri_packed=ltp, light_sph_center=l_sphc,
+            light_sph_radius=l_sphr, light_power_cdf=pw_cdf,
+            light_power_pmf=pw_pmf, light_spatial_cdf=sp_cdf,
+            light_spatial_pmf=sp_pmf, env_map=env, env_cond_cdf=cond_cdf,
+            env_marg_cdf=marg, env_cond_int=cond_int.astype(np.float32),
+            env_to_world=env_to_world,
+            env_to_light=np.linalg.inv(env_to_world.astype(np.float64))
+            .astype(np.float32),
+            world_lo=np.asarray(world_lo, np.float32),
+            world_hi=np.asarray(world_hi, np.float32))
+        statics = dict(
+            n_lights=len(self.lights),
+            light_kinds=tuple(sorted({int(rec["type"])
+                                      for rec in self.lights})),
+            has_mesh_lights=any(rec["type"] == LIGHT_AREA and l_quad[i] < 0
+                                for i, rec in enumerate(self.lights)),
+            has_sphere_lights=bool((l_quad[:len(self.lights)] >= 0).any()),
+            has_infinite=any(rec["type"] == LIGHT_INFINITE
+                             for rec in lights),
+            inf_light_idx=next((i for i, rec in enumerate(lights)
+                                if rec["type"] == LIGHT_INFINITE), 0))
+        return arrays, statics
 
 
 def check_dense_cap(n_prims, animated):
@@ -561,8 +744,12 @@ def _scene_from_arrays(arrays, statics, device):
         dt["chunk_static"] = np.ones(dt["W"].shape[0], bool)
     cols = {k: torch.as_tensor(np.array(arrays[k]), device=device)
             for k in JAX_COLUMNS + PACKED_COLUMNS}
+    # the f32 product of the env tables' builder (pbrt_tpu/scene/ir.py:820)
+    env_lum = np.asarray(arrays["env_map"], np.float32) @ \
+        spec.CIE_Y.astype(np.float32)
     return SceneData(
         **cols,
+        env_lum=torch.as_tensor(env_lum, device=device),
         dense_w=torch.as_tensor(dt["W"], device=device),
         dense_cb=torch.as_tensor(dt["chunk_bounds"], device=device),
         dense_static=torch.as_tensor(dt["chunk_static"], device=device),
@@ -579,7 +766,12 @@ def _scene_from_arrays(arrays, statics, device):
         has_disney=bool(statics["has_disney"]),
         has_mix=bool(statics["has_mix"]),
         has_beckmann=bool(statics["has_beckmann"]),
-        has_bump=bool(statics["has_bump"]))
+        has_bump=bool(statics["has_bump"]),
+        light_kinds=tuple(int(k) for k in statics["light_kinds"]),
+        has_mesh_lights=bool(statics["has_mesh_lights"]),
+        has_sphere_lights=bool(statics["has_sphere_lights"]),
+        has_infinite=bool(statics["has_infinite"]),
+        inf_light_idx=int(statics["inf_light_idx"]))
 
 
 def scene_from_jax(arrays: dict, statics: dict, device) -> SceneData:
@@ -613,9 +805,6 @@ def scene_from_jax(arrays: dict, statics: dict, device) -> SceneData:
                   mat_beckmann=row[:, _MPK_BECKMANN] > 0.5)
     if np.any(np.asarray(arrays["prim_type"]) > PRIM_SPHERE):
         raise NotImplementedError("only triangles and spheres are ported")
-    n_lights = int(statics["n_lights"])
-    if np.any(np.asarray(arrays["light_tri_idx"])[:n_lights, 0] < 0):
-        raise NotImplementedError("area lights on quadrics are not ported")
     if statics["has_animated_mesh"] and not statics["dense_motion"]:
         raise NotImplementedError(
             "animated meshes on the BVH path are not ported")

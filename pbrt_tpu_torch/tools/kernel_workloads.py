@@ -324,18 +324,21 @@ def _recorded_batches(run, depth):
     return {"camera": batches[0], "bounce1": batches[1]}
 
 
-def main_path_batches(scene, camera, cfg, width, height, rays, depth):
+def main_path_batches(scene, camera, cfg, width, height, rays, depth,
+                      **trace_kw):
     """The batches the main path hands the dense kernels in one pass of
-    `rays` camera rays: call 0 is the camera batch, call 1 the first
-    trace_pair (bounce-1 rays + bounce-0 shadow rays).  time is None for
-    static scenes.  Returns {"camera": ..., "bounce1": ...}."""
+    `rays` camera rays (trace_paths with trace_kw, e.g. light_strategy):
+    call 0 is the camera batch, call 1 the first trace_pair (bounce-1
+    rays + bounce-0 shadow rays).  time is None for static scenes.
+    Returns {"camera": ..., "bounce1": ...}."""
     from pbrt_tpu_torch.integrators import path
 
     def run():
         ids = torch.arange(rays, device=scene.dense_w.device)
         ray, _, _, pid, sidx = path.camera_rays_for_pixels(
             camera, width, height, cfg, ids, 0)
-        path.trace_paths(scene, ray, pid, sidx, cfg, max_depth=depth)
+        path.trace_paths(scene, ray, pid, sidx, cfg, max_depth=depth,
+                         **trace_kw)
 
     return _recorded_batches(run, depth)
 

@@ -1,0 +1,140 @@
+"""The operations one render pass launches, by component.
+
+    python -m pbrt_tpu_torch.tools.launch_components scene.pbrt
+        [--rays 65536] [--width W --height H] [--cpu]
+
+Parses the scene (on the first CUDA card, or the CPU with --cpu), traces
+one pass as `run_job` does (sample 0 of the first `--rays` pixels of a
+film of the scene's size, or of --width x --height) under a
+TorchDispatchMode that counts every ATen operation that computes (views
+and aliases excluded: they launch nothing), and prints the counts by the
+component whose function issued them: the innermost of the functions in
+COMPONENTS on the Python stack; a texture lookup is named with its
+caller's component too.  The dense intersector's kernels (K1, K2) are
+ctypes launches, counted by their wrappers' LAUNCHES, and on the CPU
+their plain versions' operations fall under "intersect".
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import sys
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from pbrt_tpu_torch.core import device as devmod
+from pbrt_tpu_torch.integrators import dispatch, path
+from pbrt_tpu_torch.ops import dense_intersect as dense
+from pbrt_tpu_torch.parser.api import parse_scene
+from pbrt_tpu_torch.samplers.samplers import SamplerConfig
+from pbrt_tpu_torch.tools import pbrt as cli
+
+# (module suffix, function) -> component; the innermost match names an op
+COMPONENTS = {
+    ("textures.textures", "eval_texture"): "texture lookups",
+    ("lights.lights", None): "lights",
+    ("lights.distrib", None): "light selection",
+    ("materials.bsdf", "eval_f"): "eval_f",
+    ("materials.bsdf", "pdf_f"): "pdf_f",
+    ("materials.bsdf", "sample_f"): "sample_f",
+    ("materials.bsdf", "gather_materials"): "gather_materials",
+    ("materials.bsdf", "bump_shading_normal"): "bump",
+    ("samplers.samplers", None): "sampler",
+    ("ops.intersect", "make_hit"): "make_hit",
+    ("ops.intersect", None): "intersect",
+    ("ops.dense_intersect", None): "intersect",
+    ("integrators.path", "camera_ray_differentials"): "differentials",
+    ("integrators.path", "_specular_differentials"): "differentials",
+    ("cameras.projective", None): "camera",
+    ("cameras.lens", None): "camera",
+}
+_VIEWS = {"view", "_unsafe_view", "reshape", "expand", "slice", "select",
+          "unsqueeze", "squeeze", "t", "permute", "as_strided", "detach",
+          "alias", "transpose", "unbind", "split", "split_with_sizes",
+          "lift_fresh", "_to_copy_noop", "numpy_T"}
+
+
+def _component(frame):
+    """The components of the stack above `frame`, innermost first."""
+    found = []
+    while frame is not None:
+        mod = frame.f_globals.get("__name__", "")
+        if mod.startswith("pbrt_tpu_torch."):
+            sub = mod[len("pbrt_tpu_torch."):]
+            name = (COMPONENTS.get((sub, frame.f_code.co_name))
+                    or COMPONENTS.get((sub, None)))
+            if name and (not found or found[-1] != name):
+                found.append(name)
+                if len(found) == 2:
+                    break
+        frame = frame.f_back
+    if not found:
+        return "path (the rest)"
+    if found[0] == "texture lookups" and len(found) > 1:
+        return f"texture lookups ({found[1]})"
+    return found[0]
+
+
+class OpCounter(TorchDispatchMode):
+    """Counts the computing ATen operations by component."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.__name__.split(".")[0]
+        if name not in _VIEWS:
+            self.counts[_component(sys._getframe(1))] += 1
+        return func(*args, **(kwargs or {}))
+
+
+def count_pass(job, rays, width, height, device):
+    """{component: operations} of one pass of `rays` camera rays, and
+    the dense kernels' launches."""
+    camera = cli.build_camera(job, width, height, device)
+    cfg = SamplerConfig(job.sampler_kind, 0, job.spp)
+    depth = job.integrator_params["maxdepth"]
+    ids = torch.arange(rays, device=device)
+    opts, use_rd = path.trace_options(job.scene, camera, path.trace_paths)
+    opts["light_strategy"] = dispatch.light_strategy(job.integrator_params)
+    dense.reset_launch_counts()
+    counter = OpCounter()
+    with counter:
+        ray, _, _, pid, sidx = path.camera_rays_for_pixels(
+            camera, width, height, cfg, ids, 0)
+        if use_rd:
+            opts["ray_diff"] = path.camera_ray_differentials(
+                camera, width, height, cfg, pid, sidx,
+                path.generate_fn(camera), job.spp)
+        path.trace_paths(job.scene, ray, pid, sidx, cfg, max_depth=depth,
+                         **opts)
+    return counter.counts, dict(dense.LAUNCHES)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="launch_components")
+    ap.add_argument("scene")
+    ap.add_argument("--rays", type=int, default=None)
+    ap.add_argument("--width", type=int, default=None)
+    ap.add_argument("--height", type=int, default=None)
+    ap.add_argument("--cpu", action="store_true")
+    args = ap.parse_args(argv)
+    device = devmod.resolve("cpu" if args.cpu else None)
+    job = parse_scene(args.scene, device=device)
+    W = args.width or job.film_width
+    H = args.height or job.film_height
+    rays = min(args.rays or 65536, W * H)
+    counts, launches = count_pass(job, rays, W, H, device)
+    total = sum(counts.values())
+    print(f"{args.scene} at {W}x{H}, {rays} rays, on {device}: {total} "
+          f"operations; dense kernel launches {launches}")
+    for name, n in counts.most_common():
+        print(f"  {n:8d} {100 * n / total:5.1f}%  {name}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

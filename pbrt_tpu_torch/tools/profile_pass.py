@@ -5,7 +5,8 @@
 
 Parses the scene on the first CUDA card, traces one pass (sample 0 of
 the first `--rays` pixels, through `path.trace_paths` with the texture
-footprint and camera ray differentials `path.render` gives it; with
+footprint, camera ray differentials and light strategy `run_job` gives
+it; with
 `--sampler refsobol`, of the first min(rays, W*H) pixels through the
 matched-RNG `refpath.trace_ref`, as `render_ref` traces a pass) three times
 unprofiled and once under torch.profiler, and prints: the wall time of
@@ -27,7 +28,7 @@ import torch
 from torch.autograd import DeviceType
 
 from pbrt_tpu_torch.core import device as devmod
-from pbrt_tpu_torch.integrators import path, refpath
+from pbrt_tpu_torch.integrators import dispatch, path, refpath
 from pbrt_tpu_torch.ops import dense_intersect as dense
 from pbrt_tpu_torch.parser.api import parse_scene
 from pbrt_tpu_torch.samplers.samplers import SamplerConfig
@@ -66,6 +67,8 @@ def main(argv=None):
         ids = torch.arange(args.rays, device=device)
         opts, use_rd = path.trace_options(job.scene, camera,
                                           path.trace_paths)
+        opts["light_strategy"] = dispatch.light_strategy(
+            job.integrator_params)
 
         def trace():
             ray, _, _, pid, sidx = path.camera_rays_for_pixels(

@@ -45,6 +45,7 @@ from pbrt_tpu_torch.integrators import path as tpath
 from pbrt_tpu_torch.integrators import refpath as tref
 from pbrt_tpu_torch.integrators import spectralpath as tspec
 from pbrt_tpu_torch.models import flagship as tflag
+from pbrt_tpu_torch.parser.api import PbrtAPI as TAPI
 from pbrt_tpu_torch.parser.api import parse_scene as tparse
 from pbrt_tpu_torch.samplers.samplers import SamplerConfig as TCfg
 from pbrt_tpu_torch.scene import ir as tir
@@ -281,3 +282,75 @@ def test_dense_cap_raises_for_the_unported_bvh_route():
     b.add_triangle_mesh(np.eye(3), np.zeros((n, 3), np.int64) + [0, 1, 2], m)
     with pytest.raises(NotImplementedError, match="300000"):
         b.build(device=DEV)
+
+
+# ---------------------------------------------------------------------------
+# the path integrator's light strategies and lights
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name,strategy", [
+    ("uniform", "uniform"), ("power", "power"), ("spatial", "spatial"),
+    ("all", "spatial"), ("bogus", "spatial")])
+def test_dispatch_maps_the_light_strategy(meta_jobs, monkeypatch, name,
+                                          strategy):
+    """lightsamplestrategy reaches trace_paths; any other name is
+    "spatial", as in pbrt_tpu/integrators/dispatch.py:20-22 ("all" is
+    directlighting's)."""
+    _, tj = meta_jobs
+    seen = {}
+    monkeypatch.setattr(tpath, "render", lambda *a, **k: seen.update(k))
+    for kind in ("path", "spectralpath"):
+        job = type(tj)(**{**tj.__dict__, "integrator_kind": kind,
+                          "integrator_params": {"lightsamplestrategy":
+                                                name}})
+        tdispatch.render_with_integrator(job, None, tfilm.make_film(
+            4, 4, device=DEV), TCfg("sobol", 0, 1), 1, 2)
+        want = {"light_strategy": strategy} if kind == "path" else {}
+        assert seen["trace_kwargs"] == want, kind
+
+
+def _one_light_render(text, n, spp, depth, strategy="uniform"):
+    job = TAPI(DEV).parse_string(text)
+    cam = tcli.build_camera(job, n, n, DEV)
+    film = tpath.render(job.scene, cam, tfilm.make_film(n, n, device=DEV),
+                        TCfg("sobol", 0, spp), spp, max_depth=depth,
+                        trace_kwargs={"light_strategy": strategy})
+    return tfilm.develop_spectral(film).numpy().mean(-1)
+
+
+FURNACE = """LookAt 0 0 -4  0 0 0  0 1 0
+Camera "perspective" "float fov" [30]
+WorldBegin
+LightSource "infinite" "float L" [1]
+Material "matte" "float Kd" [{kd}]
+Shape "sphere" "float radius" [1]
+WorldEnd
+"""
+
+
+def test_furnace_on_the_cpu():
+    """A convex matte sphere under a constant infinite light reflects
+    albedo x Le (tests/test_integrators.py:43-56, same limits): albedo
+    0.5 gives 0.5 at the centre, a white one is invisible."""
+    half = _one_light_render(FURNACE.format(kd=0.5), 24, 8, 5)
+    assert abs(half[8:16, 8:16].mean() - 0.5) < 0.02
+    white = _one_light_render(FURNACE.format(kd=1.0), 24, 8, 8)
+    assert abs(white.mean() - 1.0) < 0.02
+
+
+def test_point_light_over_a_plane_on_the_cpu():
+    """rho / pi I cos / r^2 under a point light 1 above a Lambertian plane
+    (tests/test_integrators.py:68-95, same limits), through the parser's
+    LightSource "point"."""
+    text = """LookAt 0 0 3  0 0 0  0 1 0
+Camera "orthographic" "float screenwindow" [-1 1 -1 1]
+WorldBegin
+LightSource "point" "float I" [10] "point from" [0 0 1]
+Material "matte" "float Kd" [.6]
+Shape "trianglemesh" "point P" [-50 -50 0 50 -50 0 50 50 0 -50 50 0]
+    "integer indices" [0 1 2 2 3 0]
+WorldEnd
+"""
+    img = _one_light_render(text, 24, 8, 2)
+    centre = 0.6 / np.pi * 10.0
+    assert abs(img[11:13, 11:13].mean() / centre - 1) < 0.02

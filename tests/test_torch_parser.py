@@ -165,7 +165,7 @@ def test_camera_keyframes_parse_like_jax():
 
 
 @pytest.mark.parametrize("snippet,name", [
-    ('LightSource "distant" "rgb L" [3 3 3]', "LightSource"),
+    ('CoordinateSystem "cam"', "CoordinateSystem"),
     ('Texture "t" "spectrum" "ptex" "string filename" "x.ptx"', "ptex"),
     ('MakeNamedMaterial "m" "string type" "hair"', "hair"),
     ('Material "fourier"', "fourier"),
@@ -378,3 +378,69 @@ def test_bilerp_folds_to_the_corner_mean_where_jax_raises():
             + tspec.from_rgb_np(np.array([0, 0, .4]), "illuminant")) / 4
     np.testing.assert_allclose(tj.scene.mat_kd[-1].numpy(), want, rtol=1e-6)
     assert int(tj.scene.mat_kd_tex[-1]) == -1
+
+
+# ---------------------------------------------------------------------------
+# lights and their spectra (exact: the same host code on the same text)
+# ---------------------------------------------------------------------------
+
+LIGHT_DIR = os.path.join(ROOT, "pbrt_tpu_torch", "scenes")
+LIGHT_FLOOR = ('Shape "trianglemesh" "point P" [0 0 0 4 0 0 4 4 0 0 4 0] '
+               '"integer indices" [0 1 2 2 3 0]\n')
+LIGHT_SPECTRA = {
+    "rgb": '"rgb I" [.4 .5 .6]',
+    "xyz": '"xyz I" [.4 .5 .6]',
+    "blackbody": '"blackbody I" [2700 3 6500 .5]',
+    "inline": '"spectrum I" [400 1 450 2 500 1.5 700 3]',
+    "spd_file": '"spectrum I" "textures/cie_illuminant_a.spd"',
+}
+LIGHT_SNIPPETS = {
+    "point": 'Translate 1 2 3\nLightSource "point" "rgb I" [2 2 2] '
+             '"point from" [.5 0 1]',
+    "spot": 'LightSource "spot" "rgb I" [5 5 5] "point from" [2 2 4] '
+            '"point to" [1 2 0] "float coneangle" [25] '
+            '"float conedeltaangle" [7] "float scale" [2]',
+    "distant": 'LightSource "distant" "xyz L" [1 1.1 1.2] '
+               '"point from" [0 -5 5] "point to" [0 0 0]',
+    "infinite": 'LightSource "infinite" "rgb L" [.3 .4 .5]',
+    "exinfinite_map": 'Rotate -90 1 0 0\nLightSource "exinfinite" '
+                      '"string mapname" "textures/sky.exr" '
+                      '"blackbody L" [6500 1]',
+    "goniometric": 'Translate 2 2 3\nRotate 30 1 0 0\nLightSource '
+                   '"goniometric" "string mapname" "textures/floor.png" '
+                   '"spectrum I" [400 2 700 3]',
+    "projection": 'Translate 2 2 3\nLightSource "projection" '
+                  '"string mapname" "textures/floor.png" "float fov" [35]',
+    "sphere_area": 'AreaLightSource "diffuse" "blackbody L" [4000 3]\n'
+                   'Translate 1 1 1\nScale 2 2 2\n'
+                   'Shape "sphere" "float radius" [.25]',
+    "unknown": 'LightSource "sunsky" "rgb L" [1 1 1]',
+}
+
+
+def _light_scenes(snippet):
+    text = f"WorldBegin\n{LIGHT_FLOOR}{snippet}\nWorldEnd\n"
+    return (JAPI().parse_string(text, scene_dir=LIGHT_DIR).scene,
+            TAPI(DEV).parse_string(text, scene_dir=LIGHT_DIR).scene)
+
+
+@pytest.mark.parametrize("kind", sorted(LIGHT_SPECTRA))
+def test_light_spectra_parse_like_jax(kind):
+    """rgb, xyz, blackbody pairs, inline spectra and an .spd file next to
+    the scene: the light's spectrum equals pbrt_tpu's bit for bit."""
+    js, ts = _light_scenes(f'LightSource "point" {LIGHT_SPECTRA[kind]}')
+    assert np.array_equal(ts.light_L.numpy(), np.asarray(js.light_L))
+    assert ts.light_L.abs().sum() > 0
+
+
+@pytest.mark.parametrize("kind", sorted(LIGHT_SNIPPETS))
+def test_light_sources_parse_like_jax(kind):
+    """Each LightSource kind (and a sphere area light) gives pbrt_tpu's
+    light columns, selection and env tables and statics, column for
+    column; an unknown light is skipped, as in pbrt_tpu."""
+    js, ts = _light_scenes(LIGHT_SNIPPETS[kind])
+    assert_scene_equal(ts, tir.scene_from_jax(*jax_arrays(js), DEV))
+    for k in tir.LIGHT_COLUMNS:
+        assert np.array_equal(getattr(ts, k).numpy(),
+                              np.asarray(getattr(js, k))), k
+    assert ts.n_lights == (0 if kind == "unknown" else 1)

@@ -30,6 +30,7 @@ from pbrt_tpu.core import lds as jlds
 from pbrt_tpu.film import film as jfilm
 from pbrt_tpu.integrators import refpath as jref
 from pbrt_tpu.ops import intersect as jisect
+from pbrt_tpu.parser.api import PbrtAPI as JAPI
 from pbrt_tpu.parser.api import parse_scene as jparse
 from pbrt_tpu_torch.core import geometry as tgeom
 from pbrt_tpu_torch.core import lds as tlds
@@ -37,6 +38,7 @@ from pbrt_tpu_torch.film import film as tfilm
 from pbrt_tpu_torch.integrators import refpath as tref
 from pbrt_tpu_torch.materials import bsdf as tbsdf
 from pbrt_tpu_torch.ops import intersect as tisect
+from pbrt_tpu_torch.parser.api import PbrtAPI as TAPI
 from pbrt_tpu_torch.parser.api import parse_scene as tparse
 from pbrt_tpu_torch.scene import ir as tir
 from pbrt_tpu_torch.tools.pbrt import build_camera as tbuild_camera
@@ -251,11 +253,84 @@ def test_build_ref_lights_matches_jax(scenes):
                               np.asarray(getattr(jl, k))), k
     assert np.array_equal(tl.two_sided.numpy(), np.asarray(jl.two_sided))
     assert np.array_equal(tl.prim.numpy(), np.asarray(jl.prim))
-    # a light record without triangles is an area light on a quadric
+    # a light record with neither triangles nor a sphere gives no entry,
+    # as in the JAX package, so this scene is left with none (sphere
+    # lights are ported: test_torch_lights.py)
     lt = tj.scene.light_tri_idx.clone()
     lt[0] = -1
-    with pytest.raises(NotImplementedError, match="quadrics"):
+    with pytest.raises(ValueError, match="no area lights"):
         tref.build_ref_lights(dataclasses.replace(tj.scene, light_tri_idx=lt))
+
+
+# sphere lights (one reversed and scaled) beside a mesh light
+SPHERE_LIGHTS = """WorldBegin
+Material "matte"
+Shape "trianglemesh" "point P" [-4 -4 0 4 -4 0 4 4 0 -4 4 0]
+    "integer indices" [0 1 2 2 3 0]
+AttributeBegin
+AreaLightSource "diffuse" "rgb L" [8 8 8]
+Translate 0.3 1.5 2.6
+Shape "sphere" "float radius" [.4]
+AttributeEnd
+AttributeBegin
+AreaLightSource "diffuse" "rgb L" [2 3 4] "bool twosided" "true"
+Shape "trianglemesh" "point P" [-1 -1 3 1 -1 3 1 1 3 -1 1 3]
+    "integer indices" [0 1 2 2 3 0]
+AttributeEnd
+AttributeBegin
+ReverseOrientation
+AreaLightSource "diffuse" "rgb L" [3 2 1]
+Translate -1.5 0 1
+Scale 1.5 1.5 1.5
+Shape "sphere" "float radius" [.3]
+AttributeEnd
+WorldEnd
+"""
+
+
+def test_ref_sphere_lights_match_jax():
+    """build_ref_lights' sphere entries (one each, 4 pi r^2, the normal's
+    sign), Sphere::Sample by cone and, inside, by area, and both halves
+    of _pdf_li, against pbrt_tpu on the same points (1e-5 relative on
+    all but 0.5% of lanes, where the cone's 1 - cos cancels near the
+    sphere's silhouette, every lane within 1e-3)."""
+    jsc = JAPI().parse_string(SPHERE_LIGHTS).scene
+    tsc = TAPI(DEV).parse_string(SPHERE_LIGHTS).scene
+    jl, tl = jref.build_ref_lights(jsc), tref.build_ref_lights(tsc)
+    assert tl.count == jl.count == 4
+    for k in ("p0", "e1", "e2", "n", "area", "L", "center", "radius",
+              "nsign"):
+        assert np.array_equal(_np(getattr(tl, k)), np.asarray(getattr(jl,
+                                                                      k))), k
+    for k in ("two_sided", "prim"):
+        assert np.array_equal(_np(getattr(tl, k)), np.asarray(getattr(jl,
+                                                                      k))), k
+    assert tl.sphere.tolist() == (np.asarray(jl.kind) == 1).tolist() == [
+        True, False, False, True]
+    rs = np.random.RandomState(81)
+    B = 2048
+    p = rs.uniform(-2, 2, (B, 3)).astype(np.float32)
+    p[::50] = np.float32([0.3, 1.5, 2.6]) + rs.uniform(
+        -0.2, 0.2, (len(p[::50]), 3)).astype(np.float32)   # inside
+    u1, u2 = rs.rand(2, B).astype(np.float32)
+    k = rs.randint(0, 4, B)
+    to = tref._sphere_sample_li(tl.center[k], tl.radius[k], tl.nsign[k],
+                                torch.from_numpy(p), torch.from_numpy(u1),
+                                torch.from_numpy(u2))
+    jo = jref._sphere_sample_li(jl.center[k], jl.radius[k], jl.nsign[k],
+                                jnp.asarray(p), jnp.asarray(u1),
+                                jnp.asarray(u2))
+    sph = tl.sphere[k].numpy()
+    for a, b in zip(to, jo):
+        _mostly_close(_np(a)[sph], np.asarray(b)[sph], 0.995, 1e-3)
+    wi = rs.randn(B, 3).astype(np.float32)
+    wi /= np.linalg.norm(wi, axis=-1, keepdims=True)
+    tpdf, thit = tref._pdf_li(tl, torch.from_numpy(k), torch.from_numpy(p),
+                              torch.from_numpy(wi))
+    jpdf, jhit = jref._pdf_li(jl, jnp.asarray(k), jnp.asarray(p),
+                              jnp.asarray(wi))
+    assert np.array_equal(thit.numpy(), np.asarray(jhit))
+    _mostly_close(tpdf, jpdf, 0.995, 1e-3 * float(np.abs(jpdf).max()))
 
 
 MATERIALS = {"matte": 0, "plastic": 1, "mirror": 2, "glass": 3}
