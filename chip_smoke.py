@@ -128,6 +128,29 @@ infinite light, centre within 2% of 0.5; a white one within 2% of 1) and
 a point light over a Lambertian plane (I cos / (pi r^2) rho, 2% at the
 centre, 5% at x = 0.5), tests/test_integrators.py's scenes at 256x256.
 
+Phase 21 drives differentiable rendering (integrators/diff.py): the
+inverse render at full width, the Cornell model at 256x256 (65,536 rays
+a step, Sobol, depth 5, camera fixed), mat_kd and light_L from 0.5 and
+0.7 of their values toward `render_samples` at their values at the same
+sample index, INV_STEPS steps of `make_train_step` at lr 0.05, each
+counted as phase 5 is (K1 and the static K2 six times a step; the first
+step's forward and backward apart, the backward launching neither):
+the last loss below 0.1 of the first, every gradient finite.  It prints
+ms a fwd+bwd step against ms a forward pass of the same samples under
+no_grad, fwd+bwd rays/s (trace_paths' count), the peak device memory of
+a step and, for one step under torch.profiler
+(`tools.profile_pass.profile_train_step`), launches and device ms of its
+forward and backward and the idle share.  Then on the card:
+tests/test_diff.py's albedo (4 bins) and emission (env_map entry 10)
+gradients against finite differences on its 8x8 sphere, at its
+threshold; tests/test_diff_camera.py's camera derivatives (rx, tx, fov;
+the share of pixels within 10% above 0.7) on cornell(tessellate=False)
+at 24x24, depth 2, and its pose recovery (240 Adam steps, lr 2e-3,
+error below 0.3 of the start); the mat_kd and light_L gradients of a
+32x32 2 spp Cornell render_loss against the CPU's (GRAD_CPU_RTOL of the
+largest entry); and every gradient of the materials and lights scenes
+finite at 64x64.
+
 Every lens render is finite, non-negative and non-black.  Mitchell's
 and sinc's negative lobes make some developed pixels negative where the
 image has a sharp edge (the reference clamps them when it writes the
@@ -172,9 +195,11 @@ import torch  # noqa: E402  (after the device mask)
 from torch.autograd import DeviceType  # noqa: E402
 
 from pbrt_tpu_torch.cameras import lens  # noqa: E402
+from pbrt_tpu_torch.cameras import projective  # noqa: E402
 from pbrt_tpu_torch.core import transform as tfm  # noqa: E402
 from pbrt_tpu_torch.film import film as filmmod  # noqa: E402
 from pbrt_tpu_torch.film import io as filmio  # noqa: E402
+from pbrt_tpu_torch.integrators import diff  # noqa: E402
 from pbrt_tpu_torch.integrators import dispatch  # noqa: E402
 from pbrt_tpu_torch.integrators import path  # noqa: E402
 from pbrt_tpu_torch.integrators import refpath  # noqa: E402
@@ -188,9 +213,9 @@ from pbrt_tpu_torch.ops import intersect as isect  # noqa: E402
 from pbrt_tpu_torch.parser.api import PbrtAPI, parse_scene  # noqa: E402
 from pbrt_tpu_torch.samplers.samplers import SamplerConfig  # noqa: E402
 from pbrt_tpu_torch.scene.ir import (  # noqa: E402
-    MAT_DISNEY, MAT_GLASS, MAT_MATTE, MAT_METAL, MAT_MIRROR, MAT_NONE,
-    MAT_PLASTIC, MAT_RETRO, MAT_ROUGHGLASS, MAT_SUBSTRATE, MAT_TRANSLUCENT,
-    MAT_UBER)
+    MaterialSpec, SceneBuilder, MAT_DISNEY, MAT_GLASS, MAT_MATTE, MAT_METAL,
+    MAT_MIRROR, MAT_NONE, MAT_PLASTIC, MAT_RETRO, MAT_ROUGHGLASS,
+    MAT_SUBSTRATE, MAT_TRANSLUCENT, MAT_UBER)
 from pbrt_tpu_torch.textures.textures import RES as TEX_RES  # noqa: E402
 from pbrt_tpu_torch.textures.textures import TEX_IMAGE  # noqa: E402
 from pbrt_tpu_torch.tools import ablate_k2  # noqa: E402
@@ -198,6 +223,7 @@ from pbrt_tpu_torch.tools import dissect_intersect  # noqa: E402
 from pbrt_tpu_torch.tools import dump_tile  # noqa: E402
 from pbrt_tpu_torch.tools import kernel_workloads as kw  # noqa: E402
 from pbrt_tpu_torch.tools import lenstool  # noqa: E402
+from pbrt_tpu_torch.tools import profile_pass  # noqa: E402
 from pbrt_tpu_torch.tools import pbrt as cli  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1300,6 +1326,301 @@ def phase20(run_path, card, device, res):
     check(abs(off / want_o - 1) < 0.05, f"point light off centre {off}")
 
 
+# phase 21: the inverse render at full width (the Cornell model at 256x256,
+# 65,536 rays a step, Sobol, depth 5, camera fixed): mat_kd and light_L
+# from 0.5 and 0.7 of their values toward the render at their values, at
+# make_train_step's lr 0.05, until the loss is below INV_DROP of the first.
+# Adam moves each entry by about lr a step and light_L's entries are
+# ~10-15, so 20 steps leave the loss at 0.42 of the first (the CPU at
+# 32x32, PERF.md); 60 steps reach 0.056 there
+INV_STEPS = 60
+INV_LR = 0.05
+INV_DROP = 0.1
+# the card's gradients against the CPU's (32x32, 2 spp, depth 5): the two
+# trace the same paths but where the card's contracted multiply-adds move
+# a path across an edge or a lobe choice (phase 8, 19), and such a lane
+# adds its own share to each entry it reaches
+GRAD_CPU_RTOL = 1e-2
+# tests/test_diff.py's bins and threshold, tests/test_diff_camera.py's
+# components, steps and threshold; the pose recovery's Adam steps
+FD_BINS = (0, 5, 15, 30)
+CAM_W = 24
+CAM_P = ([0.004, -0.003, 0.002, 0.02, -0.015, 0.01], 50.4)
+POSE_STEPS = 240
+POSE_LR = 2e-3
+# the leaves each scene uses (a nonzero gradient): every
+# DIFFERENTIABLE_FIELDS gradient must be finite (64x64, 1 spp, depth 3)
+FINITE_USED = {MATS_SCENE: ("mat_kd", "mat_ks", "mat_kr", "mat_kt",
+                            "light_L"),
+               LIGHTS_SCENE: ("mat_kd", "light_L", "env_map")}
+
+
+def fd_sphere(dev):
+    """tests/test_diff.py's scene: a matte sphere under a constant
+    infinite light, 8x8, on dev."""
+    b = SceneBuilder()
+    m = b.add_material(MaterialSpec(type=MAT_MATTE,
+                                    kd=np.full(31, 0.5, np.float32)))
+    b.add_sphere(tfm.Transform(), 1.0, m)
+    b.add_infinite_light(np.full(31, 1.0, np.float32))
+    cam = projective.make_perspective(tfm.look_at([0, 0, -4], [0, 0, 0],
+                                                  [0, 1, 0]), 30.0, 8, 8,
+                                      device=dev)
+    return b.build(device=dev), cam
+
+
+def fd_checks(dev):
+    """tests/test_diff.py's albedo (4 bins) and emission (env_map entry
+    10) gradients against central finite differences, at its threshold
+    max(3e-3, 0.05 |fd|).  Returns [(what, ad, fd)]."""
+    sc, cam = fd_sphere(dev)
+    ids = torch.arange(64, device=dev)
+    cfg = SamplerConfig("sobol", 0, 4)
+    out = []
+    for key, tgt, samples, depth, bins in (
+            ("mat_kd", 0.3, (0, 1), 3, FD_BINS),
+            ("env_map", 0.0, (0,), 2, (10,))):
+        target = torch.full((64, 31), tgt, device=dev)
+
+        def loss(p):
+            return diff.render_loss(p, sc, cam, 8, 8, cfg, ids, samples,
+                                    target, max_depth=depth)
+        params = {key: getattr(sc, key).clone()}
+        p = {key: params[key].clone().requires_grad_(True)}
+        g = torch.autograd.grad(loss(p), [p[key]])[0].reshape(-1)
+        for i in bins:
+            fd = diff.finite_difference_grad(loss, params, key, i, eps=2e-3)
+            ad = float(g[i])
+            out.append((f"{key}[{i}]", ad, fd))
+            check(abs(ad - fd) < max(3e-3, 0.05 * abs(fd)),
+                  f"gradient of {key}[{i}]: autograd {ad} vs finite "
+                  f"difference {fd}")
+        if key == "env_map":
+            check(abs(ad) > 1e-5, f"env_map[10] gradient {ad}")
+    return out
+
+
+def camera_render(dev):
+    """tests/test_diff_camera.py's per-pixel render: cornell(tessellate=
+    False) at 24x24, depth 2, sample 0, summed over wavelength."""
+    sc, cam_ctor = flagship.cornell(tessellate=False, device=dev)
+    cam = cam_ctor(CAM_W, CAM_W)
+    ids = torch.arange(CAM_W * CAM_W, device=dev)
+    cfg = SamplerConfig("sobol", 0, 4)
+
+    def render(delta, fov):
+        L, _ = diff.render_samples({"cam_delta": delta, "cam_fov": fov}, sc,
+                                   cam, CAM_W, CAM_W, cfg, ids, 0,
+                                   max_depth=2)
+        return L.sum(-1)
+    return render
+
+
+def camera_fd_check(dev):
+    """tests/test_diff_camera.py::test_camera_grads_match_finite_
+    differences: per-pixel derivatives (forward mode) of rx, tx and the
+    fov against central differences; the share of significant pixels
+    that agree within 10% must exceed 0.7.  Returns {component: share}."""
+    render = camera_render(dev)
+    d0 = torch.tensor(CAM_P[0], device=dev)
+    f0 = torch.tensor(CAM_P[1], device=dev)
+    shares = {}
+    for name, comp, eps in (("rx", 0, 1e-4), ("tx", 3, 1e-4),
+                            ("fov", None, 2e-3)):
+        if comp is None:
+            ad = torch.autograd.functional.jvp(
+                lambda f: render(d0, f), f0, torch.ones((), device=dev))[1]
+            fd = (render(d0, f0 + eps) - render(d0, f0 - eps)) / (2 * eps)
+        else:
+            e = torch.zeros(6, device=dev)
+            e[comp] = 1.0
+            ad = torch.autograd.functional.jvp(lambda d: render(d, f0), d0,
+                                               e)[1]
+            fd = (render(d0 + eps * e, f0) - render(d0 - eps * e, f0)) / (
+                2 * eps)
+        check(bool(torch.isfinite(ad).all()), f"camera {name}: non-finite")
+        ad, fd = ad.detach().cpu().numpy(), fd.detach().cpu().numpy()
+        scale = np.percentile(np.abs(fd), 75)
+        sig = (np.abs(fd) > 0.2 * scale) & (np.abs(fd) < 20 * scale)
+        rel = np.abs(ad - fd)[sig] / np.maximum(np.abs(fd[sig]), 0.2 * scale)
+        shares[name] = float(np.mean(rel < 0.1))
+        check(shares[name] > 0.7, f"camera {name}: {shares[name]} of "
+              "pixels agree with finite differences")
+    return shares
+
+
+def pose_recovery(dev):
+    """tests/test_diff_camera.py::test_camera_pose_recovery: cam_delta
+    from a perturbed pose back toward identity by Adam (lr 2e-3, 240
+    steps) on the robust per-pixel loss; the error must fall below 0.3
+    of the start.  Returns (start error, end error, wall s)."""
+    render = camera_render(dev)
+    fov = torch.tensor(50.0, device=dev)
+    with torch.no_grad():
+        target = render(torch.zeros(6, device=dev), fov)
+    true = np.asarray([0.004, -0.003, 0.002, 0.02, -0.015, 0.012])
+    params = {"cam_delta": torch.tensor(true, dtype=torch.float32,
+                                        device=dev)}
+    state = diff.adam_init(params)
+    t0 = time.perf_counter()
+    for _ in range(POSE_STEPS):
+        d = params["cam_delta"].detach().requires_grad_(True)
+        d2 = (render(d, fov) - target) ** 2
+        g = torch.autograd.grad(torch.mean(d2 / (1.0 + d2)), [d])[0]
+        params, state = diff.adam_update({"cam_delta": d},
+                                         {"cam_delta": g}, state, POSE_LR)
+    err = float(torch.linalg.norm(params["cam_delta"]))
+    wall = time.perf_counter() - t0
+    err0 = float(np.linalg.norm(true))
+    check(err < 0.3 * err0, f"pose recovery: error {err} of {err0}")
+    return err0, err, wall
+
+
+def grads_32(dev):
+    """mat_kd and light_L gradients of a 32x32, 2 spp, depth 5
+    render_loss of the Cornell model against a seeded target."""
+    sc, cam = flagship.cornell(device=dev)
+    target = torch.as_tensor(np.random.RandomState(21).rand(1024, 31)
+                             .astype(np.float32) * 0.5, device=dev)
+    p = {k: getattr(sc, k).clone().requires_grad_(True)
+         for k in ("mat_kd", "light_L")}
+    loss = diff.render_loss(p, sc, cam(32, 32), 32, 32,
+                            SamplerConfig("sobol", 0, 2),
+                            torch.arange(1024, device=dev), (0, 1), target,
+                            max_depth=DEPTH)
+    return dict(zip(p, (g.cpu() for g in torch.autograd.grad(
+        loss, list(p.values())))))
+
+
+def finite_grads(dev, scene_path, res=64):
+    """Every DIFFERENTIABLE_FIELDS gradient of a res x res, 1 spp, depth 3
+    render_loss of a scene: finite, and nonzero for the leaves it uses.
+    Returns {leaf: largest |gradient|}."""
+    job = parse_scene(scene_path, device=dev)
+    cam = cli.build_camera(job, res, res, dev)
+    sc = job.scene
+    p = {k: getattr(sc, k).clone().requires_grad_(True)
+         for k in diff.DIFFERENTIABLE_FIELDS}
+    loss = diff.render_loss(p, sc, cam, res, res,
+                            SamplerConfig(job.sampler_kind, 0, 1),
+                            torch.arange(res * res, device=dev), (0,),
+                            torch.zeros(res * res, 31, device=dev),
+                            max_depth=3)
+    out = {}
+    for k, g in zip(p, torch.autograd.grad(loss, list(p.values()),
+                                           allow_unused=True)):
+        name = os.path.basename(scene_path)
+        check(g is not None or k not in FINITE_USED[scene_path],
+              f"{name}: no gradient reaches {k}")
+        if g is None:
+            continue
+        check(bool(torch.isfinite(g).all()), f"{name}: non-finite {k} "
+              "gradient")
+        out[k] = float(g.abs().max())
+        check(out[k] > 0 or k not in FINITE_USED[scene_path],
+              f"{name}: zero {k} gradient")
+    return out
+
+
+def phase21(run_path, card, device, scene, camera):
+    """Differentiable rendering (module docstring)."""
+    cfg = SamplerConfig("sobol", 0, SPP)
+    start, target, ids = profile_pass.grad_problem(scene, camera, W, H, cfg,
+                                                   RAYS_PER_PASS, DEPTH)
+    init, step = diff.make_train_step(scene, camera, W, H, cfg, target,
+                                      max_depth=DEPTH, learning_rate=INV_LR)
+    per_step = {"dense_queue": DEPTH + 1, "dense_queue_cull": 0,
+                "dense_loop": DEPTH + 1, "dense_loop_motion": 0}
+    none = dict.fromkeys(per_step, 0)
+    params, state = start, init(start)
+    # the first step by halves: the kernels run in the forward only
+    (p, loss), _ = run_path("inverse render step 1 forward",
+                            lambda: step.forward(params, ids, 0), per_step,
+                            scene)
+    (params, state), _ = run_path("inverse render step 1 backward",
+                                  lambda: step.backward(p, loss, state),
+                                  none, scene)
+    losses = [float(loss.detach())]
+    t0 = time.perf_counter()
+    for i in range(1, INV_STEPS):
+        (params, state, loss), _ = run_path(
+            f"inverse render step {i + 1}",
+            lambda: step(params, state, ids, 0), per_step, scene)
+        losses.append(float(loss))
+        for k in params:
+            check(bool(torch.isfinite(state["mu"][k]).all()
+                       and torch.isfinite(state["nu"][k]).all()),
+                  f"inverse render step {i + 1}: a {k} gradient is not "
+                  "finite")
+    step_ms = (time.perf_counter() - t0) * 1e3 / (INV_STEPS - 1)
+    check(all(np.isfinite(losses)), f"inverse render losses {losses}")
+    check(losses[-1] < INV_DROP * losses[0], f"inverse render: loss "
+          f"{losses[-1]} after {INV_STEPS} steps, first {losses[0]}")
+    kd_ratio, l_ratio = (float((params[k] / getattr(scene, k))[
+        getattr(scene, k) > 0].mean()) for k in ("mat_kd", "light_L"))
+    # a forward pass of the same samples without autograd, and the rays
+    # a step traces (trace_paths' count, as bench.py counts)
+    with torch.no_grad():
+        ray, _, _, pid, sidx = path.camera_rays_for_pixels(camera, W, H, cfg,
+                                                           ids, 0)
+        n_rays = int(path.trace_paths(diff.apply_params(scene, params), ray,
+                                      pid, sidx, cfg, max_depth=DEPTH,
+                                      count_rays=True)[1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            diff.render_samples(params, scene, camera, W, H, cfg, ids, 0,
+                                max_depth=DEPTH)
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t0) * 1e3 / 5
+    prof = profile_pass.profile_train_step(scene, camera, W, H, cfg, params,
+                                           target, ids, DEPTH, INV_LR)
+    f, b = prof["fwd"], prof["bwd"]
+    check(b[4]["dense_queue"] == b[4]["dense_loop"] == 0,
+          f"the profiled backward launched {b[4]}")
+    print(f"phase 21 inverse render Cornell {W}x{H} ({RAYS_PER_PASS} rays "
+          f"a step, sobol, depth {DEPTH}), mat_kd and light_L from 0.5 and "
+          f"0.7 of their values, lr {INV_LR}: loss {losses[0]:.6e} -> "
+          f"{losses[-1]:.6e} after {INV_STEPS} steps (ratio "
+          f"{losses[-1] / losses[0]:.4f}, limit {INV_DROP}; step 20 "
+          f"{losses[19] / losses[0]:.4f}), mat_kd / light_L at "
+          f"{kd_ratio:.4f} / {l_ratio:.4f} of their values; K1 and K2 "
+          f"{DEPTH + 1} a step, none in the backward, on {card}")
+    print(f"phase 21 fwd+bwd step {step_ms:.2f} ms, forward pass under "
+          f"no_grad {fwd_ms:.2f} ms (ratio {step_ms / fwd_ms:.2f}), "
+          f"{n_rays} rays a step, fwd+bwd {n_rays / step_ms * 1e3:.4e} "
+          f"rays/s; step peak memory {prof['peak_mib']:.1f} MiB "
+          f"({prof['above_mib']:.1f} MiB above the scene and state); "
+          f"profiled step: forward {f[2]} launches {f[1]:.2f} ms device "
+          f"({f[0]:.2f} ms wall), backward {b[2]} launches {b[1]:.2f} ms "
+          f"device ({b[0]:.2f} ms wall), idle share {prof['idle']:.3f}, "
+          f"on {card}")
+
+    for what, ad, fd in fd_checks(device):
+        print(f"phase 21 finite difference {what}: autograd {ad:.6e}, "
+              f"central difference {fd:.6e}")
+    shares = camera_fd_check(device)
+    print("phase 21 camera Jacobian against finite differences (24x24, "
+          "depth 2): share of pixels within 10% " + ", ".join(
+              f"{k} {v:.3f}" for k, v in shares.items()) + " (> 0.7)")
+    err0, err, wall = pose_recovery(device)
+    print(f"phase 21 pose recovery: {POSE_STEPS} Adam steps (lr {POSE_LR}) "
+          f"in {wall:.2f} s, error {err0:.5f} -> {err:.5f} (ratio "
+          f"{err / err0:.3f}, limit 0.3), on {card}")
+    g, c = grads_32(device), grads_32("cpu")
+    for k in g:
+        err = float((g[k] - c[k]).abs().max() / c[k].abs().max())
+        print(f"phase 21 GPU vs CPU {k} gradient, Cornell 32x32 2 spp: "
+              f"largest difference {err:.3e} of the largest entry "
+              f"(limit {GRAD_CPU_RTOL})")
+        check(err < GRAD_CPU_RTOL, f"GPU vs CPU {k} gradient: {err}")
+    for sp in FINITE_USED:
+        m = finite_grads(device, sp)
+        print(f"phase 21 {os.path.basename(sp)} 64x64 1 spp depth 3: every "
+              "gradient finite; largest " + ", ".join(
+                  f"{k} {v:.3e}" for k, v in m.items()))
+
+
 def lens_phases(scene, pcam, cfg, run_path, card, tmpdir):
     """Phases 14-17 (see the module docstring) on the Cornell model, its
     perspective camera pcam, through run_path (main's counted runs)."""
@@ -1721,6 +2042,11 @@ def main():
     t0 = time.perf_counter()
     phase20(run_path, card, device, res)
     print(f"phase 20 lights pass; wall s {time.perf_counter() - t0:.1f}")
+
+    # --- phase 21: differentiable rendering ---
+    t0 = time.perf_counter()
+    phase21(run_path, card, device, scene, camera)
+    print(f"phase 21 gradients; wall s {time.perf_counter() - t0:.1f}")
 
     rows = []
     for k, (src, rep) in KERNELS.items():

@@ -48,6 +48,9 @@ class ProjectiveCamera:
             for f in dataclasses.fields(self)
             if torch.is_tensor(getattr(self, f.name))})
 
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
 
 def _screen_window(width, height, screen=None):
     if screen is not None:

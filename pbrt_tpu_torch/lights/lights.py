@@ -162,7 +162,7 @@ def sample_li(scene: ir.SceneData, l, p, n, u1, u2):
                                                        device=dev),
                 torch.zeros(B, dtype=torch.bool, device=dev))
     l = l.long()
-    L = scene.light_L[l]
+    L = scene.light_L.index_select(0, l)    # (bsdf.gather_materials)
     lt = scene.light_type[l] if len(kinds) > 1 else None
     ones = torch.ones(B, device=dev)
     far = torch.full((B,), INF_DIST, device=dev)
@@ -361,7 +361,8 @@ def area_le(scene: ir.SceneData, light_idx, ng, wo):
     has = light_idx >= 0
     if len(scene.light_kinds) > 1:
         has = has & (scene.light_type[l] == ir.LIGHT_AREA)
-    return torch.where((has & facing)[:, None], scene.light_L[l], 0.0)
+    return torch.where((has & facing)[:, None],
+                       scene.light_L.index_select(0, l), 0.0)
 
 
 def delta_emit_scale(scene: ir.SceneData, l, w):
@@ -390,7 +391,8 @@ def _env_radiance(scene: ir.SceneData, d):
     """The env map at world directions d (equirect, in light space); a
     constant light's 1x1 map too."""
     y, x, _ = _env_cell(scene, d)
-    return scene.env_map[y, x]
+    He, We, NS = scene.env_map.shape
+    return scene.env_map.reshape(He * We, NS).index_select(0, y * We + x)
 
 
 def env_le(scene: ir.SceneData, d):

@@ -151,7 +151,11 @@ def gather_materials(scene: ir.SceneData, material_idx, uv=None, p=None,
     # rough == 0 stays 0 (the perfect-specular marker)
     au = torch.where(rough_u > 0, torch.clamp(au, min=1e-3), 0.0)
     av = torch.where(rough_v > 0, torch.clamp(av, min=1e-3), 0.0)
-    kd, ks = scene.mat_kd[m], scene.mat_ks[m]
+    # index_select, not indexing: its backward accumulates by index_add,
+    # where indexing's backward serializes the many lanes that share a
+    # material (the gradient step's backward, PERF.md)
+    kd, ks = (scene.mat_kd.index_select(0, m),
+              scene.mat_ks.index_select(0, m))
     if uv is not None and scene.tex_type.shape[0] > 1:
         pw = p if p is not None else torch.zeros(uv.shape[:-1] + (3,),
                                                  device=uv.device)
@@ -167,7 +171,8 @@ def gather_materials(scene: ir.SceneData, material_idx, uv=None, p=None,
             else:
                 ks = s
     fam = scene.mat_families
-    kr, kt = scene.mat_kr[m], scene.mat_kt[m]
+    kr, kt = (scene.mat_kr.index_select(0, m),
+              scene.mat_kt.index_select(0, m))
     op = None
     if _present(fam, ir.MAT_UBER):
         # uber's opacity scales every surface lobe (uber.cpp:40-58); it is

@@ -2,6 +2,8 @@
 
 Area light, matte / plastic / mirror / glass, two tessellated UV spheres
 (3,024 triangles each) and one glass sphere quadric: 6,060 triangles.
+With tessellate=False the mirror and plastic spheres are quadrics and
+there is no glass sphere: the box's 12 triangles and two spheres.
 """
 
 from __future__ import annotations
@@ -35,10 +37,11 @@ def _uv_sphere(n_theta=24, n_phi=48):
     return pts, np.asarray(idx)
 
 
-def cornell(device=None):
+def cornell(tessellate=True, device=None):
     """Returns (scene, camera_ctor); camera_ctor(W, H) -> camera, both on
-    `device` (None: the first CUDA card).  The JAX package's
-    tessellate=True build."""
+    `device` (None: the first CUDA card).  tessellate: the spheres as
+    triangle meshes plus a glass sphere (the benchmark scene), or two
+    quadric spheres, as in the JAX package."""
     device = devmod.resolve(device)
     b = SceneBuilder()
     white = b.add_material(MaterialSpec(type=MAT_MATTE,
@@ -71,11 +74,18 @@ def cornell(device=None):
         spec.from_rgb_np(np.asarray([1.0, 0.85, 0.6]), "illuminant") * 15.0)
     quad([[1.8, 1.8, 4.99], [1.8, 3.2, 4.99], [3.2, 3.2, 4.99],
           [3.2, 1.8, 4.99]], blackm, light=li)
-    pts, idx = _uv_sphere(28, 56)
-    b.add_triangle_mesh(pts * 1.0 + np.array([3.5, 3.4, 1.0]), idx, mirror)
-    b.add_triangle_mesh(pts * 0.8 + np.array([1.4, 2.6, 0.8]), idx, plastic)
-    b.add_sphere(tfm.translate(2.5, 1.3, 0.6) * tfm.scale(.6, .6, .6),
-                 1.0, glass)
+    if tessellate:
+        pts, idx = _uv_sphere(28, 56)
+        b.add_triangle_mesh(pts * 1.0 + np.array([3.5, 3.4, 1.0]), idx,
+                            mirror)
+        b.add_triangle_mesh(pts * 0.8 + np.array([1.4, 2.6, 0.8]), idx,
+                            plastic)
+        b.add_sphere(tfm.translate(2.5, 1.3, 0.6) * tfm.scale(.6, .6, .6),
+                     1.0, glass)
+    else:
+        b.add_sphere(tfm.translate(3.5, 3.4, 1.0), 1.0, mirror)
+        b.add_sphere(tfm.translate(1.4, 2.6, 0.8) * tfm.scale(.8, .8, .8),
+                     1.0, plastic)
     scene = b.build(device=device)
 
     def camera_ctor(W, H):

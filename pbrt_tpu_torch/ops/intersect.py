@@ -476,8 +476,9 @@ def trace_pair(scene: SceneData, nray: geom.Ray, sray, ignore_light=None,
         return intersect_full(scene, nray, ray_diff=ray_diff), None
     B = nray.o.shape[0]
     dev = nray.o.device
-    both = geom.Ray(*(torch.cat([getattr(nray, f), getattr(sray, f)])
-                      for f in ("o", "d", "tmax", "wavelength", "time")))
+    with torch.no_grad():       # the search's input: no gradient to keep
+        both = geom.Ray(*(torch.cat([getattr(nray, f), getattr(sray, f)])
+                          for f in ("o", "d", "tmax", "wavelength", "time")))
     sh_any = (torch.ones(sray.o.shape[0], dtype=torch.bool, device=dev)
               if ignore_light is None else ignore_light < 0)
     amask = torch.cat([torch.zeros(B, dtype=torch.bool, device=dev), sh_any])

@@ -1,7 +1,7 @@
 """The operations one render pass launches, by component.
 
     python -m pbrt_tpu_torch.tools.launch_components scene.pbrt
-        [--rays 65536] [--width W --height H] [--cpu]
+        [--rays 65536] [--width W --height H] [--cpu] [--grad]
 
 Parses the scene (on the first CUDA card, or the CPU with --cpu), traces
 one pass as `run_job` does (sample 0 of the first `--rays` pixels of a
@@ -13,6 +13,12 @@ COMPONENTS on the Python stack; a texture lookup is named with its
 caller's component too.  The dense intersector's kernels (K1, K2) are
 ctypes launches, counted by their wrappers' LAUNCHES, and on the CPU
 their plain versions' operations fall under "intersect".
+
+With --grad the pass is the forward of a gradient step instead
+(`diff.render_loss` of mat_kd and light_L against a black target), and
+the operations of its backward (`autograd.grad`) are counted as one
+more component, "backward": autograd runs them with no frame of the
+forward's functions on the stack.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from pbrt_tpu_torch.core import device as devmod
-from pbrt_tpu_torch.integrators import dispatch, path
+from pbrt_tpu_torch.integrators import diff, dispatch, path
 from pbrt_tpu_torch.ops import dense_intersect as dense
 from pbrt_tpu_torch.parser.api import parse_scene
 from pbrt_tpu_torch.samplers.samplers import SamplerConfig
@@ -83,17 +89,19 @@ class OpCounter(TorchDispatchMode):
     def __init__(self):
         super().__init__()
         self.counts = collections.Counter()
+        self.label = None          # a fixed component for every operation
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         name = func.__name__.split(".")[0]
         if name not in _VIEWS:
-            self.counts[_component(sys._getframe(1))] += 1
+            self.counts[self.label or _component(sys._getframe(1))] += 1
         return func(*args, **(kwargs or {}))
 
 
-def count_pass(job, rays, width, height, device):
-    """{component: operations} of one pass of `rays` camera rays, and
-    the dense kernels' launches."""
+def count_pass(job, rays, width, height, device, grad=False):
+    """{component: operations} of one pass of `rays` camera rays (with
+    grad: a gradient step's forward and backward), and the dense kernels'
+    launches."""
     camera = cli.build_camera(job, width, height, device)
     cfg = SamplerConfig(job.sampler_kind, 0, job.spp)
     depth = job.integrator_params["maxdepth"]
@@ -102,6 +110,16 @@ def count_pass(job, rays, width, height, device):
     opts["light_strategy"] = dispatch.light_strategy(job.integrator_params)
     dense.reset_launch_counts()
     counter = OpCounter()
+    if grad:
+        p = {k: getattr(job.scene, k).clone().requires_grad_(True)
+             for k in ("mat_kd", "light_L")}
+        with counter:
+            loss = diff.render_loss(
+                p, job.scene, camera, width, height, cfg, ids, (0,),
+                torch.zeros(rays, 31, device=device), depth)
+            counter.label = "backward"
+            torch.autograd.grad(loss, list(p.values()))
+        return counter.counts, dict(dense.LAUNCHES)
     with counter:
         ray, _, _, pid, sidx = path.camera_rays_for_pixels(
             camera, width, height, cfg, ids, 0)
@@ -121,13 +139,14 @@ def main(argv=None):
     ap.add_argument("--width", type=int, default=None)
     ap.add_argument("--height", type=int, default=None)
     ap.add_argument("--cpu", action="store_true")
+    ap.add_argument("--grad", action="store_true")
     args = ap.parse_args(argv)
     device = devmod.resolve("cpu" if args.cpu else None)
     job = parse_scene(args.scene, device=device)
     W = args.width or job.film_width
     H = args.height or job.film_height
     rays = min(args.rays or 65536, W * H)
-    counts, launches = count_pass(job, rays, W, H, device)
+    counts, launches = count_pass(job, rays, W, H, device, grad=args.grad)
     total = sum(counts.values())
     print(f"{args.scene} at {W}x{H}, {rays} rays, on {device}: {total} "
           f"operations; dense kernel launches {launches}")

@@ -1,7 +1,10 @@
-"""Where the time of one render pass goes, on the card.
+"""Where the time of one render pass, or one gradient step, goes on the
+card.
 
     python -m pbrt_tpu_torch.tools.profile_pass scene.pbrt [--rays 65536]
         [--maxdepth N] [--top 12] [--sampler refsobol]
+    python -m pbrt_tpu_torch.tools.profile_pass (scene.pbrt | cornell)
+        --grad [--rays 65536] [--maxdepth N] [--top 12]
 
 Parses the scene on the first CUDA card, traces one pass (sample 0 of
 the first `--rays` pixels, through `path.trace_paths` with the texture
@@ -15,6 +18,18 @@ kernel events and their summed device time, the device's idle share
 (1 - device time / wall time), the launches of the dense kernels, and
 the kernels that took the most device time.  Needs a card: it raises
 without one.
+
+With --grad it profiles one step of `diff.make_train_step` instead
+(`cornell` is the Cornell model of `models/flagship.py` at 256x256,
+Sobol, depth 5, the benchmark cell): the parameters mat_kd and light_L
+start at 0.5 and 0.7 of the scene's values and the target is
+`diff.render_samples` at the scene's own, for sample 0 of the first
+`--rays` pixels.  After two unprofiled steps it prints the peak device
+memory of a third (max_memory_allocated, its peak statistics reset just
+before), then traces one more step's forward (`render_loss`) and backward
+(`autograd.grad`, the Adam update and the clamp) under torch.profiler,
+each alone, and prints their wall time, device kernel events, device
+time and the dense kernels' launches, and the step's idle share.
 """
 
 from __future__ import annotations
@@ -28,12 +43,108 @@ import torch
 from torch.autograd import DeviceType
 
 from pbrt_tpu_torch.core import device as devmod
-from pbrt_tpu_torch.integrators import dispatch, path, refpath
+from pbrt_tpu_torch.integrators import diff, dispatch, path, refpath
+from pbrt_tpu_torch.models import flagship
 from pbrt_tpu_torch.ops import dense_intersect as dense
 from pbrt_tpu_torch.parser.api import parse_scene
 from pbrt_tpu_torch.samplers.samplers import SamplerConfig
 from pbrt_tpu_torch.tools import pbrt as cli
 from pbrt_tpu_torch.tools.kernel_workloads import device_us
+
+
+def _device_events(prof):
+    """(device ms, kernel launches) of a profile's device kernels."""
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and device_us(e) > 0]
+    return (sum(device_us(e) for e in ev) / 1e3,
+            sum(e.count for e in ev), ev)
+
+
+def grad_problem(scene, camera, W, H, cfg, rays, depth):
+    """The inverse-rendering problem --grad profiles: (start params,
+    target, pixel ids) for mat_kd and light_L at 0.5 and 0.7 of the
+    scene's values, the target rendered at the scene's own at sample 0."""
+    ids = torch.arange(rays, device=scene.dense_w.device)
+    truth = {"mat_kd": scene.mat_kd, "light_L": scene.light_L}
+    with torch.no_grad():
+        target, _ = diff.render_samples(truth, scene, camera, W, H, cfg,
+                                        ids, 0, max_depth=depth)
+    start = {"mat_kd": scene.mat_kd * 0.5, "light_L": scene.light_L * 0.7}
+    return start, target, ids
+
+
+def profile_train_step(scene, camera, W, H, cfg, params, target, ids,
+                       depth, learning_rate=0.05):
+    """One make_train_step step, split into its forward and its backward,
+    each under torch.profiler, after two unprofiled steps and one whose
+    peak memory is read.  Returns a dict: fwd / bwd (wall ms, device ms,
+    launches, the device kernel events, dense launches), idle share of
+    the step, peak_mib (the step's peak allocation) and above_mib (its
+    peak above what was allocated before it)."""
+    init, step = diff.make_train_step(scene, camera, W, H, cfg, target,
+                                      max_depth=depth,
+                                      learning_rate=learning_rate)
+    state = init(params)
+    for _ in range(2):
+        params, state, _ = step(params, state, ids, 0)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params, state, _ = step(params, state, ids, 0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    out = {"peak_mib": peak / 2 ** 20, "above_mib": (peak - base) / 2 ** 20}
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+
+    def traced(fn):
+        dense.reset_launch_counts()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        return res, (wall,) + _device_events(prof) + (dict(dense.LAUNCHES),)
+
+    (p, loss), out["fwd"] = traced(lambda: step.forward(params, ids, 0))
+    _, out["bwd"] = traced(lambda: step.backward(p, loss, state))
+    out["idle"] = 1 - (out["fwd"][1] + out["bwd"][1]) / (
+        out["fwd"][0] + out["bwd"][0])
+    return out
+
+
+def _grad_main(args, card, device):
+    if args.scene == "cornell":
+        scene, cam_ctor = flagship.cornell(device=device)
+        W = H = 256
+        camera = cam_ctor(W, H)
+        cfg = SamplerConfig("sobol", 0, 4)
+        depth = args.maxdepth or 5
+    else:
+        job = parse_scene(args.scene, device=device)
+        scene, W, H = job.scene, job.film_width, job.film_height
+        camera = cli.build_camera(job, W, H, device)
+        cfg = SamplerConfig(job.sampler_kind, 0, job.spp)
+        depth = args.maxdepth or job.integrator_params["maxdepth"]
+    rays = min(args.rays, W * H)
+    params, target, ids = grad_problem(scene, camera, W, H, cfg, rays,
+                                       depth)
+    r = profile_train_step(scene, camera, W, H, cfg, params, target, ids,
+                           depth)
+    print(f"{args.scene} --grad: {rays} rays, depth {depth}, params "
+          f"mat_kd light_L, on {card}")
+    print(f"step peak memory {r['peak_mib']:.1f} MiB ({r['above_mib']:.1f} "
+          f"MiB above what was allocated before it)")
+    for name in ("fwd", "bwd"):
+        wall, dev_ms, n, ev, launches = r[name]
+        print(f"{name}: {wall:.2f} ms wall, {n} device kernel events, "
+              f"{dev_ms:.2f} ms device time, dense launches {launches}")
+        for e in sorted(ev, key=device_us, reverse=True)[:args.top]:
+            print(f"  {device_us(e) / 1e3:9.3f} ms {e.count:6d} calls "
+                  f"{100 * device_us(e) / 1e3 / dev_ms:5.1f}%  "
+                  f"{e.key[:90]}")
+    print(f"step idle share {r['idle']:.3f}")
+    return 0
 
 
 def main(argv=None):
@@ -43,11 +154,14 @@ def main(argv=None):
     ap.add_argument("--maxdepth", type=int, default=None)
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--sampler", default=None, choices=["refsobol"])
+    ap.add_argument("--grad", action="store_true")
     args = ap.parse_args(argv)
     device = devmod.resolve(None)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
+    if args.grad:
+        return _grad_main(args, card, device)
     job = parse_scene(args.scene, device=device)
     W, H = job.film_width, job.film_height
     camera = cli.build_camera(job, W, H, device)

@@ -62,6 +62,23 @@ def test_cornell_columns_equal_jax(scenes):
         assert getattr(js, k) == getattr(ts, k), k
 
 
+def test_untessellated_cornell_equals_jax():
+    """cornell(tessellate=False): the box's 12 triangles and the mirror
+    and plastic spheres as quadrics, column for column."""
+    js, jcam = jflag.cornell(tessellate=False)
+    ts, tcam = tflag.cornell(tessellate=False, device=DEV)
+    for k in tir.JAX_COLUMNS:
+        a = np.asarray(getattr(js, k))
+        b = getattr(ts, k).numpy()
+        assert a.dtype == b.dtype and np.array_equal(a, b), k
+    for k in tir.JAX_STATICS:
+        assert getattr(js, k) == getattr(ts, k), k
+    _assert_scene_equal(ts, tir.scene_from_jax(*jax_arrays(js), DEV))
+    assert ts.n_quadrics == 2 and ts.prim_type.shape[0] == 14
+    np.testing.assert_array_equal(tcam(24, 24).raster_to_camera.numpy(),
+                                  np.asarray(jcam(24, 24).raster_to_camera))
+
+
 def test_dense_tables_equal_jax(scenes):
     js, _, ts, _ = scenes
     v0, e1, e2 = (np.asarray(getattr(js, k), np.float64)
