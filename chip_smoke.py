@@ -151,6 +151,36 @@ error below 0.3 of the start); the mat_kd and light_L gradients of a
 largest entry); and every gradient of the materials and lights scenes
 finite at 64x64.
 
+Phase 22 drives participating media through volpath (integrators/
+volpath.py), each render counted as phase 5 is (a closest-hit call a
+bounce and, but for the last, the shadow walk's 8 calls: 46 K1 and K2 a
+pass at depth 5, 55 at depth 6): (a) the CLI's `run_job` on
+scenes/volpath_bench.pbrt (homogeneous fog bound by MediumInterface, the
+camera inside it) at its 128x128, 32 spp, depth 5, against
+tests/data/ref_volpath_blocks.npz at tests/test_reference_parity.py:80-86's
+limits (energy within 3%, median 16x16-block error < 0.10, band ratio
+flat within 0.02); (b) scenes/smoke_glass.pbrt (a density grid bound
+inside a glass sphere) at its 48x48, 32 spp, depth 6, against
+tests/data/ref_smoke_glass.npz at tests/test_media_interface.py:385-392's
+(energy within 10%, median 8x8-block error < 0.15, > 85% of blocks
+within 0.35); (c) both at 256x256, 4 spp, 65,536 rays a pass: ms a pass,
+one profiled pass's launches, device ms and idle share, K1 and K2 a
+pass, and for smoke_glass the K1 active chunks a tile of bounce 1's
+walk at crossings 1, 2 and 8; (d) both at 32x32 2 spp on the card
+against the CPU (phase 8's limits), and again without their
+MediumInterface lines (volpath's scene-medium form); (e) K1 and K2
+against their plain versions on smoke_glass's bounce-1 walk batches at
+crossings 1 and 2 (whose lanes mostly end on the quadric sphere: few
+triangle hits), volpath_bench's at crossing 1 (the fog box's triangles)
+and, at 256x256, the bounce-0 walk of kernel_workloads.shells_scene at
+crossings 2, 5 and 8, where every live lane crosses a material-less
+box's triangle at each step.
+Phase 23 renders cornell_bench.pbrt with its integrator overridden to
+whitted, ambientocclusion and directlighting ("all" strategy) at 256x256
+2 spp, counted as phase 5 is (11, 2 and 2 K1 and K2 a pass): ms a pass,
+one profiled pass's launches and device ms; and each at 32x32 2 spp on
+the card against the CPU.
+
 Every lens render is finite, non-negative and non-black.  Mitchell's
 and sinc's negative lobes make some developed pixels negative where the
 image has a sharp edge (the reference clamps them when it writes the
@@ -204,6 +234,7 @@ from pbrt_tpu_torch.integrators import dispatch  # noqa: E402
 from pbrt_tpu_torch.integrators import path  # noqa: E402
 from pbrt_tpu_torch.integrators import refpath  # noqa: E402
 from pbrt_tpu_torch.integrators import spectralpath  # noqa: E402
+from pbrt_tpu_torch.integrators import volpath  # noqa: E402
 from pbrt_tpu_torch.lights import lights  # noqa: E402
 from pbrt_tpu_torch.materials import bsdf  # noqa: E402
 from pbrt_tpu_torch.models import flagship  # noqa: E402
@@ -414,9 +445,14 @@ def compare_kernels(scene, batches, card, k2, seams=False):
         else:
             t64, bnd = dense.loop_t_reference(r16[closest], Wt,
                                               p_k[closest])
-        ratio_k = ((t_k[closest] - t64).abs() / (bnd * t64.abs())).max()
-        ratio_p = ((t_p[closest] - t64).abs() / (bnd * t64.abs())).max()
-        share = (terr <= 1e-5 * t_p[closest].abs()).double().mean().item()
+        ratio_k = ((t_k[closest] - t64).abs() / (bnd * t64.abs())).max(
+        ) if closest.any() else torch.tensor(0.0)
+        ratio_p = ((t_p[closest] - t64).abs() / (bnd * t64.abs())).max(
+        ) if closest.any() else torch.tensor(0.0)
+        # (a batch whose lanes hit no triangle, as a shadow walk's may,
+        # has no t to compare)
+        share = ((terr <= 1e-5 * t_p[closest].abs()).double().mean().item()
+                 if closest.any() else 1.0)
         occ_same = torch.equal((p_k >= 0)[anyhit], (p_p >= 0)[anyhit])
         differ = ~anyhit & (p_k >= 0) & (p_p >= 0) & (p_k != p_p)
         occ_differ = anyhit & ((p_k >= 0) != (p_p >= 0))
@@ -660,7 +696,7 @@ def render_32(camera_fn, kind="sobol", trace=None):
     return render
 
 
-def pass_profile(scene, camera, cfg, trace=None):
+def pass_profile(scene, camera, cfg, trace=None, depth=DEPTH):
     """One 65,536-ray pass (sample 0 of the first 65,536 pixels: camera
     rays, then trace(scene, ...), default trace_paths, with the keywords
     and ray differentials `path.render` would give it) under
@@ -678,7 +714,7 @@ def pass_profile(scene, camera, cfg, trace=None):
             opts["ray_diff"] = path.camera_ray_differentials(
                 camera, W, H, cfg, pid, sidx, path.generate_fn(camera),
                 cfg.spp)
-        trace(scene, ray, pid, sidx, cfg, max_depth=DEPTH, **opts)
+        trace(scene, ray, pid, sidx, cfg, max_depth=depth, **opts)
         torch.cuda.synchronize()
     ev = [e for e in prof.key_averages()
           if e.device_type == DeviceType.CUDA and kw.device_us(e) > 0]
@@ -1783,6 +1819,267 @@ def lens_phases(scene, pcam, cfg, run_path, card, tmpdir):
           + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
 
 
+# phases 22-23: the media scenes and their reference-binary fixtures
+VOL_SCENE = os.path.join(ROOT, "scenes", "volpath_bench.pbrt")
+VOL_REF = os.path.join(ROOT, "tests", "data", "ref_volpath_blocks.npz")
+SMOKE_SCENE = os.path.join(ROOT, "scenes", "smoke_glass.pbrt")
+SMOKE_REF = os.path.join(ROOT, "tests", "data", "ref_smoke_glass.npz")
+MEDIA_GATE_SPP = 32
+WALK_CROSSINGS = 8           # intersect_tr_walk's max_crossings
+
+
+def volpath_launches(depth, passes):
+    """K1 and K2 launches of volpath with MediumInterface media: a
+    closest-hit call a bounce and, but for the last, the shadow walk's
+    WALK_CROSSINGS calls."""
+    n = passes * (depth + 1 + depth * WALK_CROSSINGS)
+    return {"dense_queue": n, "dense_queue_cull": 0, "dense_loop": n,
+            "dense_loop_motion": 0}
+
+
+def volpath_gate(film, spp):
+    """tests/test_reference_parity.py:55-86's figures of volpath_bench at
+    its 128x128: (energy off by, median 16x16-block error, band ratio
+    off flat)."""
+    d = np.load(VOL_REF)
+    ref, k = d["blocks"], int(d["block"])
+    ours = film.raw.cpu().numpy() / spp
+    bo = ours.reshape(16, k, 16, k, 31).mean((1, 3))
+    lum_r, lum_o = ref.sum(-1), bo.sum(-1)
+    ratio = bo.reshape(-1, 31).mean(0) / np.maximum(
+        ref.reshape(-1, 31).mean(0), 1e-9)
+    return (float(abs(lum_o.sum() / lum_r.sum() - 1.0)),
+            float(np.median(np.abs(lum_o - lum_r) / lum_r)),
+            float(np.abs(ratio / ratio.mean() - 1.0).max()))
+
+
+def smoke_gate(film):
+    """tests/test_media_interface.py:350-392's figures of smoke_glass at
+    48x48: (energy off by, median 8x8-block error where the reference
+    has signal, share of those blocks within 0.35)."""
+    d = np.load(SMOKE_REF)
+    ref_lum, res = d["lum"], int(d["res"])
+    ours = filmmod.develop_spectral(film).cpu().numpy().sum(-1)
+    check(ours.shape == ref_lum.shape == (res, res), "smoke: image shape")
+
+    def blocks(img, bs=8):
+        n = img.shape[0] // bs
+        return img[:n * bs, :n * bs].reshape(n, bs, n, bs).mean((1, 3))
+
+    br, bo = blocks(ref_lum), blocks(ours)
+    sel = br > 0.2 * br.mean()
+    rel = np.abs(bo[sel] - br[sel]) / np.maximum(br[sel], 1e-9)
+    return (float(abs(bo.mean() / max(br.mean(), 1e-9) - 1.0)),
+            float(np.median(rel)), float((rel < 0.35).mean()))
+
+
+def media_32(scene_path, bound=True):
+    """render(dev) of a media scene at 32x32, 2 spp; bound=False drops its
+    MediumInterface lines, so that its medium is the scene's one medium
+    (volpath's other form: occluded and the medium's own Tr)."""
+    def render(dev):
+        with open(scene_path) as f:
+            text = f.read()
+        if not bound:
+            text = "\n".join(line for line in text.splitlines()
+                             if not line.startswith("MediumInterface"))
+        job = PbrtAPI(dev).parse_string(text, os.path.dirname(scene_path))
+        check(job.scene.has_prim_media == bound, f"{scene_path}: media")
+        job.film_width = job.film_height = 32
+        return cli.run_job(job, spp=2)[0]
+    return render
+
+
+def _walk_active(walks, scene):
+    """K1's active chunks a tile and the live lanes of walk batches."""
+    parts = []
+    for c, (r16, tmax, _) in walks.items():
+        _, na = dense.tile_chunk_lists(r16, tmax, scene.dense_cb)
+        parts.append(f"{c} {na.float().mean().item():.3f} "
+                     f"({int((tmax > 0).sum())})")
+    return ("K1 active chunks/tile (live lanes) " + ", ".join(parts)
+            + f" of {scene.dense_cb.shape[0]} chunks")
+
+
+def _compare_walks(scene, walks, names, prefix, card, res):
+    """compare_kernels on walk batches `names`, into res as prefix+name."""
+    wres = compare_kernels(scene, {prefix + c: walks[c] for c in names},
+                           card, "dense_loop")
+    for k, v in wres.items():
+        res[k].update(v)
+
+
+def phase22(run_path, card, device, res):
+    """Participating media through volpath (module docstring)."""
+    t0 = time.perf_counter()
+    # (a) the homogeneous reference gate, the scene's own 128x128
+    job = parse_scene(VOL_SCENE, device=device)
+    depth = job.integrator_params["maxdepth"]
+    check(job.scene.has_prim_media and not job.scene.has_grid_media
+          and job.scene.camera_medium == 0 and job.integrator_kind ==
+          "volpath" and depth == 5, "volpath_bench.pbrt settings")
+    t1 = time.perf_counter()
+    (film, _), counts = run_path(
+        "volpath_bench gate",
+        lambda: cli.run_job(job, spp=MEDIA_GATE_SPP),
+        volpath_launches(depth, MEDIA_GATE_SPP), job.scene)
+    dt = time.perf_counter() - t1
+    check_image(filmmod.develop_spectral(film), "volpath_bench gate")
+    energy, med, flat = volpath_gate(film, MEDIA_GATE_SPP)
+    print(f"phase 22a volpath_bench.pbrt {job.film_width}x{job.film_height}"
+          f" {MEDIA_GATE_SPP} spp depth {depth} vs ref_volpath_blocks.npz: "
+          f"energy off by {energy:.4f} (< 0.03), median block error "
+          f"{med:.4f} (< 0.10), band ratio flat within {flat:.4f} (< 0.02);"
+          f" {dt:.2f} s, {dt * 1e3 / MEDIA_GATE_SPP:.2f} ms/pass, launches "
+          f"{counts} on {card}")
+    check(energy < 0.03, f"volpath gate: energy off by {energy}")
+    check(med < 0.10, f"volpath gate: median block error {med}")
+    check(flat < 0.02, f"volpath gate: band ratio off by {flat}")
+    # (b) the grid reference gate, 48x48
+    sjob = parse_scene(SMOKE_SCENE, device=device)
+    sdepth = sjob.integrator_params["maxdepth"]
+    check(sjob.scene.has_grid_media and sjob.scene.camera_medium == -1
+          and sdepth == 6, "smoke_glass.pbrt settings")
+    t1 = time.perf_counter()
+    (sfilm, _), counts = run_path(
+        "smoke_glass gate", lambda: cli.run_job(sjob, spp=MEDIA_GATE_SPP),
+        volpath_launches(sdepth, MEDIA_GATE_SPP), sjob.scene)
+    dt = time.perf_counter() - t1
+    check_image(filmmod.develop_spectral(sfilm), "smoke_glass gate")
+    energy, med, share = smoke_gate(sfilm)
+    print(f"phase 22b smoke_glass.pbrt {sjob.film_width}x"
+          f"{sjob.film_height} {MEDIA_GATE_SPP} spp depth {sdepth} vs "
+          f"ref_smoke_glass.npz: energy off by {energy:.4f} (< 0.10), "
+          f"median block error {med:.4f} (< 0.15), blocks within 0.35 "
+          f"{share:.4f} (> 0.85); {dt:.2f} s, "
+          f"{dt * 1e3 / MEDIA_GATE_SPP:.2f} ms/pass, launches {counts} on "
+          f"{card}")
+    check(energy < 0.10, f"smoke gate: energy off by {energy}")
+    check(med < 0.15, f"smoke gate: median block error {med}")
+    check(share > 0.85, f"smoke gate: only {share} of blocks within 0.35")
+    t_gates = time.perf_counter() - t0
+
+    # (c) full width: 256x256, 4 spp, 65,536 rays a pass
+    t0 = time.perf_counter()
+    cfg = SamplerConfig("sobol", 0, SPP)
+    for name, j, d in (("volpath_bench", job, depth),
+                       ("smoke_glass", sjob, sdepth)):
+        j.film_width = j.film_height = W
+        cam = cli.build_camera(j, W, H, device)
+        cli.run_job(j, spp=1, max_rays_per_pass=RAYS_PER_PASS)
+        torch.cuda.synchronize()
+        passes = SPP * (-(-W * H // RAYS_PER_PASS))
+        t1 = time.perf_counter()
+        (f, _), counts = run_path(
+            f"{name} full width",
+            lambda: cli.run_job(j, spp=SPP, max_rays_per_pass=RAYS_PER_PASS),
+            volpath_launches(d, passes), j.scene)
+        ms = (time.perf_counter() - t1) * 1e3 / passes
+        img = filmmod.develop_spectral(f)
+        check_image(img, f"{name} full width")
+        prof = pass_profile(j.scene, cam, cfg,
+                            trace=volpath.make_trace_volpath(j), depth=d)
+        idle = ("not measured" if prof is None
+                else f"{1 - prof[0] / ms:.3f}")
+        extra = ""
+        if name == "smoke_glass":
+            walks = kw.volpath_walk_batches(j, cam, cfg, W, H,
+                                            RAYS_PER_PASS, d)
+            extra = "; bounce-1 walk " + _walk_active(walks, j.scene)
+            # (e) K1 and K2 against their plain versions on the walk's
+            # first two crossings
+            _compare_walks(j.scene, walks, ("walk1", "walk2"), "volpath_",
+                           card, res)
+        else:
+            # (e) and on volpath_bench's first crossing, whose lanes hit
+            # the fog box's triangles
+            _compare_walks(j.scene, kw.volpath_walk_batches(
+                j, cam, cfg, W, H, RAYS_PER_PASS, d, crossings=(1,)),
+                ("walk1",), "volpath_bench_", card, res)
+        print(f"phase 22c {name} {W}x{H} {SPP} spp depth {d}: {ms:.2f} "
+              f"ms/pass, image mean {img.mean().item():.6f}, {_prof(prof)}"
+              f", idle share {idle}, K1 / K2 {counts['dense_queue'] // passes}"
+              f" / {counts['dense_loop'] // passes} a pass{extra} on {card}")
+    # (e) and on the walk of kernel_workloads.shells_scene, whose lanes
+    # cross a box's triangles at every one of the 8 steps
+    shells = PbrtAPI(device).parse_string(kw.shells_scene(W))
+    cam = cli.build_camera(shells, W, H, device)
+    walks = kw.volpath_walk_batches(shells, cam, cfg, W, H, RAYS_PER_PASS, 1,
+                                    crossings=range(1, WALK_CROSSINGS + 1),
+                                    bounce=0)
+    live = [int((tmax > 0).sum()) for _, tmax, _ in walks.values()]
+    check(min(live) > RAYS_PER_PASS // 4 and len(set(live)) == 1,
+          f"shells: live walk lanes {live}")
+    print(f"phase 22e shells {W}x{H}: bounce-0 walk "
+          + _walk_active(walks, shells.scene))
+    _compare_walks(shells.scene, walks, ("walk2", "walk5", "walk8"),
+                   "volpath_shells_", card, res)
+    t_full = time.perf_counter() - t0
+    # (d) the card against the CPU
+    t0 = time.perf_counter()
+    compare_cpu([("volpath_bench", media_32(VOL_SCENE)),
+                 ("smoke_glass", media_32(SMOKE_SCENE)),
+                 ("volpath_bench, the scene's medium",
+                  media_32(VOL_SCENE, bound=False)),
+                 ("smoke_glass, the scene's medium",
+                  media_32(SMOKE_SCENE, bound=False))])
+    print(f"phase 22 media pass; wall s gates {t_gates:.1f}, full width "
+          f"{t_full:.1f}, GPU vs CPU {time.perf_counter() - t0:.1f}")
+
+
+# phase 23: the other single-pass integrators on cornell_bench.pbrt, the
+# integrator overridden: (name, integrator parameters, K1 / K2 calls a
+# pass at depth 5)
+OTHER_INTEGRATORS = (
+    ("whitted", {}, 2 * DEPTH + 1),
+    ("ambientocclusion", {}, 2),
+    ("directlighting", {"strategy": "all"}, 2))
+
+
+def _bench_as(kind, params, dev, res=None):
+    job = parse_scene(BENCH_SCENE, device=dev)
+    job.integrator_kind = kind
+    job.integrator_params.update(params)
+    if res is not None:
+        job.film_width = job.film_height = res
+    return job
+
+
+def phase23(run_path, card, device):
+    """whitted, ambient occlusion and directlighting (module docstring)."""
+    t0 = time.perf_counter()
+    for kind, params, calls in OTHER_INTEGRATORS:
+        job = _bench_as(kind, params, device, W)
+        cli.run_job(job, spp=1)
+        torch.cuda.synchronize()
+        passes = GATE_SPP * (-(-W * H // (1 << 18)))
+        t1 = time.perf_counter()
+        (film, _), counts = run_path(
+            kind, lambda: cli.run_job(job, spp=GATE_SPP),
+            {"dense_queue": calls * passes, "dense_queue_cull": 0,
+             "dense_loop": calls * passes, "dense_loop_motion": 0},
+            job.scene)
+        ms = (time.perf_counter() - t1) * 1e3 / passes
+        img = filmmod.develop_spectral(film)
+        check_image(img, kind)
+        cam = cli.build_camera(job, W, H, device)
+        trace, tkw, depth = dispatch.integrator_trace(
+            job, cam, W, H, job.integrator_params["maxdepth"])
+        prof = pass_profile(job.scene, cam, SamplerConfig("sobol", 0, SPP),
+                            trace=functools.partial(
+                                trace or path.trace_paths, **tkw),
+                            depth=depth)
+        print(f"phase 23 {kind} {params} cornell_bench.pbrt {W}x{H} "
+              f"{GATE_SPP} spp: {ms:.2f} ms/pass, image mean "
+              f"{img.mean().item():.6f}, {_prof(prof)}, launches {counts} "
+              f"on {card}")
+    compare_cpu([(kind, lambda dev, k=kind, p=params: cli.run_job(
+        _bench_as(k, p, dev, 32), spp=2)[0])
+        for kind, params, _ in OTHER_INTEGRATORS])
+    print(f"phase 23 whitted, ao, directlighting pass; wall s "
+          f"{time.perf_counter() - t0:.1f}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible to torch")
@@ -2048,6 +2345,15 @@ def main():
     phase21(run_path, card, device, scene, camera)
     print(f"phase 21 gradients; wall s {time.perf_counter() - t0:.1f}")
 
+    # --- phases 22-23: media and volpath; whitted, ao, directlighting ---
+    t0 = time.perf_counter()
+    phase22(run_path, card, device, res)
+    print(f"phase 22 media; wall s {time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    phase23(run_path, card, device)
+    print(f"phase 23 other integrators; wall s "
+          f"{time.perf_counter() - t0:.1f}")
+
     rows = []
     for k, (src, rep) in KERNELS.items():
         r = res[k]
@@ -2085,9 +2391,12 @@ def main():
                 tests_static_moving_bounce1=r["bounce1"]["tests"],
                 tests_static_moving_camera=r["camera"]["tests"])
         # the matched-RNG pass's batches (phase 11), the lights pass's
-        # (phase 20)
+        # (phase 20), the shadow walks' of smoke_glass, volpath_bench and
+        # the shell scene (phase 22)
         for b in ("refpath_camera", "refpath_bounce1", "lights_camera",
-                  "lights_bounce1"):
+                  "lights_bounce1", "volpath_walk1", "volpath_walk2",
+                  "volpath_bench_walk1", "volpath_shells_walk2",
+                  "volpath_shells_walk5", "volpath_shells_walk8"):
             if b in r:
                 row.update({f"ms_{b}": r[b]["ms"],
                             f"device_ms_{b}": _ms(r[b]["device"]),

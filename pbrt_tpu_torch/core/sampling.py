@@ -33,6 +33,16 @@ def cosine_sample_hemisphere(u1, u2):
     return torch.stack([d[..., 0], d[..., 1], z], -1)
 
 
+def cosine_hemisphere_pdf(cos_theta):
+    return cos_theta * INV_PI
+
+
+def uniform_sample_hemisphere(u1, u2):
+    r = torch.sqrt(torch.clamp(1.0 - u1 * u1, min=1e-14))
+    phi = 2 * PI * u2
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), u1], -1)
+
+
 def uniform_sample_sphere(u1, u2):
     z = 1.0 - 2.0 * u1
     r = torch.sqrt(torch.clamp(1.0 - z * z, min=1e-14))

@@ -103,10 +103,19 @@ def apply_camera_params(camera, params, width, height):
     return camera
 
 
+# the spectral material leaves, broadcast to every material's row as the
+# JAX package's packed table takes them (a [1, 31] albedo sets them all)
+_MATERIAL_SPECTRA = ("mat_kd", "mat_ks", "mat_kr", "mat_kt")
+
+
 def apply_params(scene, params):
     """The scene with its leaves replaced by the optimization parameters
-    (no positivity transform: the caller keeps them >= 0)."""
-    return dataclasses.replace(scene, **params)
+    (no positivity transform: the caller keeps them >= 0).  The material
+    spectra broadcast to (M, 31)."""
+    shape = tuple(scene.mat_kd.shape)
+    return dataclasses.replace(scene, **{
+        k: torch.broadcast_to(v, shape) if k in _MATERIAL_SPECTRA else v
+        for k, v in params.items()})
 
 
 def render_samples(params, scene, camera, W, H, cfg: SamplerConfig,

@@ -1,22 +1,45 @@
 """Integrator selection (port of pbrt_tpu.integrators.dispatch; reference
 dispatch: api.cpp:1764-1789).
 
-Ported: "path" (parameter lightsamplestrategy: "uniform", "power" or
-"spatial", any other name meaning "spatial", as in the JAX package),
-"spectralpath" (parameter numCABands; it samples lights uniformly, as the
-JAX package's does) and "metadata" (parameter strategy).  Every other
-integrator name raises NotImplementedError, as do the render settings the
-port does not carry (a crop window, a sample-luminance clamp, an
-rrthreshold other than 1).
+Ported:
+- "path" (parameter lightsamplestrategy: "uniform", "power" or
+  "spatial", any other name meaning "spatial", as in the JAX package);
+- "volpath": integrators/volpath.py when the scene has a medium; without
+  one, path with the uniform strategy (the JAX package passes none);
+- "whitted" (integrators/whitted.py);
+- "directlighting": path at depth min(maxdepth, 1), with the "all"
+  strategy when its parameter strategy is "all", else lightsamplestrategy's
+  (directlighting.cpp:112; through the parser, whose strategy default is
+  "depth", that means lightsamplestrategy's);
+- "ambientocclusion" / "ao" (integrators/ao.py, parameter cossample);
+- "spectralpath" (parameter numCABands; it samples lights uniformly, as
+  the JAX package's does) and "metadata" (parameter strategy).
+
+The JAX package's other integrators ("lighttracer", "bdpt", "sppm",
+"mlt") raise NotImplementedError naming themselves; a name neither
+package knows renders path with a warning and the uniform strategy, as
+in the JAX package.  The
+render settings the port does not carry (a crop window, a sample-
+luminance clamp, an rrthreshold other than 1) raise.
 """
 
 from __future__ import annotations
 
+import logging
+
+from pbrt_tpu_torch.integrators import ao
 from pbrt_tpu_torch.integrators import metadata
 from pbrt_tpu_torch.integrators import path as pathmod
 from pbrt_tpu_torch.integrators import spectralpath
+from pbrt_tpu_torch.integrators import volpath
+from pbrt_tpu_torch.integrators import whitted
 
-INTEGRATORS = ("path", "spectralpath", "metadata")
+log = logging.getLogger("pbrt_tpu_torch")
+
+INTEGRATORS = ("path", "volpath", "whitted", "directlighting",
+               "ambientocclusion", "ao", "spectralpath", "metadata")
+# the JAX package's integrators that are not ported yet
+UNPORTED = ("lighttracer", "bdpt", "sppm", "mlt")
 LIGHT_STRATEGIES = ("uniform", "power", "spatial")
 
 
@@ -27,16 +50,52 @@ def light_strategy(integrator_params):
     return s if s in LIGHT_STRATEGIES else "spatial"
 
 
+def integrator_trace(job, camera, width, height, max_depth):
+    """(trace_fn or None for trace_paths, its keywords beyond its own,
+    max_depth) of the job's integrator, as render_with_integrator renders
+    it."""
+    kind = job.integrator_kind
+    if kind in UNPORTED:
+        raise NotImplementedError(
+            f'Integrator "{kind}" is not ported to pbrt_tpu_torch')
+    ip = job.integrator_params
+    trace_fn = None
+    trace_kwargs = {}
+    if kind == "volpath":
+        if job.media:
+            trace_fn = volpath.make_trace_volpath(job)
+    elif kind == "directlighting":
+        max_depth = min(max_depth, 1)
+        trace_kwargs["light_strategy"] = (
+            "all" if ip.get("strategy", "all") == "all"
+            else light_strategy(ip))
+    elif kind == "whitted":
+        trace_fn = whitted.make_trace_whitted()
+    elif kind in ("ambientocclusion", "ao"):
+        trace_fn = ao.make_trace_ao(cos_sample=ip.get("cossample", True))
+    elif kind == "spectralpath":
+        trace_fn = spectralpath.make_trace_spectral(
+            num_ca_bands=ip.get("numCABands", 4), camera=camera,
+            generate_rays=pathmod.generate_fn(camera), width=width,
+            height=height)
+    elif kind == "metadata":
+        trace_fn = metadata.make_trace_metadata(ip.get("strategy", "depth"))
+    elif kind == "path":
+        trace_kwargs["light_strategy"] = light_strategy(ip)
+    else:
+        # trace_paths' own strategy, "uniform", as in the JAX package
+        log.warning("unknown integrator %r; using path", kind)
+    return trace_fn, trace_kwargs, max_depth
+
+
 def render_with_integrator(job, camera, film, cfg, spp, max_depth,
                            max_rays_per_pass=1 << 18, count_rays=False):
     """Render job.scene into `film` with the job's integrator.  Returns
     the film, or (film, rays traced or None) with count_rays: only the
-    path integrator counts its rays."""
-    kind = job.integrator_kind
-    if kind not in INTEGRATORS:
-        raise NotImplementedError(
-            f'Integrator "{kind}" is not ported to pbrt_tpu_torch')
+    integrators that run trace_paths count their rays."""
     ip = job.integrator_params
+    trace_fn, trace_kwargs, max_depth = integrator_trace(
+        job, camera, film.width, film.height, max_depth)
     if ip.get("rrthreshold", 1.0) != pathmod.RR_THRESHOLD:
         raise NotImplementedError("rrthreshold other than "
                                   f"{pathmod.RR_THRESHOLD} is not ported")
@@ -44,19 +103,9 @@ def render_with_integrator(job, camera, film, cfg, spp, max_depth,
         raise NotImplementedError("cropwindow is not ported")
     if job.max_sample_luminance < 1e30:
         raise NotImplementedError("maxsampleluminance is not ported")
-    trace_fn = None
-    trace_kwargs = {}
-    gen = pathmod.generate_fn(camera)
-    if kind == "path":
-        trace_kwargs["light_strategy"] = light_strategy(ip)
-    elif kind == "spectralpath":
-        trace_fn = spectralpath.make_trace_spectral(
-            num_ca_bands=ip.get("numCABands", 4), camera=camera,
-            generate_rays=gen, width=film.width, height=film.height)
-    elif kind == "metadata":
-        trace_fn = metadata.make_trace_metadata(ip.get("strategy", "depth"))
     return pathmod.render(job.scene, camera, film, cfg, spp,
                           max_depth=max_depth,
                           max_rays_per_pass=max_rays_per_pass,
                           count_rays=count_rays, trace_fn=trace_fn,
-                          generate_rays=gen, trace_kwargs=trace_kwargs)
+                          generate_rays=pathmod.generate_fn(camera),
+                          trace_kwargs=trace_kwargs)

@@ -16,7 +16,10 @@ is built, and a mix material picks its component with its own sampler
 dimension.
 
 Lights: NEE picks one light per lane by the `light_strategy` ("uniform",
-"power" or "spatial", lights/distrib.py), and emission found by a BSDF
+"power" or "spatial", lights/distrib.py), or with "all" (the
+directlighting integrator's UniformSampleAllLights) samples every light
+once a bounce, their shadow rays traced in the same batch; emission
+found by a BSDF
 sample (at an area light, or the infinite light on an escaped ray) is
 MIS-weighted against that strategy's selection pdf; delta lights take
 weight 1.  NEE's own MIS weight uses the light's pdf alone, without the
@@ -26,8 +29,8 @@ non-delta light depends on the strategy (a recorded deviation from the
 reference's estimator).  Shadow rays toward a sphere light ignore its
 own sphere (intersect.nee_ignore_light).
 
-Not ported yet: subsurface (BSSRDF probe), hair, the "all" strategy
-(directlighting's) and the primary-sample-space `uniforms` hook.
+Not ported yet: subsurface (BSSRDF probe), hair and the primary-sample-
+space `uniforms` hook.
 """
 
 from __future__ import annotations
@@ -56,6 +59,9 @@ DIM_LENS_V = 3
 DIM_TIME = 4
 DIMS_PER_BOUNCE = 9
 DIM_BOUNCE_BASE = 5
+# the "all" strategy's two dimensions a light a bounce, in their own block
+# above the BSSRDF probe's (the JAX package's DIM_ALL_BASE)
+DIM_ALL_BASE = DIM_BOUNCE_BASE + 64 * DIMS_PER_BOUNCE + 64 * 8
 RR_THRESHOLD = 1.0       # the reference's rrThreshold default
 
 
@@ -77,7 +83,7 @@ def trace_paths(scene: ir.SceneData, ray: geom.Ray, pixel_id, sample_idx,
     tex_spread: the camera's pixel spread (camera_pixel_spread); 0 keeps
     every texture lookup at the finest level.  ray_diff: the camera rays'
     differentials (camera_ray_differentials) or None.  light_strategy:
-    "uniform", "power" or "spatial" (lights/distrib.py)."""
+    "uniform", "power" or "spatial" (lights/distrib.py), or "all"."""
     B = ray.o.shape[0]
     dev = ray.o.device
 
@@ -155,7 +161,37 @@ def trace_paths(scene: ir.SceneData, ray: geom.Ray, pixel_id, sample_idx,
 
         # ---- NEE: one light, power-heuristic MIS; the shadow ray is
         # traced with the next bounce's closest-hit rays ----
-        if scene.n_lights > 0:
+        if scene.n_lights > 0 and light_strategy == "all":
+            # UniformSampleAllLights (integrator.cpp:54): one sample of
+            # every light a bounce, their shadow rays in one batch
+            n_l = scene.light_L.shape[0]
+            srays, contribs, cands = [], [], []
+            for li_ix in range(n_l):
+                base = DIM_ALL_BASE + bounce * 2 * n_l + 2 * li_ix
+                wi, li, pdf_l, dist, delta_l = lights.sample_li(
+                    scene, torch.full((B,), li_ix, dtype=torch.int64,
+                                      device=dev),
+                    hit.p, hit.ns, sdim(base), sdim(base + 1))
+                wi_l = geom.world_to_frame(ss, ts, hit.ns, wi)
+                f = bsdf.eval_f(mat, wo_l, wi_l) * \
+                    geom.absdot(wi, hit.ns)[:, None]
+                ci = (alive & (pdf_l > 1e-12) & ~spec.is_black(li)
+                      & ~spec.is_black(f))
+                srays.append(isect.spawn_shadow_ray(
+                    hit.p, hit.ng, wi, dist, ci, ray.wavelength,
+                    time=ray.time))
+                w_l = torch.where(delta_l, 1.0, sampling.power_heuristic(
+                    1.0, pdf_l, 1.0, bsdf.pdf_f(mat, wo_l, wi_l)))
+                contribs.append(beta * f * li * (
+                    w_l / torch.clamp(pdf_l, min=1e-12))[:, None])
+                cands.append(ci)
+                if count_rays:
+                    n_rays[1] += ci.sum()
+            sray = geom.Ray(*(torch.cat([getattr(r, k) for r in srays])
+                              for k in ("o", "d", "tmax", "wavelength",
+                                        "time")))
+            cand, contrib, l = torch.stack(cands), torch.stack(contribs), None
+        elif scene.n_lights > 0:
             l, sel_pdf = distrib.select_light(scene, light_strategy, hit.p,
                                               sdim(_bdim(bounce, 0)))
             wi, li, pdf_l, dist, delta_l = lights.sample_li(
@@ -219,7 +255,11 @@ def trace_paths(scene: ir.SceneData, ray: geom.Ray, pixel_id, sample_idx,
         hit, occ = isect.trace_pair(
             scene, ray, sray, ignore_light=isect.nee_ignore_light(scene, l),
             ray_diff=rd)
-        if sray is not None:
+        if sray is not None and light_strategy == "all":
+            occ = occ.reshape(cand.shape)
+            L = L + torch.where((cand & ~occ)[..., None], contrib,
+                                0.0).sum(0)
+        elif sray is not None:
             L = L + torch.where((cand & ~occ)[:, None], contrib, 0.0)
 
     # NaN/Inf scrub (reference: integrator.cpp:295-316); maximum, not

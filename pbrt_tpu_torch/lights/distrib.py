@@ -3,6 +3,8 @@ reference: src/core/lightdistrib.{h,cpp}).
 
 Strategies:
   uniform: equal probability (UniformLightDistribution);
+  all:     every light, each with probability 1 (directlighting's
+           UniformSampleAllLights; trace_paths samples them all);
   power:   proportional to each light's estimated power
            (PowerLightDistribution);
   spatial: a power / distance^2 distribution per voxel of a dense GRID^3
@@ -130,8 +132,11 @@ def select_light(scene, strategy, p, u):
 
 def selection_pdf(scene, strategy, p, l):
     """The probability that the strategy at points p [B,3] picks light l
-    [B] (MIS at hit vertices)."""
+    [B] (MIS at hit vertices); 1 for "all", which samples every light
+    (UniformSampleAllLights, integrator.cpp:54)."""
     nl = max(scene.n_lights, 1)
+    if strategy == "all":
+        return torch.ones(p.shape[:-1], device=p.device)
     if strategy == "uniform" or nl == 1:
         return torch.full(p.shape[:-1], 1.0 / nl, device=p.device)
     lc = torch.clamp(l, 0, nl - 1).long()

@@ -28,7 +28,7 @@ import torch
 from pbrt_tpu_torch.core import geometry as geom
 from pbrt_tpu_torch.core import transform as tfm
 from pbrt_tpu_torch.ops import dense_intersect as dense
-from pbrt_tpu_torch.scene.ir import SceneData, PRIM_TRIANGLE
+from pbrt_tpu_torch.scene.ir import MAT_NONE, PRIM_TRIANGLE, SceneData
 
 
 @dataclass
@@ -491,6 +491,133 @@ def trace_pair(scene: SceneData, nray: geom.Ray, sray, ignore_light=None,
         hit_light = scene.prim_light[torch.clamp(prim[B:], min=0).long()]
         occ = occ & ~((ignore_light >= 0) & (hit_light == ignore_light))
     return hit, occ
+
+
+def _shadow_anyhit(scene: SceneData, ignore_light, B):
+    """The any-hit mask of shadow lanes (the JAX package's): every lane,
+    but for lanes excluding a mesh light, which run closest-hit so that a
+    first accepted face of that light cannot park the lane before a real
+    blocker (nee_ignore_light only names sphere lights, so with it every
+    lane is any-hit)."""
+    ones = torch.ones(B, dtype=torch.bool, device=scene.dense_w.device)
+    if ignore_light is None or not scene.has_mesh_lights:
+        return ones
+    lq = scene.light_quad[torch.clamp(ignore_light, 0,
+                                      scene.light_quad.shape[0] - 1)]
+    return ~((ignore_light >= 0) & (lq < 0))
+
+
+def occluded(scene: SceneData, ray: geom.Ray, ignore_light=None):
+    """Shadow-ray IntersectP (reference scene.h:59): whether each ray is
+    blocked before its tmax.  ignore_light [B] (nee_ignore_light): a
+    light whose own geometry does not occlude."""
+    amask = _shadow_anyhit(scene, ignore_light, ray.o.shape[0])
+    _, prim, found = intersect(scene, ray, anyhit_mask=amask)
+    if ignore_light is not None and scene.n_quadrics > 0:
+        hit_light = scene.prim_light[torch.clamp(prim, min=0).long()]
+        found = found & ~((ignore_light >= 0) & (hit_light == ignore_light))
+    return found
+
+
+def intersect_tr_walk(scene: SceneData, org, wi, dist, cand, cur_med,
+                      wavelength, time=None, ignore_light=None,
+                      max_crossings=8, pixel_id=None, sample_idx=None,
+                      dim_salt=0x7400):
+    """The shadow ray's transmittance walk across medium interfaces
+    (reference Scene::IntersectTr, scene.cpp:57-81; the JAX package's
+    wavefront form).
+
+    Each of `max_crossings` steps is one closest-hit `intersect` call
+    (K1 and K2) over the whole batch.  A lane whose hit has a material
+    is blocked; a material-less primitive is an interface, and so is the
+    sampled light's own geometry (ignore_light [B]): the lane adds its
+    current medium's part of the sub-segment, takes the crossed side's
+    medium (against the outward geometric normal: the inside one) and
+    goes on; a lane whose segment ends drops out, so later steps run on
+    nearly empty batches.  A homogeneous sub-segment adds optical depth;
+    with pixel_id and sample_idx, a grid sub-segment multiplies in its
+    ratio-tracked Tr (grid.cpp:89+).  Without them a grid medium counts as
+    homogeneous at its unscaled sigma_t, as in the JAX package.  A lane
+    still crossing after the last step stops adding (a truncation toward
+    brighter).
+
+    The hit is classified from prim_material and prim_light by plain
+    gathers (the port has no packed per-primitive row).  Returns (blocked
+    [B] bool, optical depth [B,31], tr_ratio [B]): Tr = exp(-optical) *
+    tr_ratio."""
+    from pbrt_tpu_torch.media import media as medmod
+    B = org.shape[0]
+    P = scene.prim_type.shape[0]
+    M = scene.mat_type.shape[0]
+    K = scene.med_sigma_a.shape[0]
+    sig_t_tab = scene.med_sigma_a + scene.med_sigma_s           # [K,31]
+    remaining = torch.where(torch.isfinite(dist), dist,
+                            2 * scene.world_radius)
+    med = cur_med
+    act = cand
+    blocked = torch.zeros(B, dtype=torch.bool, device=org.device)
+    optical = torch.zeros((B, sig_t_tab.shape[1]), device=org.device)
+    tr_ratio = torch.ones(B, device=org.device)
+    grids = scene.has_grid_media and pixel_id is not None
+    p = org
+    for cross_i in range(max_crossings):
+        ray = geom.Ray.make(p, wi, tmax=torch.where(act, remaining, -1.0),
+                            wavelength=wavelength, time=time)
+        t, prim, found = intersect(scene, ray)
+        seg = torch.where(found, t, remaining)
+        # the current medium's optical depth over the sub-segment
+        mk = torch.clamp(med, 0, K - 1).long()
+        in_grid = ((med >= 0) & scene.med_is_grid[mk] if grids
+                   else torch.zeros_like(act))
+        sig_t = sig_t_tab[mk] * ((med >= 0) & ~in_grid)[:, None]
+        optical = optical + torch.where(
+            act[:, None], sig_t * torch.clamp(seg, min=0.0)[:, None], 0.0)
+        if grids:
+            # (a lane that is not walking a grid tracks over an empty
+            # segment: the loop's early exit does not wait on it)
+            trg = medmod.ratio_tr_lanes(
+                scene.med_density, scene.med_dims, scene.med_w2m[mk],
+                scene.med_inv_maxd[mk], sig_t_tab[mk].amax(-1), p, wi,
+                torch.where(act & in_grid, torch.clamp(seg, min=0.0), 0.0),
+                mk, pixel_id, sample_idx, dim_salt + 64 * cross_i)
+            tr_ratio = tr_ratio * torch.where(act & in_grid, trg, 1.0)
+        # material-less primitives are pass-through interfaces; so is the
+        # sampled light's own geometry
+        pid = torch.clamp(prim, 0, P - 1).long()
+        mat_idx = scene.prim_material[pid]
+        mtype = torch.where(
+            mat_idx >= 0, scene.mat_type[torch.clamp(mat_idx, 0, M - 1)
+                                         .long()], MAT_NONE)
+        is_iface = found & (mtype == MAT_NONE)
+        is_ignored = (found & (ignore_light >= 0)
+                      & (scene.prim_light[pid] == ignore_light)
+                      if ignore_light is not None else torch.zeros_like(act))
+        blocked = blocked | (act & found & ~is_iface & ~is_ignored)
+        # the medium switch: against the outward geometric normal the ray
+        # enters the primitive's inside medium
+        ng = geom.cross(scene.tri_e1[pid], scene.tri_e2[pid])
+        if scene.n_quadrics > 0:
+            # a quadric's normal from its static world-to-object transform
+            qi = torch.clamp(scene.quad_idx[pid], 0,
+                             scene.quad_params.shape[0] - 1).long()
+            w2o = scene.quad_w2o[qi]
+            ph_w = p + torch.where(found, t, 1.0)[:, None] * wi
+            ph = torch.einsum('bij,bj->bi', w2o[:, :3, :3], ph_w) \
+                + w2o[:, :3, 3]
+            ng_quad = torch.einsum('bji,bj->bi', w2o[:, :3, :3], ph)
+            ng = torch.where((scene.prim_type[pid] == PRIM_TRIANGLE)[:, None],
+                             ng, ng_quad)
+        ng = torch.where(scene.prim_flip_normal[pid][:, None], -ng, ng)
+        entering = geom.dot(wi, ng) < 0
+        new_med = torch.where(entering, scene.prim_medium_in[pid],
+                              scene.prim_medium_out[pid])
+        med = torch.where(act & is_iface, new_med, med)
+        # past the crossing by a relative epsilon
+        adv = seg + 1e-4 * torch.clamp(torch.abs(seg), min=1e-3)
+        p = torch.where(act[:, None], p + adv[:, None] * wi, p)
+        remaining = remaining - adv
+        act = act & found & (is_iface | is_ignored) & (remaining > 0)
+    return blocked, optical, tr_ratio
 
 
 def spawn_ray(p, ng, direction, wavelength, time=None, tmax=None,

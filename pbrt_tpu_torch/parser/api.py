@@ -17,8 +17,11 @@ texture-valued Kd / Ks, "string distribution" ("ggx" or "beckmann") and
 "texture bumpmap", LightSource "point"/"spot"/"distant"/"infinite"/
 "exinfinite" (an env map in any format film/io.py reads)/"goniometric"/
 "projection" (an unknown light skipped with a warning, as in the JAX
-package), AreaLightSource "diffuse" on a trianglemesh or a sphere, and
-Shape "trianglemesh"/"sphere".  Each keeps the JAX package's semantics
+package), AreaLightSource "diffuse" on a trianglemesh or a sphere,
+MakeNamedMedium (homogeneous, and "heterogeneous" / "grid" density grids
+under the CTM at their creation; presets, sigma_a, sigma_s, scale, g),
+MediumInterface (the camera's medium resolved at WorldEnd), and Shape
+"trianglemesh"/"sphere".  Each keeps the JAX package's semantics
 and warnings,
 including the two-keyframe CTM that gives meshes and spheres motion blur
 and the imagemap that cannot be read becoming a 0.5 constant.  Every
@@ -42,6 +45,7 @@ from pbrt_tpu_torch.core import device as devmod
 from pbrt_tpu_torch.core import spectrum as spec
 from pbrt_tpu_torch.core import transform as tfm
 from pbrt_tpu_torch.materials.metal_data import conductor_eta_k
+from pbrt_tpu_torch.media.media import medium_coefficients, medium_grid
 from pbrt_tpu_torch.parser.paramset import ParamSet, parse_param_list
 from pbrt_tpu_torch.parser.tokenizer import (TokenStream, tokenize,
                                              tokenize_file, unquote)
@@ -63,6 +67,9 @@ class GraphicsState:
     float_textures: dict = field(default_factory=dict)
     spectrum_textures: dict = field(default_factory=dict)
     named_materials: dict = field(default_factory=dict)  # name -> id
+    # MediumInterface's named media ("" is vacuum)
+    inside_medium: str = ""
+    outside_medium: str = ""
 
     def clone(self):
         g = copy.copy(self)
@@ -97,6 +104,11 @@ class RenderJob:
     max_sample_luminance: float = 1e30
     # second camera keyframe (camera motion blur); None for a static camera
     cam_to_world1: object = None
+    # MakeNamedMedium's media by name ({"name", "params", "type", "m2w"}),
+    # and the names bound to primitives through MediumInterface (volpath
+    # tracks those per lane; another medium is the scene's one medium)
+    media: dict = field(default_factory=dict)
+    prim_media_names: tuple = ()
 
 
 CAMERA_KINDS = ("perspective", "orthographic", "environment") + LENS_KINDS
@@ -149,6 +161,9 @@ class PbrtAPI:
         self.integrator_params = ParamSet()
         self.next_instance_id = 1
         self.instance_names = {}
+        self.media = {}
+        self._medium_ids = {}          # name -> media-table index or -1
+        self._camera_medium_name = ""
         # the default material, id 0, as in the JAX package
         self.graphics.material_id = self.builder.add_material(
             MaterialSpec(type=ir.MAT_MATTE, kd=np.full(31, 0.5, np.float32),
@@ -254,6 +269,10 @@ class PbrtAPI:
         self.camera_to_world1 = (None if np.allclose(self.ctm[1].m,
                                                      self.ctm[0].m)
                                  else self.ctm[1].inverse())
+        # the camera sits in the medium active here (api.cpp
+        # RenderOptions::CameraMedium), resolved at WorldEnd, after the
+        # MakeNamedMedium it may name
+        self._camera_medium_name = self.graphics.inside_medium
 
     def _d_Film(self, s):
         name = unquote(s.next())
@@ -297,6 +316,52 @@ class PbrtAPI:
     def _d_ReverseOrientation(self, s):
         self.graphics.reverse_orientation = \
             not self.graphics.reverse_orientation
+
+    # -------------------------------------------------------------- media
+    def _d_MakeNamedMedium(self, s):
+        name = unquote(s.next())
+        ps = parse_param_list(s, self.scene_dir)
+        # a grid takes the CTM at its creation (api.cpp MakeMedium passes
+        # curTransform as medium2world)
+        self.media[name] = {"name": name, "params": ps,
+                            "type": ps.find_one_string("type",
+                                                       "homogeneous"),
+                            "m2w": tfm.Transform(self.ctm[0].m)}
+
+    def _d_MediumInterface(self, s):
+        # one name sets the inside medium only, as in the JAX package
+        self.graphics.inside_medium = unquote(s.next())
+        tok = s.peek()
+        if tok is not None and tok.startswith('"'):
+            self.graphics.outside_medium = unquote(s.next())
+
+    def _medium_index(self, name):
+        """A named medium's index in the builder's media table (added at
+        its first use; -1 for vacuum and, with a warning, for a name no
+        MakeNamedMedium made)."""
+        if not name:
+            return -1
+        if name in self._medium_ids:
+            return self._medium_ids[name]
+        m = self.media.get(name)
+        idx = -1
+        if m is None:
+            log.warning("MediumInterface names unknown medium %r", name)
+        else:
+            sig_a, sig_s, g = medium_coefficients(m["params"])
+            grid = medium_grid(m)
+            if grid is not None:
+                # medium2world: the CTM at the medium's creation, then
+                # the grid's data to unit-cube box (medium.cpp data2Medium)
+                dens, d2m = grid
+                m2w = np.asarray(m["m2w"].m, np.float64) @ d2m
+                idx = self.builder.add_medium_record(
+                    sig_a, sig_s, g, density=dens,
+                    world_to_medium=np.linalg.inv(m2w).astype(np.float32))
+            else:
+                idx = self.builder.add_medium_record(sig_a, sig_s, g)
+        self._medium_ids[name] = idx
+        return idx
 
     # ----------------------------------------------------------- textures
     def _d_Texture(self, s):
@@ -664,6 +729,10 @@ class PbrtAPI:
         inst = self.next_instance_id
         self.next_instance_id += 1
         self.instance_names[inst] = f"{sname}_{inst}"
+        # MediumInterface (api.cpp pbrtMediumInterface): the active
+        # inside / outside media, as table indices
+        self.builder.current_medium = (self._medium_index(g.inside_medium),
+                                       self._medium_index(g.outside_medium))
         common = dict(light_id=light_id, instance_id=inst,
                       flip_normal=g.reverse_orientation,
                       object_to_world1=xf1)
@@ -711,6 +780,8 @@ class PbrtAPI:
         ip = self.integrator_params
         cp = self.camera_params
         sw = cp.find_floats("screenwindow")
+        self.builder.camera_medium = self._medium_index(
+            self._camera_medium_name)
         return RenderJob(
             scene=self.builder.build(device=self.device),
             camera_kind=self.camera_kind,
@@ -748,9 +819,13 @@ class PbrtAPI:
                 "lightsamplestrategy": ip.find_one_string(
                     "lightsamplestrategy", "spatial"),
                 "numCABands": ip.find_one_int("numCABands", 4),
-                "strategy": ip.find_one_string("strategy", "depth")},
+                "strategy": ip.find_one_string("strategy", "depth"),
+                "cossample": ip.find_one_bool("cossample", True)},
             instance_names=self.instance_names,
-            material_names=self.builder.material_names)
+            material_names=self.builder.material_names,
+            media=self.media,
+            prim_media_names=tuple(n for n, i in self._medium_ids.items()
+                                   if i >= 0))
 
 
 def _load_env_map(path, scale):

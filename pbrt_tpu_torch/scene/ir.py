@@ -12,8 +12,11 @@ among them).  The light-selection tables of lights/distrib.py and the
 env map's sampling tables are built here too.  Per-primitive and
 per-material data are plain tables indexed per lane; the TPU package's
 one-gather packings (`shade_all`, `mat_packed`) are not carried over.
-Hair, fourier, the subsurface materials and ptex textures are not ported:
-the builder raises naming them.
+The media that MediumInterface binds (homogeneous and density grids) go
+into a per-medium table, each primitive carrying its inside and outside
+medium and the scene its camera's (the JAX package's tables and
+primitive order).  Hair, fourier, the subsurface materials and ptex
+textures are not ported: the builder raises naming them.
 
 Two-keyframe motion blur: a mesh given a second object-to-world keyframe
 moves its vertices linearly over the shutter (`tri_motion`), and the
@@ -104,8 +107,13 @@ LIGHT_COLUMNS = ("light_type", "light_L", "light_pos", "light_dir",
                  "light_spatial_pmf", "env_map", "env_cond_cdf",
                  "env_marg_cdf", "env_cond_int", "env_to_world",
                  "env_to_light", "world_lo", "world_hi")
+# the media tables (MediumInterface): per-primitive bindings and the
+# padded per-medium table, homogeneous and grid
+MEDIA_COLUMNS = ("prim_medium_in", "prim_medium_out", "med_sigma_a",
+                 "med_sigma_s", "med_g", "med_density", "med_dims",
+                 "med_w2m", "med_inv_maxd", "med_is_grid")
 JAX_COLUMNS = (PRIM_COLUMNS + QUAD_COLUMNS + MAT_COLUMNS + LIGHT_COLUMNS
-               + TEX_COLUMNS)
+               + TEX_COLUMNS + MEDIA_COLUMNS)
 # what scene_from_jax reads from pbrt_tpu's packed material table, which
 # alone holds the Beckmann flag: its rows are [bf16-hi; f32 residual], and
 # hi + residual is the f32 value exactly
@@ -116,7 +124,8 @@ JAX_STATICS = ("n_lights", "n_quadrics", "clip_quadrics", "dense_chunk",
                "has_animated_mesh", "has_animated_quads", "dense_motion",
                "has_disney", "has_mix", "has_beckmann", "has_bump",
                "mat_families", "tex_kinds", "light_kinds", "has_mesh_lights",
-               "has_sphere_lights", "has_infinite", "inf_light_idx")
+               "has_sphere_lights", "has_infinite", "inf_light_idx",
+               "has_prim_media", "has_grid_media", "camera_medium")
 # pbrt_tpu/scene/ir.py's MPK_* offsets into a mat_packed row
 _NS = spec.N_SPECTRAL_SAMPLES
 _MPK_ETA_SPEC, _MPK_K_SPEC, _MPK_OPACITY = 4 * _NS, 5 * _NS, 6 * _NS
@@ -201,6 +210,20 @@ class SceneData:
     env_to_light: torch.Tensor     # [4,4]
     world_lo: torch.Tensor         # [3] scene bounds
     world_hi: torch.Tensor         # [3]
+    # --- media (MediumInterface; the reference's api.cpp
+    # pbrtMediumInterface): each primitive's inside / outside medium and
+    # the media table; grids padded to the largest extents (homogeneous
+    # rows hold a 1x1x1 grid of ones) ---
+    prim_medium_in: torch.Tensor   # [P] medium inside, or -1 (vacuum)
+    prim_medium_out: torch.Tensor  # [P] medium outside, or -1
+    med_sigma_a: torch.Tensor      # [K,31]
+    med_sigma_s: torch.Tensor      # [K,31]
+    med_g: torch.Tensor            # [K]
+    med_density: torch.Tensor      # [K,DZ,DY,DX]
+    med_dims: torch.Tensor         # [K,3] (nz,ny,nx) of each grid
+    med_w2m: torch.Tensor          # [K,4,4] world -> unit-cube medium
+    med_inv_maxd: torch.Tensor     # [K] 1 / max density (the majorant)
+    med_is_grid: torch.Tensor      # [K] bool
     # --- dense intersector tables (ops/dense_intersect.py) ---
     dense_w: torch.Tensor          # [C,16,4*chunk] f32 sections s1|s2|num|s0
     #                                (motion: [C,16,N_COEF*4*chunk])
@@ -243,6 +266,9 @@ class SceneData:
     has_sphere_lights: bool = False
     has_infinite: bool = False
     inf_light_idx: int = 0         # the first infinite light's index
+    has_prim_media: bool = False   # a MediumInterface bound a medium
+    has_grid_media: bool = False   # ... and one of them is a grid
+    camera_medium: int = -1        # the medium the camera sits in
 
     def to(self, device):
         return dataclasses.replace(self, **{
@@ -295,9 +321,29 @@ class SceneBuilder:
     material_names: dict = field(default_factory=dict)
     has_animated_mesh: bool = False
     textures: TextureTable = field(default_factory=TextureTable)
+    # media for MediumInterface: (sigma_a [31], sigma_s [31], g, density
+    # [nz,ny,nx] or None, world_to_medium [4,4]); the (inside, outside)
+    # pair that shapes added next take, and the camera's medium
+    media_table: list = field(default_factory=list)
+    current_medium: tuple = (-1, -1)
+    camera_medium: int = -1
     _chunks: list = field(default_factory=list)
     _mesh_light_tris: dict = field(default_factory=dict)
     _n_prims: int = 0
+
+    def add_medium_record(self, sigma_a, sigma_s, g, density=None,
+                          world_to_medium=None):
+        """A medium for MediumInterface; returns its index.  density
+        [nz,ny,nx] with world_to_medium [4,4] makes it a grid medium
+        (GridDensityMedium, grid.cpp), bound per primitive like a
+        homogeneous one."""
+        self.media_table.append((
+            np.asarray(sigma_a, np.float32), np.asarray(sigma_s, np.float32),
+            float(g),
+            None if density is None else np.asarray(density, np.float32),
+            np.eye(4, dtype=np.float32) if world_to_medium is None
+            else np.asarray(world_to_medium, np.float32)))
+        return len(self.media_table) - 1
 
     def add_material(self, mspec: MaterialSpec) -> int:
         if mspec.type not in PORTED_MATERIALS:
@@ -365,7 +411,9 @@ class SceneBuilder:
             prim_material=np.full(F, material_id, np.int32),
             prim_light=np.full(F, light_id, np.int32),
             prim_instance=np.full(F, instance_id, np.int32),
-            prim_flip=np.full(F, flip, bool)))
+            prim_flip=np.full(F, flip, bool),
+            prim_medium_in=np.full(F, self.current_medium[0], np.int32),
+            prim_medium_out=np.full(F, self.current_medium[1], np.int32)))
         first = self._n_prims
         self._n_prims += F
         return first
@@ -448,7 +496,7 @@ class SceneBuilder:
     def _concat(self):
         keys = ("tri_v", "tri_ns", "tri_uv", "tri_dv", "prim_type",
                 "quad_refs", "prim_material", "prim_light", "prim_instance",
-                "prim_flip")
+                "prim_flip", "prim_medium_in", "prim_medium_out")
         return {k: np.concatenate([c[k] for c in self._chunks], 0)
                 for k in keys}
 
@@ -565,17 +613,53 @@ class SceneBuilder:
                                      for m in mats], bool),
             tex_images=tex_imgs, tex_type=tex_t, tex_params=tex_p,
             tex_c1=tex_a, tex_c2=tex_b, world_radius=world_radius,
-            **light_arrays)
+            prim_medium_in=reorder("prim_medium_in", np.int32),
+            prim_medium_out=reorder("prim_medium_out", np.int32),
+            **self._media_arrays(), **light_arrays)
         statics = dict(n_quadrics=len(self.quads),
                        clip_quadrics=bool(clip_q), dense_chunk=None,
                        has_animated_mesh=self.has_animated_mesh,
                        has_animated_quads=animated_quads,
                        dense_motion=self.has_animated_mesh,
+                       has_prim_media=bool(self.media_table),
+                       has_grid_media=any(m[3] is not None
+                                          for m in self.media_table),
+                       camera_medium=int(self.camera_medium),
                        **light_statics,
                        **material_statics(arrays["mat_type"],
                                           arrays["mat_beckmann"],
                                           arrays["mat_bump_tex"], tex_t))
         return _scene_from_arrays(arrays, statics, device)
+
+    def _media_arrays(self):
+        """The media table as the JAX package's builder makes it
+        (pbrt_tpu/scene/ir.py:920-946, :1023-1045): grids zero-padded to
+        the largest extents, a 1x1x1 grid of ones for a homogeneous
+        medium, one vacuum row when there is no medium."""
+        table = self.media_table
+        K = max(len(table), 1)
+        dens = [m[3] if m[3] is not None else np.ones((1, 1, 1), np.float32)
+                for m in table] or [np.ones((1, 1, 1), np.float32)]
+        DZ, DY, DX = (max(d.shape[i] for d in dens) for i in range(3))
+        density = np.zeros((K, DZ, DY, DX), np.float32)
+        dims = np.ones((K, 3), np.int32)
+        w2m = np.tile(np.eye(4, dtype=np.float32), (K, 1, 1))
+        inv_maxd = np.ones(K, np.float32)
+        for i, d in enumerate(dens):
+            density[i, :d.shape[0], :d.shape[1], :d.shape[2]] = d
+            dims[i] = d.shape
+            inv_maxd[i] = 1.0 / max(float(d.max()), 1e-9)
+            if i < len(table):
+                w2m[i] = table[i][4]
+        zeros = np.zeros((1, spec.N_SPECTRAL_SAMPLES), np.float32)
+        return dict(
+            med_sigma_a=np.stack([m[0] for m in table]) if table else zeros,
+            med_sigma_s=np.stack([m[1] for m in table]) if table else zeros,
+            med_g=np.asarray([m[2] for m in table] or [0.0], np.float32),
+            med_density=density, med_dims=dims, med_w2m=w2m,
+            med_inv_maxd=inv_maxd,
+            med_is_grid=np.asarray([m[3] is not None for m in table]
+                                   or [False], bool))
 
     def _light_tables(self, soa, order, prim_flip, tri_v0, tri_e1, tri_e2,
                       world_lo, world_hi, world_radius):
@@ -771,7 +855,10 @@ def _scene_from_arrays(arrays, statics, device):
         has_mesh_lights=bool(statics["has_mesh_lights"]),
         has_sphere_lights=bool(statics["has_sphere_lights"]),
         has_infinite=bool(statics["has_infinite"]),
-        inf_light_idx=int(statics["inf_light_idx"]))
+        inf_light_idx=int(statics["inf_light_idx"]),
+        has_prim_media=bool(statics["has_prim_media"]),
+        has_grid_media=bool(statics["has_grid_media"]),
+        camera_medium=int(statics["camera_medium"]))
 
 
 def scene_from_jax(arrays: dict, statics: dict, device) -> SceneData:

@@ -25,6 +25,10 @@ from the same numpy seeds by the port's own code.
                     = 576): random boxes about [-10,10]^3 and z40's rays.
   queue_cases       K1's edge cases, constructed: equal and signed-zero
                     entry t, dead and all-miss tiles, C = 1, 48, 576.
+  shells_scene      a light inside SHELLS nested material-less boxes,
+                    each a MediumInterface, over a floor: every shadow
+                    ray from the floor crosses a triangle at each of the
+                    shadow walk's 8 steps (volpath_walk_batches).
 
 Each takes a device and a seed; nothing is built at import.  The s3
 script drew its rays with jax.random; here numpy draws them from the same
@@ -301,10 +305,9 @@ def cluster_scene(device, seed=0):
     return b.build(device=device)
 
 
-def _recorded_batches(run, depth):
+def _record(run, calls):
     """The (r16, tmax, time) batches that run() hands the dense kernels,
-    which must be depth + 1 intersect calls: {"camera": call 0,
-    "bounce1": call 1}."""
+    which must be `calls` intersect calls."""
     batches = []
     inner = dense.dense_intersect_loop
 
@@ -318,10 +321,73 @@ def _recorded_batches(run, depth):
         run()
     finally:
         dense.dense_intersect_loop = inner
-    if len(batches) != depth + 1:
-        raise AssertionError(f"expected {depth + 1} intersect calls, got "
+    if len(batches) != calls:
+        raise AssertionError(f"expected {calls} intersect calls, got "
                              f"{len(batches)}")
+    return batches
+
+
+def _recorded_batches(run, depth):
+    """{"camera": call 0, "bounce1": call 1} of run()'s depth + 1
+    intersect calls."""
+    batches = _record(run, depth + 1)
     return {"camera": batches[0], "bounce1": batches[1]}
+
+
+SHELLS = 8
+
+
+def shells_scene(res):
+    """The shell scene's .pbrt text at res x res (module docstring): boxes
+    of half-width 0.2 to 0.9 about (0, 1.5, 0), each with an absorbing
+    medium inside, a sphere light at their centre, a matte floor at y = 0
+    and volpath at depth 1."""
+    def box(h):
+        lo, hi = [-h, 1.5 - h, -h], [h, 1.5 + h, h]
+        pts = [(x, y, z) for z in (lo[2], hi[2]) for y in (lo[1], hi[1])
+               for x in (lo[0], hi[0])]
+        idx = [0, 1, 3, 0, 3, 2, 4, 6, 7, 4, 7, 5, 0, 4, 5, 0, 5, 1,
+               2, 3, 7, 2, 7, 6, 0, 2, 6, 0, 6, 4, 1, 5, 7, 1, 7, 3]
+        return (' AttributeBegin\n Material ""\n'
+                ' MediumInterface "ink" ""\n'
+                ' Shape "trianglemesh" "point P" ['
+                + " ".join(f"{c:g}" for p in pts for c in p)
+                + '] "integer indices" [' + " ".join(map(str, idx))
+                + ']\n AttributeEnd\n')
+    return (
+        'LookAt 0 4 -6  0 0.8 0  0 1 0\nCamera "perspective" "float fov" '
+        f'[40]\nFilm "image" "integer xresolution" [{res}] '
+        f'"integer yresolution" [{res}]\n'
+        'Integrator "volpath" "integer maxdepth" [1]\nWorldBegin\n'
+        'MakeNamedMedium "ink" "string type" "homogeneous" '
+        '"rgb sigma_a" [.5 .5 .5] "rgb sigma_s" [0 0 0]\n'
+        'Material "matte" "rgb Kd" [.5 .5 .5]\n'
+        'Shape "trianglemesh" "point P" [-6 0 -6 6 0 -6 6 0 6 -6 0 6] '
+        '"integer indices" [0 1 2 2 3 0]\n'
+        + "".join(box(0.2 + 0.1 * i) for i in range(SHELLS))
+        + 'AttributeBegin\nAreaLightSource "diffuse" "rgb L" [40 40 40]\n'
+        'Translate 0 1.5 0\nShape "sphere" "float radius" [0.08]\n'
+        'AttributeEnd\nWorldEnd\n')
+
+
+def volpath_walk_batches(job, camera, cfg, width, height, rays, depth,
+                         crossings=(1, 2, 8), bounce=1):
+    """The shadow walk's batches of one volpath pass (sample 0 of `rays`
+    pixels) of a job whose media are bound through MediumInterface: each
+    bounce's closest-hit call and then its walk's 8 crossings, one
+    intersect call each.  Returns {"walk{c}": `bounce`'s crossing c}."""
+    from pbrt_tpu_torch.integrators import path, volpath
+    n = 8                        # intersect_tr_walk's max_crossings
+    trace = volpath.make_trace_volpath(job)
+
+    def run():
+        ids = torch.arange(rays, device=job.scene.dense_w.device)
+        ray, _, _, pid, sidx = path.camera_rays_for_pixels(
+            camera, width, height, cfg, ids, 0)
+        trace(job.scene, ray, pid, sidx, cfg, max_depth=depth)
+
+    batches = _record(run, depth + 1 + depth * n)
+    return {f"walk{c}": batches[bounce * (n + 1) + c] for c in crossings}
 
 
 def main_path_batches(scene, camera, cfg, width, height, rays, depth,

@@ -4,7 +4,8 @@
         [--rays 65536] [--width W --height H] [--cpu] [--grad]
 
 Parses the scene (on the first CUDA card, or the CPU with --cpu), traces
-one pass as `run_job` does (sample 0 of the first `--rays` pixels of a
+one pass with its integrator as `run_job` does (sample 0 of the first
+`--rays` pixels of a
 film of the scene's size, or of --width x --height) under a
 TorchDispatchMode that counts every ATen operation that computes (views
 and aliases excluded: they launch nothing), and prints the counts by the
@@ -51,6 +52,8 @@ COMPONENTS = {
     ("ops.intersect", "make_hit"): "make_hit",
     ("ops.intersect", None): "intersect",
     ("ops.dense_intersect", None): "intersect",
+    ("media.media", None): "media tracking",
+    ("ops.intersect", "intersect_tr_walk"): "shadow walk",
     ("integrators.path", "camera_ray_differentials"): "differentials",
     ("integrators.path", "_specular_differentials"): "differentials",
     ("cameras.projective", None): "camera",
@@ -104,10 +107,12 @@ def count_pass(job, rays, width, height, device, grad=False):
     launches."""
     camera = cli.build_camera(job, width, height, device)
     cfg = SamplerConfig(job.sampler_kind, 0, job.spp)
-    depth = job.integrator_params["maxdepth"]
+    trace, kw, depth = dispatch.integrator_trace(
+        job, camera, width, height, job.integrator_params["maxdepth"])
+    trace = trace or path.trace_paths
     ids = torch.arange(rays, device=device)
-    opts, use_rd = path.trace_options(job.scene, camera, path.trace_paths)
-    opts["light_strategy"] = dispatch.light_strategy(job.integrator_params)
+    opts, use_rd = path.trace_options(job.scene, camera, trace)
+    opts.update(kw)
     dense.reset_launch_counts()
     counter = OpCounter()
     if grad:
@@ -127,8 +132,7 @@ def count_pass(job, rays, width, height, device, grad=False):
             opts["ray_diff"] = path.camera_ray_differentials(
                 camera, width, height, cfg, pid, sidx,
                 path.generate_fn(camera), job.spp)
-        path.trace_paths(job.scene, ray, pid, sidx, cfg, max_depth=depth,
-                         **opts)
+        trace(job.scene, ray, pid, sidx, cfg, max_depth=depth, **opts)
     return counter.counts, dict(dense.LAUNCHES)
 
 

@@ -9,8 +9,9 @@ Parses the scene (parser/api.py lists the ported directives; the others
 raise NotImplementedError), builds it and its camera (perspective,
 orthographic, environment, or the lens cameras realistic, omni and
 realisticEye) on the first CUDA card, or on the CPU with --cpu only,
-renders it with the scene's sampler and integrator (path,
-spectralpath or metadata; `--sampler refsobol`: the matched-RNG parity
+renders it with the scene's sampler and integrator (path, volpath,
+whitted, directlighting, ambientocclusion / ao, spectralpath or metadata;
+integrators/dispatch.py; `--sampler refsobol`: the matched-RNG parity
 integrator, integrators/refpath.py), and writes the
 RGB image (EXR or PNG by extension, else PNG), the ISET spectral
 `.dat` (the fork's spectralFlag, on by default) and the fork's metadata

@@ -40,6 +40,28 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
+# f32's unit roundoff
+U32 = 2.0 ** -24
+
+
+def rounding_bound(fn, sites, ulps, h=1e-7):
+    """An f64 evaluation of an f32 formula and a per-element bound on how
+    far an f32 evaluation of it may lie from that value.
+
+    fn(pert) evaluates the formula in float64, scaling each named
+    intermediate x by (1 + pert.get(name, 0)); `sites` names the
+    intermediates whose f32 rounding the result is sensitive to (where a
+    difference cancels, a steep function is applied, or a Newton solve
+    stops).  The bound is `ulps` f32 roundings of each site, carried to
+    the result by its f64 derivative (a forward difference of step h),
+    plus `ulps` roundings of the result itself.  Returns (value, bound)."""
+    base = fn({})
+    sens = ulps * U32 * np.abs(base)
+    for site in sites:
+        sens = sens + ulps * U32 * np.abs(fn({site: h}) - base) / h
+    return base, sens
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

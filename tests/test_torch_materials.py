@@ -11,9 +11,24 @@ Tolerances:
   log, erf) differ by ulps, and near total internal reflection the
   rough-transmission lobes scale by (1 - F), which cancels (lanes with
   1 - F ~ 1e-3 move by ~1e-2 relative, ~5e-7 of the batch's largest f).
-- Beckmann sampling inverts an erf-based CDF with 10 Newton steps through
-  erfinv, whose XLA and torch implementations differ by ulps: sampled
-  directions within 5e-4, f and pdf within 1e-3 relative.
+- Beckmann sampling (beckmann_sample_wh) is ill-conditioned on some
+  lanes, and there the two packages' f32 results differ by an amount
+  that depends on the CPU that runs them: the rotation by
+  wo's azimuth divides by sqrt(1 - cos^2), which cancels at near-normal
+  incidence (an ulp of cos is a relative error of ~eps / (1 - cos^2) in
+  the sine), and the slopes come from erfinv, whose derivative
+  exp(x^2) sqrt(pi) / 2 grows in the tails, after a Newton inversion
+  that stops within a rounding of its f32 fixed point.  On one AMD EPYC
+  CPU one lane of 4,096 (cos 0.99997) had the packages 9.6e-4 apart in
+  the direction and 2.6e-3 relative in f, where another CPU had measured
+  under 5e-4 and 1e-3.  So each package's Beckmann-lobe direction is
+  held to an f64 evaluation of the same formula (_beckmann_wh64), lane
+  by lane, within BECK_ULPS = 8 f32 roundings of each ill-conditioned
+  intermediate carried by its f64 derivative
+  (test_torch_core.rounding_bound; measured: within 0.33 of the bound,
+  whose median is 2.7e-6), and the f and pdf of a sample are held to the
+  other package's eval_f and pdf_f at the same direction, at the closed
+  forms' 1e-4 (measured 3.9e-6).  Diffuse-lobe lanes keep 1e-4.
 - Disney's clearcoat at clearcoatgloss 1 is GTR1 with alpha 0.001, whose
   1 + (alpha^2 - 1) cos^2 cancels to ~alpha^2 + theta^2 from terms near
   1: an ulp of the half vector's z moves D by ~2.4e-7 / theta^2
@@ -32,6 +47,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from scipy.special import erf as _erf, erfinv as _erfinv
 
 from pbrt_tpu.materials import bsdf as jbsdf
 from pbrt_tpu.materials import metal_data as jmetal
@@ -44,6 +60,7 @@ from pbrt_tpu_torch.ops import intersect as tisect
 from pbrt_tpu_torch.parser.api import parse_scene as tparse
 from pbrt_tpu_torch.scene import ir as tir
 from test_torch_core import one_torch_thread  # noqa: F401  (autouse)
+from test_torch_core import rounding_bound
 
 N = 4096
 DEV = "cpu"
@@ -149,6 +166,98 @@ def _close(a, b, rtol=1e-4, scale=2e-6, mask=None):
     np.testing.assert_allclose(a, b, rtol=rtol, atol=atol)
 
 
+SQRT_PI_INV = 1.0 / np.sqrt(np.pi)
+# the intermediates of Beckmann's sampled microfacet normal whose f32
+# rounding moves it (beckmann_sample_wh, beckmann_sample_11)
+BECK_SITES = ("ws_x", "ws_y", "ws_z", "st", "norm", "target", "b", "sx",
+              "y_arg", "sy", "s2", "cos_phi", "sin_phi", "wh_x", "wh_y")
+# f32 roundings a site may be off by in either package (libm's erf,
+# erfinv, exp, pow and sqrt are within a few ulps; the Newton solve stops
+# within a rounding of its f32 fixed point)
+BECK_ULPS = 8
+
+
+def _beckmann_wh64(wo, u1, u2, ax, ay, pert):
+    """pbrt_tpu's beckmann_sample_wh in float64, each named intermediate
+    scaled by 1 + pert[name] (test_torch_core.rounding_bound)."""
+    def r(x, name):
+        return x * (1.0 + pert.get(name, 0.0))
+
+    flip = wo[:, 2] < 0
+    w = np.where(flip[:, None], -wo, wo)
+    ws = np.stack([ax * w[:, 0], ay * w[:, 1], w[:, 2]], -1)
+    ws = ws / np.linalg.norm(ws, axis=-1, keepdims=True)
+    wsx, wsy, ct0 = r(ws[:, 0], "ws_x"), r(ws[:, 1], "ws_y"), \
+        r(ws[:, 2], "ws_z")
+    ct = np.maximum(ct0, -0.9999)
+    st = r(np.sqrt(np.maximum(1e-14, 1.0 - ct * ct)), "st")
+    tant = st / np.maximum(ct, 1e-7)
+    cot = 1.0 / np.maximum(tant, 1e-12)
+    a0 = _erf(cot)
+    sx = r(np.maximum(u1, 1e-6), "target")
+    theta = np.arccos(np.clip(ct, -1.0, 1.0))
+    fit = 1.0 + theta * (-0.876 + theta * (0.4265 - 0.0594 * theta))
+    b = a0 - (1.0 + a0) * np.power(1.0 - sx, fit)
+    norm = r(1.0 / np.maximum(
+        1.0 + a0 + SQRT_PI_INV * tant * np.exp(-cot * cot), 1e-12), "norm")
+    b = np.clip(b, -1 + 1e-6, 1 - 1e-6)
+    for _ in range(10):
+        ie = _erfinv(np.clip(b, -0.99999, 0.99999))
+        value = norm * (1.0 + b + SQRT_PI_INV * tant * np.exp(-ie * ie)) - sx
+        der = norm * (1.0 - ie * tant)
+        b = np.clip(b - value / np.where(np.abs(der) > 1e-9, der, 1e-9),
+                    -1.0 + 1e-6, 1.0 - 1e-6)
+    slope_x = r(_erfinv(np.clip(r(b, "b"), -0.99999, 0.99999)), "sx")
+    slope_y = r(_erfinv(np.clip(r(2.0 * np.maximum(u2, 1e-6) - 1.0,
+                                  "y_arg"), -0.99999, 0.99999)), "sy")
+    rr = np.sqrt(np.maximum(-np.log(np.maximum(1.0 - u1, 1e-12)), 1e-14))
+    phi = 2.0 * np.pi * u2
+    near = ct0 > 0.9999
+    slope_x = np.where(near, rr * np.cos(phi), slope_x)
+    slope_y = np.where(near, rr * np.sin(phi), slope_y)
+    s2 = r(np.maximum(1.0 - ct0 ** 2, 1e-20), "s2")
+    inv_s = 1.0 / np.sqrt(s2)
+    cos_phi = r(np.where(s2 > 1e-20, wsx * inv_s, 1.0), "cos_phi")
+    sin_phi = r(np.where(s2 > 1e-20, wsy * inv_s, 0.0), "sin_phi")
+    hx = r(ax * (cos_phi * slope_x - sin_phi * slope_y), "wh_x")
+    hy = r(ay * (sin_phi * slope_x + cos_phi * slope_y), "wh_y")
+    wh = np.stack([-hx, -hy, np.ones_like(hx)], -1)
+    wh = wh / np.linalg.norm(wh, axis=-1, keepdims=True)
+    return np.where(flip[:, None], -wh, wh)
+
+
+def _beckmann_dirs64(wo, u, ax, ay, eta):
+    """The Beckmann lobes' sampled directions in float64 with their
+    per-element rounding bounds: {"reflect": (wi, bound), "refract": ...}
+    (sample_f reflects wo about the sampled normal, or refracts it
+    through the normal turned toward wo)."""
+    wo = wo.astype(np.float64)
+    u1, u2 = (x.astype(np.float64) for x in u[1:])
+    ax, ay, eta = (np.asarray(x, np.float64) for x in (ax, ay, eta))
+    eta_r = np.where(wo[:, 2] > 0, 1.0 / eta, eta)
+
+    def reflect(pert):
+        wh = _beckmann_wh64(wo, u1, u2, ax, ay, pert)
+        return -wo + 2.0 * np.sum(wo * wh, -1, keepdims=True) * wh
+
+    def refract(pert):
+        wh = _beckmann_wh64(wo, u1, u2, ax, ay, pert)
+        cos_i = np.sum(wo * wh, -1, keepdims=True)
+        wh = np.where(cos_i >= 0, wh, -wh)
+        cos_i = np.abs(cos_i)
+        sin2_t = eta_r[:, None] ** 2 * np.maximum(1.0 - cos_i ** 2, 0.0)
+        cos_t = np.sqrt(np.maximum(1.0 - sin2_t, 1e-14))
+        return eta_r[:, None] * -wo + (eta_r[:, None] * cos_i - cos_t) * wh
+
+    return {k: rounding_bound(f, BECK_SITES, BECK_ULPS)
+            for k, f in (("reflect", reflect), ("refract", refract))}
+
+
+@jax.jit
+def _jax_eval(jm, wo, wi):
+    return jbsdf.eval_f(jm, wo, wi), jbsdf.pdf_f(jm, wo, wi)
+
+
 @jax.jit
 def _jax_all(jm, wo, wi, u):
     return (jbsdf.eval_f(jm, wo, wi), jbsdf.pdf_f(jm, wo, wi),
@@ -174,10 +283,41 @@ def test_family_matches_jax(scenes, dirs, family, dist):
     same = (ttrans == jtrans) & (np.abs(twi_s - jwi_s).max(-1) < 5e-3)
     assert same.mean() >= 0.999
     assert np.array_equal(tspec, jspec)
-    np.testing.assert_allclose(twi_s[same], jwi_s[same], rtol=0,
-                               atol=5e-4 if beck else 1e-4)
-    rtol = 1e-3 if beck else 1e-4
-    if family == "disney":
+    if beck:
+        # each package's Beckmann-lobe directions against the f64
+        # evaluation, lane by lane within its rounding bound; the other
+        # lanes (a diffuse lobe) against each other
+        cands = _beckmann_dirs64(wo, u, torch.clamp(tm.rough_u, min=1e-4),
+                                 torch.clamp(tm.rough_v, min=1e-4), tm.eta)
+        lobe = np.ones(N, bool)
+        for got in (twi_s, jwi_s):
+            within = np.min([np.max(np.abs(got - v) / bnd, -1)
+                             for v, bnd in cands.values()], 0) <= 1.0
+            lobe &= within
+        if family in ("metal", "roughglass"):      # the lobe on every lane
+            assert lobe[same].all(), np.nonzero(same & ~lobe)[0]
+        assert lobe.mean() > 0.2
+        # the bound is a few ulps where the formula is well conditioned
+        assert np.median(np.max(cands["reflect"][1], -1)) < 1e-5
+        same_rest = same & ~lobe
+    else:
+        same_rest = same
+    np.testing.assert_allclose(twi_s[same_rest], jwi_s[same_rest], rtol=0,
+                               atol=1e-4)
+    if beck:
+        # f and pdf of a non-specular sample: the other package's eval_f
+        # and pdf_f at the same direction (a sampled direction's rounding,
+        # held above, moves them as it moves any evaluation there); the
+        # specular ones (uber's pass-through) against each other
+        jx, jpx = _jax_eval(jm, jnp.asarray(wo), jnp.asarray(twi_s))
+        two_j = torch.tensor(jwi_s)
+        for got, want in ((tf_s, jx), (tp_s, jpx),
+                          (jf_s, tbsdf.eval_f(tm, two, two_j)),
+                          (jp_s, tbsdf.pdf_f(tm, two, two_j))):
+            _close(got, want, mask=same & ~tspec)
+        _close(tf_s, jf_s, mask=same & tspec)
+        _close(tp_s, jp_s, mask=same & tspec)
+    elif family == "disney":
         # half vectors within 2e-2 rad of the normal: the clearcoat's
         # cancellation (module docstring)
         wh = wo.astype(np.float64) + jwi_s
@@ -186,10 +326,11 @@ def test_family_matches_jax(scenes, dirs, family, dist):
         assert peak.mean() < 0.15
         _close(tf_s, jf_s, rtol=0.25, mask=same & peak)
         _close(tp_s, jp_s, rtol=0.25, mask=same & peak)
-        same &= ~peak
-        rtol = 2e-4
-    _close(tf_s, jf_s, rtol=rtol, mask=same)
-    _close(tp_s, jp_s, rtol=rtol, mask=same)
+        _close(tf_s, jf_s, rtol=2e-4, mask=same & ~peak)
+        _close(tp_s, jp_s, rtol=2e-4, mask=same & ~peak)
+    else:
+        _close(tf_s, jf_s, mask=same)
+        _close(tp_s, jp_s, mask=same)
     _close(teta, jeta, rtol=1e-6, scale=0, mask=same)
     # the family really scatters somewhere
     assert (tp_s > 0).any() and (np.abs(tf_s).sum(-1) > 0).any()
