@@ -181,6 +181,31 @@ whitted, ambientocclusion and directlighting ("all" strategy) at 256x256
 one profiled pass's launches and device ms; and each at 32x32 2 spp on
 the card against the CPU.
 
+Phase 24 drives every shape and the rest of the scene format on the
+shapes cell (`tools/shapes_scene.py` at its defaults, written under
+chiprun_out/shapes_scene: a plymesh blob placed by six ObjectInstances,
+a heightfield floor, a loopsubdiv icosahedron, a hyperboloid, a nurbs
+patch, two curves, a cylinder, a disk with an innerradius, a cone placed
+through CoordSysTransform, a paraboloid and a sphere cut to 270 degrees,
+in cornell_bench.pbrt's box; 162,962 triangles in 319 chunks of 512):
+(a) its triangles, quadrics, instances, C, chunk, dense-table MiB and
+parse + build seconds; (b) K1 and the static K2 against their plain
+versions through compare_kernels with seams on its camera and bounce-1
+batches and on `kernel_workloads.bitonic_batch` (unsorted rays in all
+directions), one lane a batch allowed another triangle without a tie
+where dense.loop_prim_skipped explains it (SHAPES_SKIPS), the tiles
+whose hit chunks K1 orders by its bitonic sort (more than
+dense.QUEUE_RANK_MAX) counted, at least one required; (c) the
+CLI's `run_job` at 256x256, Sobol, 4 spp, depth 5, 65,536 rays a pass,
+counted as phase 5 is: ms a pass, rays/s, launches, one profiled pass's
+device ms and idle share, peak device memory; (d) the card against the
+CPU at 32x32 2 spp; (e) the CLI (`tools.pbrt.main`) on the card at
+64x64: a Film cropwindow (pixels outside it 0, inside it the full
+render's within phase 8's limits), a maxsampleluminance (no pixel
+brighter than spp times the cap, some darker than the full render's),
+and the metadata integrator's "mesh" ids at 1 spp (each blob instance
+and each wall has its own id).
+
 Every lens render is finite, non-negative and non-black.  Mitchell's
 and sinc's negative lobes make some developed pixels negative where the
 image has a sharp edge (the reference clamps them when it writes the
@@ -226,6 +251,7 @@ from torch.autograd import DeviceType  # noqa: E402
 
 from pbrt_tpu_torch.cameras import lens  # noqa: E402
 from pbrt_tpu_torch.cameras import projective  # noqa: E402
+from pbrt_tpu_torch.core import spectrum  # noqa: E402
 from pbrt_tpu_torch.core import transform as tfm  # noqa: E402
 from pbrt_tpu_torch.film import film as filmmod  # noqa: E402
 from pbrt_tpu_torch.film import io as filmio  # noqa: E402
@@ -256,6 +282,7 @@ from pbrt_tpu_torch.tools import kernel_workloads as kw  # noqa: E402
 from pbrt_tpu_torch.tools import lenstool  # noqa: E402
 from pbrt_tpu_torch.tools import profile_pass  # noqa: E402
 from pbrt_tpu_torch.tools import pbrt as cli  # noqa: E402
+from pbrt_tpu_torch.tools import shapes_scene  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BENCH_SCENE = os.path.join(ROOT, "scenes", "cornell_bench.pbrt")
@@ -304,6 +331,18 @@ RAYS_PER_PASS = 65536
 # 0.9990 and 0.9978 (PERF.md): the same floor holds both.  Every lane of
 # both is held to its f32 rounding bound regardless.
 T_SHARE = 0.99
+# the same share on the shapes cell's batches (phase 24): its triangles
+# are small against their chunk's extent (blob faces, the heightfield,
+# the subdivided icosahedron), so that num and nd cancel and the f32
+# bound of t exceeds 1e-5 on half its lanes (the median bound was 1.0e-5
+# to 1.6e-5).  Measured on the H100: 0.9717 (camera), 0.9660 (bounce 1),
+# 0.9797 (bitonic), every lane within 5% of its bound (PERF.md).
+SHAPES_T_SHARE = 0.95
+# closest-hit lanes of a shapes batch whose triangle may differ from the
+# plain version's without a tie (compare_kernels' skips): on the H100 one
+# lane of 65,536 in the bounce-1 batch, a crack between the two faces of a
+# blob edge (ROADMAP Queue 3), none in the others
+SHAPES_SKIPS = 1
 KERNELS = {
     "dense_queue": ("pbrt_tpu_torch/csrc/dense_queue.cu",
                     "pbrt_tpu/ops/pallas_intersect.py:761"),
@@ -364,7 +403,8 @@ def nbytes(*xs):
     return sum(x.numel() * x.element_size() for x in xs)
 
 
-def compare_kernels(scene, batches, card, k2, seams=False):
+def compare_kernels(scene, batches, card, k2, seams=False, skips=0,
+                    t_share=T_SHARE):
     """K1's two instantiations and a K2 (`k2`: "dense_loop" or
     "dense_loop_motion") against their plain versions on the same CUDA
     tensors; K2 takes the lists K1 made.  Returns {kernel: {batch:
@@ -379,7 +419,12 @@ def compare_kernels(scene, batches, card, k2, seams=False):
     (dense.loop_prim_tie), in place of the share of lanes that must agree
     on the triangle, and every any-hit lane whose occluded flag differs
     must have found a triangle that an f32 evaluation may accept or
-    reject (dense.loop_hit_marginal), in place of identical flags."""
+    reject (dense.loop_hit_marginal), in place of identical flags.
+    skips (with seams): how many closest-hit lanes of a batch may differ
+    without a tie, each explained by dense.loop_prim_skipped (every
+    triangle the farther answer passed is one rounding may reject: a
+    graze of a silhouette, or a crack between the two faces of a shared
+    edge, which are printed with their lanes)."""
     motion = k2 == "dense_loop_motion"
     cb, Wt = scene.dense_cb, scene.dense_w
     res = {"dense_queue": {}, "dense_queue_cull": {}, k2: {}}
@@ -457,8 +502,20 @@ def compare_kernels(scene, batches, card, k2, seams=False):
         differ = ~anyhit & (p_k >= 0) & (p_p >= 0) & (p_k != p_p)
         occ_differ = anyhit & ((p_k >= 0) != (p_p >= 0))
         if seams:
-            untied = int(differ.sum()) - int(dense.loop_prim_tie(
-                r16[differ], Wt, p_k[differ], p_p[differ]).sum())
+            lanes = torch.nonzero(differ)[:, 0]
+            tie = dense.loop_prim_tie(r16[lanes], Wt, p_k[lanes],
+                                      p_p[lanes])
+            lanes = lanes[~tie]
+            # (past `skips` lanes the batch fails whatever they are)
+            some = lanes[:skips]
+            explained, crack = dense.loop_prim_skipped(
+                r16[some], tmax[some], Wt, p_k[some], p_p[some])
+            unexplained = len(some) - int(explained.sum())
+            for i, c in zip(some.tolist(), crack.tolist()):
+                print(f"{k2} {name}: lane {i} kernel prim {int(p_k[i])}, "
+                      f"plain prim {int(p_p[i])}: not a tie, "
+                      + ("a crack between the two faces of an edge"
+                         if c else "a graze"))
             unexplained_occ = int(occ_differ.sum()) - int(
                 dense.loop_hit_marginal(
                     r16[occ_differ], tmax[occ_differ], Wt,
@@ -467,24 +524,28 @@ def compare_kernels(scene, batches, card, k2, seams=False):
               f"{int(anyhit.sum())} found agree={found_agree:.6f} "
               f"prim agree={prim_agree:.6f} closest lanes compared="
               f"{int(closest.sum())} t within 1e-5 rel of plain={share:.6f} "
-              f"(floor {T_SHARE}) largest t err / f32 bound: kernel "
+              f"(floor {t_share}) largest t err / f32 bound: kernel "
               f"{ratio_k.item():.4f} plain {ratio_p.item():.4f} occluded "
               f"identical={occ_same}"
               + (f" closest lanes of another prim {int(differ.sum())}, of "
-                 f"them not a tie {untied}; any-hit lanes of another flag "
+                 f"them not a tie {len(lanes)} (at most {skips}), not "
+                 f"explained {unexplained}; any-hit lanes of another flag "
                  f"{int(occ_differ.sum())}, of them not marginal "
                  f"{unexplained_occ}" if seams else ""))
         check(found_agree >= 0.9999, f"{k2} {name}: found agree "
               f"{found_agree}")
         if seams:
-            check(untied == 0, f"{k2} {name}: {untied} lanes found another "
-                  "triangle than the plain version's without a tie")
+            check(len(lanes) <= skips and unexplained == 0,
+                  f"{k2} {name}: {len(lanes)} lanes found another triangle "
+                  f"than the plain version's without a tie (at most "
+                  f"{skips}), {unexplained} of them not explained by "
+                  "rounding")
         else:
             check(prim_agree >= 0.999, f"{k2} {name}: prim agree "
                   f"{prim_agree}")
         check(ratio_k <= 1.0, f"{k2} {name}: kernel t beyond the f32 bound")
         check(ratio_p <= 1.0, f"{k2} {name}: plain t beyond the f32 bound")
-        check(share >= T_SHARE, f"{k2} {name}: only {share} of lanes "
+        check(share >= t_share, f"{k2} {name}: only {share} of lanes "
               "within 1e-5")
         if seams:
             check(unexplained_occ == 0, f"{k2} {name}: {unexplained_occ} "
@@ -2080,6 +2141,176 @@ def phase23(run_path, card, device):
           f"{time.perf_counter() - t0:.1f}")
 
 
+# phase 24: the shapes cell, written into the gitignored output
+# directory, and its CLI checks' size (e)
+SHAPES_DIR = os.path.join(ROOT, "chiprun_out", "shapes_scene")
+SHAPES_CLI_RES = 64
+SHAPES_INSTANCES = 6
+
+
+def shapes_32(dev):
+    job = parse_scene(os.path.join(SHAPES_DIR, "shapes.pbrt"), device=dev)
+    job.film_width = job.film_height = 32
+    return cli.run_job(job, spp=2, max_depth=DEPTH)[0]
+
+
+def _shapes_cli(run_path, sc, tag, edit, spp, calls, d):
+    """The CLI on a copy of the cell's file (scene sc) at SHAPES_CLI_RES,
+    the text edited by `edit`; counted as phase 5 is (`calls` K1 / K2
+    calls a pass).  Returns the .dat's raw sums [H,W,31]."""
+    src = open(os.path.join(d, "shapes.pbrt")).read().replace(
+        f"[{W}]", f"[{SHAPES_CLI_RES}]")
+    scene = os.path.join(d, f"shapes_{tag}.pbrt")
+    with open(scene, "w") as f:
+        f.write(edit(src))
+    out = os.path.join(d, f"shapes_{tag}.exr")
+    passes = spp * (-(-SHAPES_CLI_RES ** 2 // (1 << 18)))
+    expect = {"dense_queue": calls * passes, "dense_queue_cull": 0,
+              "dense_loop": calls * passes, "dense_loop_motion": 0}
+    code, _ = run_path(f"shapes CLI {tag}", lambda: cli.main(
+        [scene, "--quiet", "--spp", str(spp), "-o", out]), expect, sc)
+    check(code == 0, f"shapes CLI {tag}: exit code {code}")
+    return filmio.read_dat(os.path.join(d, f"shapes_{tag}.dat"))[0]
+
+
+def phase24(run_path, card, device, res):
+    """The shapes cell (module docstring)."""
+    t0 = time.perf_counter()
+    scene_path = shapes_scene.write_shapes_scene(SHAPES_DIR)
+    t_write = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    job = parse_scene(scene_path, device=device)
+    torch.cuda.synchronize()
+    t_parse = time.perf_counter() - t1
+    sc = job.scene
+    n_tri = int((sc.prim_type == 0).sum())
+    C, chunk = sc.dense_w.shape[0], sc.dense_chunk
+    blobs = [i for i, n in job.instance_names.items() if n == "blob"]
+    check(sc.n_quadrics == 5 and sc.clip_quadrics and len(blobs) ==
+          SHAPES_INSTANCES and chunk == 512 and C > dense.QUEUE_RANK_MAX,
+          f"shapes cell: {sc.n_quadrics} quadrics, {len(blobs)} "
+          f"instances, chunk {chunk}, C {C}")
+    print(f"phase 24a shapes cell {scene_path}: {n_tri} triangles, "
+          f"{sc.n_quadrics} quadrics, {len(blobs)} instances, C={C} chunks "
+          f"of {chunk}, dense table {nbytes(sc.dense_w) / 2**20:.2f} MiB "
+          f"(boxes {nbytes(sc.dense_cb) / 2**10:.1f} KiB), written in "
+          f"{t_write:.2f} s, parsed + built in {t_parse:.2f} s on {card}")
+
+    # (b) K1 and K2 on the cell's batches
+    t0 = time.perf_counter()
+    cam = cli.build_camera(job, W, H, device)
+    cfg = SamplerConfig("sobol", 0, SPP)
+    strategy = dispatch.light_strategy(job.integrator_params)
+    batches = kw.main_path_batches(sc, cam, cfg, W, H, RAYS_PER_PASS, DEPTH,
+                                   light_strategy=strategy)
+    batches["bitonic"] = kw.bitonic_batch(sc, RAYS_PER_PASS)
+    bitonic = {}
+    for name, (r16, tmax, _) in batches.items():
+        _, na = dense.tile_chunk_lists(r16, tmax, sc.dense_cb)
+        bitonic[name] = (int((na > dense.QUEUE_RANK_MAX).sum()),
+                         na.shape[0], int(na.max()))
+    print("phase 24b tiles whose hit chunks K1 sorts bitonically (A > "
+          f"{dense.QUEUE_RANK_MAX}), of all tiles, largest A: " + ", ".join(
+              f"{k} {v[0]} of {v[1]} ({v[2]})" for k, v in bitonic.items()))
+    check(bitonic["bitonic"][0] > 0, "no tile took K1's bitonic branch")
+    sres = compare_kernels(sc, {f"shapes_{k}": v for k, v in batches.items()},
+                           card, "dense_loop", seams=True,
+                           skips=SHAPES_SKIPS, t_share=SHAPES_T_SHARE)
+    for k, v in sres.items():
+        res[k].update(v)
+    t_kernels = time.perf_counter() - t0
+
+    # (c) the full-size render through the CLI's run_job
+    t0 = time.perf_counter()
+    passes = SPP * (-(-W * H // RAYS_PER_PASS))
+    cli.run_job(job, spp=1, max_rays_per_pass=RAYS_PER_PASS)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    t1 = time.perf_counter()
+    (film, _), counts = run_path(
+        "shapes render",
+        lambda: cli.run_job(job, spp=SPP, max_rays_per_pass=RAYS_PER_PASS,
+                            stats=stats),
+        {"dense_queue": (DEPTH + 1) * passes, "dense_queue_cull": 0,
+         "dense_loop": (DEPTH + 1) * passes, "dense_loop_motion": 0}, sc)
+    dt = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated() - base
+    ms = dt * 1e3 / passes
+    img = filmmod.develop_spectral(film)
+    check_image(img, "shapes render")
+    prof = pass_profile(sc, cam, cfg, trace=functools.partial(
+        path.trace_paths, light_strategy=strategy))
+    idle = "not measured" if prof is None else f"{1 - prof[0] / ms:.3f}"
+    print(f"phase 24c shapes render {W}x{H} {SPP} spp depth {DEPTH}: "
+          f"{passes} passes, {ms:.2f} ms/pass, {stats['rays']} rays, "
+          f"{stats['rays'] / dt:.4e} rays/s, image mean "
+          f"{img.mean().item():.6f}, {_prof(prof)}, idle share {idle}, "
+          f"peak device memory {peak / 2**20:.1f} MiB above the scene's "
+          f"{base / 2**20:.1f} MiB, launches {counts} on {card}")
+    t_render = time.perf_counter() - t0
+
+    # (d) the card against the CPU
+    t0 = time.perf_counter()
+    compare_cpu([("shapes", shapes_32)])
+    t_cpu = time.perf_counter() - t0
+
+    # (e) the CLI: a crop window, a luminance clamp, the metadata ids
+    t0 = time.perf_counter()
+    d = SHAPES_DIR
+    full = _shapes_cli(run_path, sc, "full", lambda t: t, GATE_SPP,
+                       DEPTH + 1, d)
+    crop = _shapes_cli(run_path, sc, "crop", lambda t: t.replace(
+        'Film "image"', 'Film "image" "float cropwindow" [0.2 0.75 0.1 0.6]'),
+        GATE_SPP, DEPTH + 1, d)
+    n = SHAPES_CLI_RES
+    inside = np.zeros((n, n), bool)
+    inside[int(np.ceil(0.1 * n)):int(np.ceil(0.6 * n)),
+           int(np.ceil(0.2 * n)):int(np.ceil(0.75 * n))] = True
+    lf, lc = full.sum(-1), crop.sum(-1)
+    out_zero = bool((lc[~inside] == 0).all())
+    mean_rel = abs(lc[inside].mean() / lf[inside].mean() - 1.0)
+    close = (np.abs(lc - lf) <= 1e-2 * np.abs(lf))[inside].mean()
+    print(f"phase 24e CLI cropwindow [0.2 0.75 0.1 0.6] at {n}x{n}: "
+          f"{int(inside.sum())} pixels rendered, outside all 0 {out_zero}, "
+          f"inside mean vs the full render's rel {mean_rel:.3e}, pixels "
+          f"within 1e-2 {close:.4f}")
+    check(out_zero, "cropwindow: a pixel outside the crop is not 0")
+    check(mean_rel < 0.01 and close >= 0.95, "cropwindow: the crop's "
+          "pixels differ from the full render's")
+    cap = 0.5
+    clamp = _shapes_cli(run_path, sc, "clamp", lambda t: t.replace(
+        'Film "image"', f'Film "image" "float maxsampleluminance" [{cap}]'),
+        GATE_SPP, DEPTH + 1, d)
+    yf, yc = (_luminance(x) for x in (full, clamp))
+    print(f"phase 24e CLI maxsampleluminance {cap}: brightest pixel "
+          f"{yc.max():.4f} (limit {GATE_SPP} spp x {cap}), full render's "
+          f"{yf.max():.4f}; pixels darkened {(yc < yf * 0.999).mean():.4f}")
+    check(yc.max() <= GATE_SPP * cap * (1 + 1e-4), "maxsampleluminance: a "
+          "pixel above the clamp")
+    check(bool((yc < yf * 0.999).any()), "maxsampleluminance: nothing "
+          "clamped")
+    meta = _shapes_cli(run_path, sc, "mesh", lambda t: t.replace(
+        'Integrator "path" "integer maxdepth" [5]',
+        'Integrator "metadata" "string strategy" "mesh"'), 1, 1, d)
+    ids = set(np.rint(meta[..., 0]).astype(int).ravel().tolist())
+    walls = {2, 3, 4, 5}
+    print(f"phase 24e CLI metadata mesh ids: {sorted(ids)}; blob instances "
+          f"{blobs}")
+    check(set(blobs) <= ids and walls <= ids, "metadata: an instance or a "
+          "wall has no id of its own in the image")
+    print(f"phase 24 shapes pass; wall s write + parse {t_write + t_parse:.1f}"
+          f", kernels {t_kernels:.1f}, render {t_render:.1f}, GPU vs CPU "
+          f"{t_cpu:.1f}, CLI {time.perf_counter() - t0:.1f}")
+
+
+def _luminance(raw):
+    """Per-pixel luminance [H,W] of a .dat's raw sums."""
+    return np.asarray(raw, np.float64) @ spectrum.CIE_Y * (
+        spectrum.BIN_WIDTH / spectrum.CIE_Y_INTEGRAL)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible to torch")
@@ -2354,6 +2585,11 @@ def main():
     print(f"phase 23 other integrators; wall s "
           f"{time.perf_counter() - t0:.1f}")
 
+    # --- phase 24: every shape and the rest of the scene format ---
+    t0 = time.perf_counter()
+    phase24(run_path, card, device, res)
+    print(f"phase 24 shapes; wall s {time.perf_counter() - t0:.1f}")
+
     rows = []
     for k, (src, rep) in KERNELS.items():
         r = res[k]
@@ -2396,7 +2632,8 @@ def main():
         for b in ("refpath_camera", "refpath_bounce1", "lights_camera",
                   "lights_bounce1", "volpath_walk1", "volpath_walk2",
                   "volpath_bench_walk1", "volpath_shells_walk2",
-                  "volpath_shells_walk5", "volpath_shells_walk8"):
+                  "volpath_shells_walk5", "volpath_shells_walk8",
+                  "shapes_camera", "shapes_bounce1", "shapes_bitonic"):
             if b in r:
                 row.update({f"ms_{b}": r[b]["ms"],
                             f"device_ms_{b}": _ms(r[b]["device"]),

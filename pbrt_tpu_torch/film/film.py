@@ -26,6 +26,8 @@ _RADIUS = {"box": (0.5, 0.5), "triangle": (2.0, 2.0),
            "sinc": (4.0, 4.0)}
 #: the parameters the filters read (each reads its own; others are ignored)
 FILTER_PARAMS = ("alpha", "B", "C", "tau")
+#: maxsampleluminance at or above this is no clamp (the parser's default)
+INF_LUMINANCE = 1e30
 
 
 def filter_eval(name, x, y, rx, ry, params=None):

@@ -18,15 +18,20 @@ Ported:
 The JAX package's other integrators ("lighttracer", "bdpt", "sppm",
 "mlt") raise NotImplementedError naming themselves; a name neither
 package knows renders path with a warning and the uniform strategy, as
-in the JAX package.  The
-render settings the port does not carry (a crop window, a sample-
-luminance clamp, an rrthreshold other than 1) raise.
+in the JAX package.
+
+The Film's crop window and maxsampleluminance go to `render`, as the
+JAX package passes them.  An integrator's rrthreshold is read by the
+parser but reaches no trace function in the JAX package, which renders
+with Russian roulette's threshold at 1: so does the port, with a warning
+that names the ignored value.
 """
 
 from __future__ import annotations
 
 import logging
 
+from pbrt_tpu_torch.film.film import INF_LUMINANCE
 from pbrt_tpu_torch.integrators import ao
 from pbrt_tpu_torch.integrators import metadata
 from pbrt_tpu_torch.integrators import path as pathmod
@@ -96,16 +101,18 @@ def render_with_integrator(job, camera, film, cfg, spp, max_depth,
     ip = job.integrator_params
     trace_fn, trace_kwargs, max_depth = integrator_trace(
         job, camera, film.width, film.height, max_depth)
-    if ip.get("rrthreshold", 1.0) != pathmod.RR_THRESHOLD:
-        raise NotImplementedError("rrthreshold other than "
-                                  f"{pathmod.RR_THRESHOLD} is not ported")
-    if tuple(job.crop_window) != (0.0, 1.0, 0.0, 1.0):
-        raise NotImplementedError("cropwindow is not ported")
-    if job.max_sample_luminance < 1e30:
-        raise NotImplementedError("maxsampleluminance is not ported")
+    rr = ip.get("rrthreshold", pathmod.RR_THRESHOLD)
+    if rr != pathmod.RR_THRESHOLD:
+        log.warning("rrthreshold %g is ignored: Russian roulette starts "
+                    "below a throughput of %g, as in the JAX package", rr,
+                    pathmod.RR_THRESHOLD)
+    msl = job.max_sample_luminance
     return pathmod.render(job.scene, camera, film, cfg, spp,
                           max_depth=max_depth,
                           max_rays_per_pass=max_rays_per_pass,
                           count_rays=count_rays, trace_fn=trace_fn,
                           generate_rays=pathmod.generate_fn(camera),
-                          trace_kwargs=trace_kwargs)
+                          trace_kwargs=trace_kwargs,
+                          crop_window=job.crop_window,
+                          max_sample_luminance=(None if msl >= INF_LUMINANCE
+                                                else msl))

@@ -408,7 +408,8 @@ def trace_options(scene, camera, trace_fn):
 
 def render(scene, camera, film, cfg: SamplerConfig, spp, max_depth=5,
            max_rays_per_pass=1 << 18, count_rays=False, trace_fn=None,
-           generate_rays=None, trace_kwargs=None):
+           generate_rays=None, trace_kwargs=None, crop_window=None,
+           max_sample_luminance=None):
     """Full render: fixed-shape passes over (sample, pixel chunk); the
     samples of every pass splat into `film` in place.
 
@@ -417,14 +418,29 @@ def render(scene, camera, film, cfg: SamplerConfig, spp, max_depth=5,
     light_strategy) beyond its own; generate_rays makes the camera rays
     (default: the camera's, generate_fn).  Returns the film, or
     (film, rays traced) with count_rays: rays as trace_paths counts them
-    with count_rays=True, or None when trace_fn takes no count_rays."""
+    with count_rays=True, or None when trace_fn takes no count_rays.
+
+    crop_window (x0, x1, y0, y1) in [0,1]: only the pixels of the crop's
+    ceil bounds are rendered, and the film keeps its full size (reference
+    croppedPixelBounds, film.cpp:58-66).  max_sample_luminance: each
+    sample's spectrum is scaled down to that luminance before the splat
+    (film.h:123-163); None is no clamp."""
     H, W = film.height, film.width
     dev = film.weighted.device
-    n_pix = H * W
+    if crop_window is not None and tuple(crop_window) != (0.0, 1.0, 0.0,
+                                                           1.0):
+        x0, x1, y0, y1 = crop_window
+        gx, gy = np.meshgrid(
+            np.arange(int(np.ceil(x0 * W)), int(np.ceil(x1 * W))),
+            np.arange(int(np.ceil(y0 * H)), int(np.ceil(y1 * H))))
+        pix_list = (gy * W + gx).reshape(-1)
+    else:
+        pix_list = np.arange(H * W)
+    n_pix = len(pix_list)
     chunk = min(n_pix, max_rays_per_pass)
     n_chunks = -(-n_pix // chunk)
     ids = np.full(n_chunks * chunk, 0xFFFFFFFF, np.int64)
-    ids[:n_pix] = np.arange(n_pix)
+    ids[:n_pix] = pix_list
     id_chunks = [torch.as_tensor(ids[i * chunk:(i + 1) * chunk], device=dev)
                  for i in range(n_chunks)]
     if trace_fn is None:
@@ -450,6 +466,12 @@ def render(scene, camera, film, cfg: SamplerConfig, spp, max_depth=5,
             else:
                 L = trace_fn(scene, ray, pid, sidx, cfg, max_depth=max_depth,
                              **kw)
+            if max_sample_luminance is not None:
+                y = spec.luminance(L)
+                L = L * torch.where(
+                    y > max_sample_luminance,
+                    max_sample_luminance / torch.clamp(y, min=1e-9),
+                    1.0)[:, None]
             filmmod.add_samples(film, pfilm, L, weight)
     if not count_rays:
         return film

@@ -72,6 +72,9 @@ SMEM_MAX = 232448            # what a Hopper block can opt in to
 # kSlice (csrc/dense_loop.cu, where its measurement stands); here it sizes
 # the grid
 LOOP_SLICE = 2
+# K1 orders a tile's A hit chunks by counting while A <= this, by a bitonic
+# sort above it: the kernel's constant kRankMax (csrc/dense_queue.cu)
+QUEUE_RANK_MAX = 128
 # S: the most blocks K2 launches per tile; block b walks slices b, b + S,
 # ...  Uncapped, the 514-chunk cluster table launched 129 blocks per tile
 # at G = 4, nearly all empty: 0.087 ms for tiles listing no chunk and
@@ -655,10 +658,16 @@ def _t_and_bound(num_t, nd_t, k_num, k_nd):
     """t = num/nd from the [n, m] exact terms of num and nd, and the
     relative error bound of an f32 evaluation whose num and nd errors are
     at most gamma_k * sum|terms|; the division adds one rounding."""
+    return _t_bound(num_t.sum(-1), num_t.abs().sum(-1), nd_t.sum(-1),
+                    nd_t.abs().sum(-1), k_num, k_nd)
+
+
+def _t_bound(num, num_abs, nd, nd_abs, k_num, k_nd):
+    """_t_and_bound from the sums num, nd and the sums of their terms'
+    magnitudes, num_abs and nd_abs."""
     u = 2.0 ** -24
-    num, nd = num_t.sum(-1), nd_t.sum(-1)
-    d_num = _gamma(k_num) * num_t.abs().sum(-1) / num.abs()
-    d_nd = _gamma(k_nd) * nd_t.abs().sum(-1) / nd.abs()
+    d_num = _gamma(k_num) * num_abs / num.abs()
+    d_nd = _gamma(k_nd) * nd_abs / nd.abs()
     bound = torch.where(d_nd < 1, (d_num + d_nd) / (1 - d_nd) * (1 + u) + u,
                         float("inf"))
     return num / nd, bound
@@ -719,6 +728,73 @@ def loop_prim_tie(r16, W, prim_a, prim_b):
         ts.append(loop_t_reference(r16, W, prim))
     (ta, ba), (tb, bb) = ts
     return ok & ((ta - tb).abs() <= ba * ta.abs() + bb * tb.abs())
+
+
+def loop_prim_skipped(r16, tmax, W, prim_a, prim_b, lanes=8):
+    """Two f32 evaluations returned prim_a and prim_b [n] (>= 0) as the
+    closest hit of rays r16 [n,16] with limits tmax [n] on the static
+    table W, and the two are not a tie (loop_prim_tie).  The evaluation
+    that returned the farther of them (by exact t) passed every triangle
+    before it; this reads which, over the whole table in f64, `lanes`
+    rays at a time.  The candidates are the triangles an f32 evaluation
+    may accept: each side shares the sign of s0+s1+s2 or lies within its
+    f32 error of 0, and t within its bound of (1e-4, tmax), as in
+    loop_hit_marginal.  The skipped ones are the candidates whose exact t
+    lies before the farther answer's beyond a tie with it.
+
+    Returns (explained [n] bool, crack [n] bool).  explained: the nearer
+    answer is a candidate and each skipped triangle is marginal, so that
+    rounding alone may reject it; a candidate that no rounding rejects
+    before the farther answer is a fault of that evaluation.  crack: two
+    of the skipped triangles tie with each other, the faces on both
+    sides of an edge they share: each face's sides are evaluated apart,
+    so both may round outside and the ray pass between them.  A graze of
+    a silhouette edge skips one face alone."""
+    n = r16.shape[0]
+    explained = torch.zeros(n, dtype=torch.bool, device=r16.device)
+    crack = torch.zeros_like(explained)
+    if n == 0:
+        return explained, crack
+    C, _, cw = W.shape
+    chunk = cw // 4
+    # [16, 4, P]: row, section (s1|s2|num|s0), triangle
+    Wd = W.double().reshape(C, 16, 4, chunk).permute(1, 2, 0, 3).reshape(
+        16, 4, C * chunk)
+    Wa = Wd.abs()
+    for lo in range(0, n, lanes):
+        sl = slice(lo, min(lo + lanes, n))
+        r = r16[sl].double()
+        v = torch.einsum("ni,isp->nsp", r, Wd)              # [m, 4, P]
+        a = torch.einsum("ni,isp->nsp", r.abs(), Wa)
+        sides, err = v[:, [0, 1, 3]], _gamma(16) * a[:, [0, 1, 3]]
+        nd, nd_abs = sides.sum(1), a[:, [0, 1, 3]].sum(1)
+        t, b = _t_bound(v[:, 2], a[:, 2], nd, nd_abs, 16, 18)
+        lim = tmax[sl].double()[:, None]
+        finite = torch.isfinite(b) & torch.isfinite(t)
+        inside = ((torch.sign(sides) == torch.sign(nd)[:, None])
+                  | (sides.abs() <= err)).all(1)
+        cand = inside & (~finite | ((t + b * t.abs() > 1e-4)
+                                    & (t - b * t.abs() < lim)))
+        marginal = ((sides.abs() <= err).any(1) | ~finite
+                    | ((t - 1e-4).abs() <= b * t.abs())
+                    | ((t - lim).abs() <= b * t.abs()))
+        rows = torch.arange(t.shape[0], device=r16.device)
+        pa, pb = prim_a[sl].long(), prim_b[sl].long()
+        a_far = t[rows, pa] >= t[rows, pb]
+        far = torch.where(a_far, pa, pb)
+        near = torch.where(a_far, pb, pa)
+        tf, bf = t[rows, far][:, None], b[rows, far][:, None]
+        skipped = cand & finite & (t < tf) & (
+            (t - tf).abs() > b * t.abs() + bf * tf.abs())
+        explained[sl] = (cand[rows, near] & cand[rows, far]
+                         & ~(skipped & ~marginal).any(1))
+        for i in range(t.shape[0]):
+            js = torch.nonzero(skipped[i])[:, 0]
+            tj, bj = t[i, js], b[i, js]
+            tie = ((tj[:, None] - tj[None]).abs()
+                   <= bj[:, None] * tj.abs()[:, None] + bj * tj.abs())
+            crack[lo + i] = bool((tie.sum() > len(js)).item())
+    return explained, crack
 
 
 def loop_hit_marginal(r16, tmax, W, prim):

@@ -1,34 +1,44 @@
-"""pbrt scene-API state machine (port of the parts of pbrt_tpu.parser.api
-that the ported slice renders; reference: src/core/api.{h,cpp}).
+"""pbrt scene-API state machine (port of pbrt_tpu.parser.api; reference:
+src/core/api.{h,cpp}).
 
 Directives: Identity, Translate, Scale, Rotate, LookAt, Transform,
-ConcatTransform, ActiveTransform, TransformTimes (0 1 only),
-TransformBegin/End, Camera "perspective"/"orthographic"/"environment"/
-"realistic"/"omni"/"realisticEye" (and its aliases), Film "image",
+ConcatTransform, CoordinateSystem / CoordSysTransform (with the "camera"
+and "world" systems that Camera and WorldBegin name), ActiveTransform,
+TransformTimes (0 1 only), TransformBegin/End, Camera "perspective"/
+"orthographic"/"environment"/"realistic"/"omni"/"realisticEye" (and its
+aliases), Film "image" (its cropwindow and maxsampleluminance too),
 PixelFilter "box"/"triangle"/"gaussian"/"mitchell"/"sinc", Sampler (its
 aliases mapped, an unknown kind falling back to halton with a warning,
-as in the JAX package), Integrator, Include, WorldBegin/End,
-AttributeBegin/End, ReverseOrientation, Texture (constant, scale, mix
-and bilerp folded to constants; imagemap, checkerboard, uv, dots, fbm,
-wrinkled, marble, windy), Material and MakeNamedMaterial / NamedMaterial
-for "" / "none", matte, plastic, mirror, glass (rough glass too), metal,
-uber, substrate, translucent, retroreflective, disney and mix, with
-texture-valued Kd / Ks, "string distribution" ("ggx" or "beckmann") and
-"texture bumpmap", LightSource "point"/"spot"/"distant"/"infinite"/
-"exinfinite" (an env map in any format film/io.py reads)/"goniometric"/
-"projection" (an unknown light skipped with a warning, as in the JAX
-package), AreaLightSource "diffuse" on a trianglemesh or a sphere,
+as in the JAX package), Integrator, Accelerator (its kind recorded: a
+scene under the dense cap takes the dense kernels whatever it names),
+Include, WorldBegin/End, AttributeBegin/End, ObjectBegin / ObjectEnd /
+ObjectInstance (each instance baked into world-space primitives with an
+instance id of its own), ReverseOrientation, Texture (constant, scale,
+mix and bilerp folded to constants; imagemap, checkerboard, uv, dots,
+fbm, wrinkled, marble, windy), Material and MakeNamedMaterial /
+NamedMaterial for "" / "none", matte, plastic, mirror, glass (rough glass
+too), metal, uber, substrate, translucent, retroreflective, disney and
+mix, with texture-valued Kd / Ks, "string distribution" ("ggx" or
+"beckmann") and "texture bumpmap", LightSource "point"/"spot"/"distant"/
+"infinite"/"exinfinite" (an env map in any format film/io.py reads)/
+"goniometric"/"projection", AreaLightSource "diffuse" on any shape,
 MakeNamedMedium (homogeneous, and "heterogeneous" / "grid" density grids
 under the CTM at their creation; presets, sigma_a, sigma_s, scale, g),
 MediumInterface (the camera's medium resolved at WorldEnd), and Shape
-"trianglemesh"/"sphere".  Each keeps the JAX package's semantics
-and warnings,
-including the two-keyframe CTM that gives meshes and spheres motion blur
-and the imagemap that cannot be read becoming a 0.5 constant.  Every
-other directive, and every other kind of camera, film, filter, material
-(hair, fourier, subsurface, kdsubsurface), texture (ptex), light or
-shape, raises NotImplementedError naming it: the parser never renders
-something other than what the scene asks for.
+"trianglemesh", "plymesh", "sphere", "cylinder", "disk", "cone",
+"paraboloid", and "hyperboloid", "loopsubdiv", "heightfield", "curve"
+and "nurbs" tessellated to triangles (shapes/).  Each keeps the JAX
+package's semantics and warnings, including the two-keyframe CTM that
+gives meshes and quadrics motion blur (but for meshes inside ObjectBegin)
+and the imagemap that cannot be read becoming a 0.5 constant.
+
+A directive, light or shape the JAX package does not know is skipped
+with a warning, as there.  The kinds the JAX package renders and the
+port does not yet (the materials hair, fourier, subsurface and
+kdsubsurface, ptex textures, the goniometric area light, other cameras,
+films and filters, TransformTimes other than 0 1) raise
+NotImplementedError naming them: the parser never renders something
+other than what the scene asks for.
 """
 
 from __future__ import annotations
@@ -52,6 +62,11 @@ from pbrt_tpu_torch.parser.tokenizer import (TokenStream, tokenize,
 from pbrt_tpu_torch.samplers.samplers import SAMPLER_TYPES
 from pbrt_tpu_torch.scene import ir
 from pbrt_tpu_torch.scene.ir import MaterialSpec, SceneBuilder
+from pbrt_tpu_torch.shapes.curve import curve_from_params
+from pbrt_tpu_torch.shapes.nurbs import (tessellate_hyperboloid,
+                                         tessellate_nurbs)
+from pbrt_tpu_torch.shapes.ply import read_ply
+from pbrt_tpu_torch.shapes.subdiv import loop_subdivide
 from pbrt_tpu_torch.textures import textures as texmod
 
 log = logging.getLogger("pbrt_tpu_torch")
@@ -161,6 +176,11 @@ class PbrtAPI:
         self.integrator_params = ParamSet()
         self.next_instance_id = 1
         self.instance_names = {}
+        self.named_coord_systems = {}
+        self.accel_kind = "bvh"
+        # ObjectBegin: the name being recorded, and each object's shapes
+        self.current_object = None
+        self.objects = {}
         self.media = {}
         self._medium_ids = {}          # name -> media-table index or -1
         self._camera_medium_name = ""
@@ -191,7 +211,8 @@ class PbrtAPI:
                 break
             handler = getattr(self, "_d_" + tok, None)
             if handler is None:
-                raise _unported(f"directive {tok!r}")
+                log.warning("unknown directive %r; skipped", tok)
+                continue
             result = handler(stream)
             if result is not None:
                 job = result
@@ -238,6 +259,19 @@ class PbrtAPI:
     def _d_ConcatTransform(self, s):
         self._apply(self._read_matrix(s))
 
+    def _d_CoordinateSystem(self, s):
+        name = unquote(s.next())
+        self.named_coord_systems[name] = [tfm.Transform(self.ctm[0].m),
+                                          tfm.Transform(self.ctm[1].m)]
+
+    def _d_CoordSysTransform(self, s):
+        name = unquote(s.next())
+        if name in self.named_coord_systems:
+            self.ctm = [tfm.Transform(t.m)
+                        for t in self.named_coord_systems[name]]
+        else:
+            log.warning("unknown coordinate system %r", name)
+
     def _d_ActiveTransform(self, s):
         which = s.next()
         if which not in ("StartTime", "EndTime", "All"):
@@ -269,6 +303,7 @@ class PbrtAPI:
         self.camera_to_world1 = (None if np.allclose(self.ctm[1].m,
                                                      self.ctm[0].m)
                                  else self.ctm[1].inverse())
+        self.named_coord_systems["camera"] = [self.ctm[0], self.ctm[1]]
         # the camera sits in the medium active here (api.cpp
         # RenderOptions::CameraMedium), resolved at WorldEnd, after the
         # MakeNamedMedium it may name
@@ -294,6 +329,12 @@ class PbrtAPI:
         self.integrator_kind = unquote(s.next())
         self.integrator_params = parse_param_list(s, self.scene_dir)
 
+    def _d_Accelerator(self, s):
+        # recorded only (reference api.cpp:788-801): a scene under the
+        # dense cap takes K1 / K2 whatever it names
+        self.accel_kind = unquote(s.next())
+        _check_unused(parse_param_list(s, self.scene_dir), "accelerator")
+
     def _d_Include(self, s):
         name = unquote(s.next())
         path = name if os.path.isabs(name) else os.path.join(
@@ -304,6 +345,8 @@ class PbrtAPI:
     def _d_WorldBegin(self, s):
         self.ctm = [tfm.Transform(), tfm.Transform()]
         self.active_bits = 3
+        self.named_coord_systems["world"] = [tfm.Transform(),
+                                             tfm.Transform()]
 
     def _d_AttributeBegin(self, s):
         self.graphics_stack.append(self.graphics.clone())
@@ -316,6 +359,42 @@ class PbrtAPI:
     def _d_ReverseOrientation(self, s):
         self.graphics.reverse_orientation = \
             not self.graphics.reverse_orientation
+
+    def _d_ObjectBegin(self, s):
+        self._d_AttributeBegin(s)
+        self.current_object = unquote(s.next())
+        self.objects[self.current_object] = []
+
+    def _d_ObjectEnd(self, s):
+        self.current_object = None
+        self._d_AttributeEnd(s)
+
+    def _d_ObjectInstance(self, s):
+        """The object's shapes under the CTM, as world-space primitives
+        with one new instance id (the JAX package bakes instances; a
+        mesh's ReverseOrientation at its definition is not kept, a
+        quadric's is)."""
+        name = unquote(s.next())
+        shapes = self.objects.get(name)
+        if shapes is None:
+            log.warning("unknown object instance %r", name)
+            return
+        inst_id = self.next_instance_id
+        self.next_instance_id += 1
+        self.instance_names[inst_id] = name
+        xf = self.ctm[0]
+        for entry in shapes:
+            if entry[0] == "mesh":
+                _, verts, idx, norms, uvs, mat, light = entry
+                self.builder.add_triangle_mesh(
+                    verts, idx, mat, normals=norms, uvs=uvs,
+                    light_id=light, instance_id=inst_id,
+                    object_to_world=xf)
+            else:
+                _, qtype, o2w, params, mat, light, flip = entry
+                self.builder.add_quadric(qtype, xf * o2w, params, mat,
+                                         light_id=light, instance_id=inst_id,
+                                         flip_normal=flip)
 
     # -------------------------------------------------------------- media
     def _d_MakeNamedMedium(self, s):
@@ -715,8 +794,6 @@ class PbrtAPI:
     # ------------------------------------------------------------- shapes
     def _d_Shape(self, s):
         sname = unquote(s.next())
-        if sname not in ("trianglemesh", "sphere"):
-            raise _unported(f'Shape "{sname}"')
         ps = parse_param_list(s, self.scene_dir)
         xf = self.ctm[0]
         # a second CTM keyframe that differs gives the shape motion blur
@@ -726,6 +803,8 @@ class PbrtAPI:
         if g.area_light is not None:
             light_id = self.builder.add_area_light(g.area_light["L"],
                                                    g.area_light["twosided"])
+        mat = g.material_id
+        flip = g.reverse_orientation
         inst = self.next_instance_id
         self.next_instance_id += 1
         self.instance_names[inst] = f"{sname}_{inst}"
@@ -733,9 +812,40 @@ class PbrtAPI:
         # inside / outside media, as table indices
         self.builder.current_medium = (self._medium_index(g.inside_medium),
                                        self._medium_index(g.outside_medium))
-        common = dict(light_id=light_id, instance_id=inst,
-                      flip_normal=g.reverse_orientation,
-                      object_to_world1=xf1)
+
+        def mesh(verts, idx, norms=None, uvs=None):
+            """Inside ObjectBegin: recorded under the CTM for its
+            instances; else added, with motion blur."""
+            if self.current_object is not None:
+                if xf1 is not None:
+                    log.warning(
+                        "mesh motion blur inside ObjectBegin/%s is not "
+                        "propagated through instances; second keyframe "
+                        "ignored", self.current_object)
+                wn = (None if norms is None else
+                      xf.apply_normal(np.asarray(norms, np.float64)))
+                self.objects[self.current_object].append(
+                    ("mesh", xf.apply_point(np.asarray(verts, np.float64)),
+                     idx, wn, uvs, mat, light_id))
+            else:
+                self.builder.add_triangle_mesh(
+                    verts, idx, mat, normals=norms, uvs=uvs,
+                    light_id=light_id, instance_id=inst, flip_normal=flip,
+                    object_to_world=xf, object_to_world1=xf1)
+
+        def quadric(qtype, params):
+            if self.current_object is not None:
+                self.objects[self.current_object].append(
+                    ("quadric", qtype, xf, params, mat, light_id, flip))
+            else:
+                self.builder.add_quadric(qtype, xf, params, mat,
+                                         light_id=light_id, instance_id=inst,
+                                         flip_normal=flip,
+                                         object_to_world1=xf1)
+
+        def phimax():
+            return np.radians(ps.find_one_float("phimax", 360.0))
+
         if sname == "trianglemesh":
             verts = ps.find_points("P")
             idx = ps.find_ints("indices")
@@ -745,18 +855,92 @@ class PbrtAPI:
             uvs = ps.find_point2s("uv")
             if uvs is None:
                 uvs = ps.find_point2s("st")
-            self.builder.add_triangle_mesh(
-                verts, idx.reshape(-1, 3), g.material_id,
-                normals=ps.find_points("N"), uvs=uvs, object_to_world=xf,
-                **common)
-        else:
+            mesh(verts, idx.reshape(-1, 3), ps.find_points("N"), uvs)
+        elif sname == "plymesh":
+            mesh(*read_ply(self._filename(ps, "filename")))
+        elif sname == "sphere":
             r = ps.find_one_float("radius", 1.0)
-            params = (r, ps.find_one_float("zmin", -r),
-                      ps.find_one_float("zmax", r),
-                      np.radians(ps.find_one_float("phimax", 360.0)))
-            self.builder.add_quadric(ir.PRIM_SPHERE, xf, params,
-                                     g.material_id, **common)
+            quadric(ir.PRIM_SPHERE, (r, ps.find_one_float("zmin", -r),
+                                     ps.find_one_float("zmax", r), phimax()))
+        elif sname == "cylinder":
+            quadric(ir.PRIM_CYLINDER, (ps.find_one_float("radius", 1.0),
+                                       ps.find_one_float("zmin", -1.0),
+                                       ps.find_one_float("zmax", 1.0),
+                                       phimax()))
+        elif sname == "disk":
+            h = ps.find_one_float("height", 0.0)
+            quadric(ir.PRIM_DISK, (ps.find_one_float("radius", 1.0), h,
+                                   ps.find_one_float("innerradius", 0.0),
+                                   phimax()))
+        elif sname == "cone":
+            r = ps.find_one_float("radius", 1.0)
+            quadric(ir.PRIM_CONE, (r, 0.0, ps.find_one_float("height", 1.0),
+                                   phimax()))
+        elif sname == "paraboloid":
+            quadric(ir.PRIM_PARABOLOID, (ps.find_one_float("radius", 1.0),
+                                         ps.find_one_float("zmin", 0.0),
+                                         ps.find_one_float("zmax", 1.0),
+                                         phimax()))
+        elif sname == "hyperboloid":
+            # the segment p1 -> p2 swept phimax about z (hyperboloid.cpp),
+            # tessellated as the JAX package does
+            p1, p2 = ps.find_points("p1"), ps.find_points("p2")
+            mesh(*tessellate_hyperboloid(
+                np.zeros(3) if p1 is None else p1[0],
+                np.ones(3) if p2 is None else p2[0], phimax()))
+        elif sname == "loopsubdiv":
+            levels = ps.find_one_int("levels", ps.find_one_int("nlevels", 3))
+            verts, idx, norms = loop_subdivide(
+                ps.find_points("P"), ps.find_ints("indices").reshape(-1, 3),
+                levels)
+            mesh(verts, idx, norms=norms)
+        elif sname == "heightfield":
+            nu = ps.find_one_int("nu", 2)
+            nv = ps.find_one_int("nv", 2)
+            z = ps.find_floats("Pz").reshape(nv, nu)
+            xs, ys = np.meshgrid(np.linspace(0, 1, nu), np.linspace(0, 1, nv))
+            # two triangles a cell, rows of cells in order, as the JAX
+            # package's loop emits them
+            a = (np.arange(nv - 1)[:, None] * nu
+                 + np.arange(nu - 1)[None, :]).reshape(-1, 1)
+            idx = np.concatenate([a, a + 1, a + nu + 1, a, a + nu + 1,
+                                  a + nu], 1).reshape(-1, 3)
+            mesh(np.stack([xs, ys, z], -1).reshape(-1, 3), idx)
+        elif sname == "curve":
+            w = ps.find_one_float("width", 1.0)
+            n0 = ps.find_points("N")
+            verts, idx, uvs = curve_from_params(
+                ps.find_points("P"), degree=ps.find_one_int("degree", 3),
+                basis=ps.find_one_string("basis", "bezier"),
+                width0=ps.find_one_float("width0", w),
+                width1=ps.find_one_float("width1", w),
+                curve_type=ps.find_one_string("type", "flat"),
+                normal0=None if n0 is None else n0[0])
+            mesh(verts, idx, None, uvs)
+        elif sname == "nurbs":
+            self._nurbs(ps, mesh)
+        else:
+            log.warning("unknown shape %r; skipped", sname)
         _check_unused(ps, f"shape {sname}")
+
+    @staticmethod
+    def _nurbs(ps, mesh):
+        """nurbs.cpp tessellates at creation; so does the JAX package."""
+        nu, nv = ps.find_one_int("nu", 0), ps.find_one_int("nv", 0)
+        uk, vk = ps.find_floats("uknots"), ps.find_floats("vknots")
+        Pw, P = ps.find_floats("Pw"), ps.find_points("P")
+        if nu <= 0 or nv <= 0 or uk is None or vk is None or \
+                (P is None and Pw is None):
+            log.warning("nurbs missing required params; skipped")
+            return
+        uo, vo = ps.find_one_int("uorder", 3), ps.find_one_int("vorder", 3)
+        verts, idx, uvs = tessellate_nurbs(
+            nu, nv, uo, vo, uk, vk,
+            ps.find_one_float("u0", float(uk[uo - 1])),
+            ps.find_one_float("u1", float(uk[nu])),
+            ps.find_one_float("v0", float(vk[vo - 1])),
+            ps.find_one_float("v1", float(vk[nv])), P=P, Pw=Pw)
+        mesh(verts, idx, None, uvs)
 
     # ------------------------------------------------------------ finish
     def _filename(self, ps, name):

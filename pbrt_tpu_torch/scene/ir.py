@@ -1,6 +1,7 @@
 """Scene intermediate representation (port of pbrt_tpu.scene.ir).
 
-`SceneBuilder` assembles triangle meshes, spheres, the lights (point,
+`SceneBuilder` assembles triangle meshes, the quadrics (sphere, cylinder,
+disk, cone, paraboloid), the lights (point,
 spot, distant, goniometric, projection, area lights on meshes and
 spheres, infinite lights with or without an env map), the surface
 materials of PORTED_MATERIALS and the texture table on the host,
@@ -20,8 +21,10 @@ textures are not ported: the builder raises naming them.
 
 Two-keyframe motion blur: a mesh given a second object-to-world keyframe
 moves its vertices linearly over the shutter (`tri_motion`), and the
-scene's dense table becomes the motion table (`dense_motion`); a sphere
+scene's dense table becomes the motion table (`dense_motion`); a quadric
 given one interpolates its decomposed transform per ray (`quad_anim_*`).
+The other shapes of the scene format (plymesh, loopsubdiv, heightfield,
+curve, nurbs, hyperboloid) reach the builder as triangle meshes.
 
 `scene_from_jax` builds the same `SceneData` from the arrays of a
 `pbrt_tpu` scene, so tests can trace one scene through both packages.
@@ -45,6 +48,12 @@ from pbrt_tpu_torch.textures.textures import TEX_PTEX, TextureTable
 
 PRIM_TRIANGLE = 0
 PRIM_SPHERE = 1
+PRIM_CYLINDER = 2
+PRIM_DISK = 3
+PRIM_CONE = 4
+PRIM_PARABOLOID = 5
+# (the JAX package's PRIM_HYPERBOLOID = 6 never reaches a scene: the parser
+# tessellates the hyperboloid, shapes/nurbs.py)
 
 # light type tags
 LIGHT_POINT = 0
@@ -91,8 +100,8 @@ MAX_MOTION_PRIMS = 150_000
 PRIM_COLUMNS = ("prim_type", "tri_v0", "tri_e1", "tri_e2", "tri_motion",
                 "tri_ns", "tri_uv", "quad_idx", "prim_material",
                 "prim_light", "prim_instance", "prim_flip_normal")
-QUAD_COLUMNS = ("quad_w2o", "quad_params", "quad_prim", "quad_anim_t",
-                "quad_anim_q", "quad_anim_s")
+QUAD_COLUMNS = ("quad_w2o", "quad_params", "quad_type", "quad_prim",
+                "quad_anim_t", "quad_anim_q", "quad_anim_s")
 MAT_COLUMNS = ("mat_type", "mat_kd", "mat_ks", "mat_kr", "mat_kt",
                "mat_rough_u", "mat_rough_v", "mat_eta", "mat_sigma",
                "mat_remap_rough", "mat_kd_tex", "mat_ks_tex", "mat_bump_tex",
@@ -148,9 +157,12 @@ class SceneData:
     prim_light: torch.Tensor       # [P] area-light index or -1
     prim_instance: torch.Tensor    # [P] id of the Shape (sidecar names)
     prim_flip_normal: torch.Tensor  # [P] bool
-    # --- quadrics (full spheres, or clipped when clip_quadrics) ---
+    # --- quadrics (the z / phi clip runs when clip_quadrics) ---
     quad_w2o: torch.Tensor         # [Q,4,4]
-    quad_params: torch.Tensor      # [Q,4] radius, zmin, zmax, phimax
+    # [Q,4] radius, zmin, zmax, phimax; a disk (radius, height,
+    # innerradius, phimax), a cone (radius, 0, height, phimax)
+    quad_params: torch.Tensor
+    quad_type: torch.Tensor        # [Q] PRIM_* tag of each quadric
     quad_prim: torch.Tensor        # [Q] prim index of each quadric
     quad_anim_t: torch.Tensor      # [Q,2,3] keyframe translations
     quad_anim_q: torch.Tensor      # [Q,2,4] keyframe rotations (wxyz)
@@ -246,6 +258,9 @@ class SceneData:
     n_lights: int = 0
     n_quadrics: int = 0
     clip_quadrics: bool = False
+    # the quadric types present (PRIM_*, sorted): the quadric test, normal
+    # and uv launch only these (None: every type)
+    quad_kinds: tuple = None
     dense_chunk: int = 128
     has_animated_mesh: bool = False
     has_animated_quads: bool = False
@@ -466,17 +481,17 @@ class SceneBuilder:
     def add_quadric(self, qtype, object_to_world: Transform, params,
                     material_id, light_id=-1, instance_id=0,
                     flip_normal=False, object_to_world1: Transform = None):
-        """params (radius, zmin, zmax, phimax radians); only spheres are
-        ported.  object_to_world1: the second keyframe (motion blur)."""
-        if qtype != PRIM_SPHERE:
-            raise NotImplementedError(
-                f"quadric type {qtype} is not ported yet (only spheres)")
+        """qtype: PRIM_SPHERE, PRIM_CYLINDER, PRIM_DISK, PRIM_CONE or
+        PRIM_PARABOLOID; params (radius, zmin, zmax, phimax radians), a
+        disk's (radius, height, innerradius, phimax) and a cone's (radius,
+        0, height, phimax), as the JAX package keeps them.
+        object_to_world1: the second keyframe (motion blur)."""
         if object_to_world.swaps_handedness():
             flip_normal = not flip_normal
         qi = len(self.quads)
         self.quads.append((object_to_world.m.astype(np.float32),
                            object_to_world.m_inv.astype(np.float32),
-                           np.asarray(params, np.float32),
+                           np.asarray(params, np.float32), int(qtype),
                            None if object_to_world1 is None
                            else object_to_world1.m.astype(np.float32)))
         first = self._add_chunk(1, np.zeros((1, 3, 3)), np.zeros((1, 3, 3)),
@@ -501,17 +516,20 @@ class SceneBuilder:
                 for k in keys}
 
     def _prim_bounds(self, soa):
-        # moving triangles: the union of both keyframes; spheres: their
-        # first keyframe, as the JAX package bounds them
+        # moving triangles: the union of both keyframes; quadrics: their
+        # first keyframe's object box, as the JAX package bounds them (a
+        # disk's a thin slab at its height)
         v1 = soa["tri_v"] + soa["tri_dv"]
         lo = np.minimum(soa["tri_v"].min(1), v1.min(1)).astype(np.float64)
         hi = np.maximum(soa["tri_v"].max(1), v1.max(1)).astype(np.float64)
         for i in np.nonzero(soa["prim_type"] != PRIM_TRIANGLE)[0]:
-            o2w, _, params, _ = self.quads[soa["quad_refs"][i]]
+            o2w, _, params, qtype, _ = self.quads[soa["quad_refs"][i]]
             r = abs(float(params[0]))
             zmin, zmax = float(params[1]), float(params[2])
+            zs = ((zmin - 1e-4, zmin + 1e-4) if qtype == PRIM_DISK
+                  else (min(zmin, zmax), max(zmin, zmax)))
             corners = np.array([[x, y, z] for x in (-r, r) for y in (-r, r)
-                                for z in (min(zmin, zmax), max(zmin, zmax))])
+                                for z in zs])
             wc = Transform(o2w.astype(np.float64)).apply_point(corners)
             lo[i], hi[i] = wc.min(0), wc.max(0)
         return lo, hi
@@ -543,12 +561,13 @@ class SceneBuilder:
         Q = max(len(self.quads), 1)
         q_w2o = np.tile(np.eye(4, dtype=np.float32), (Q, 1, 1))
         q_par = np.zeros((Q, 4), np.float32)
+        q_type = np.zeros(Q, np.int32)
         q_at = np.zeros((Q, 2, 3), np.float32)
         q_aq = np.tile(np.asarray([1, 0, 0, 0], np.float32), (Q, 2, 1))
         q_as = np.tile(np.eye(3, dtype=np.float32), (Q, 2, 1, 1))
         animated_quads = False
-        for i, (m, mi, par, m1) in enumerate(self.quads):
-            q_w2o[i], q_par[i] = mi, par
+        for i, (m, mi, par, qt, m1) in enumerate(self.quads):
+            q_w2o[i], q_par[i], q_type[i] = mi, par, qt
             moving = m1 is not None and not np.allclose(m1, m)
             animated_quads |= moving
             q_at[i], q_aq[i], q_as[i] = animated_pair(m, m1 if moving else m)
@@ -556,11 +575,7 @@ class SceneBuilder:
         qref = reorder("quad_refs", np.int32)
         qmask = np.nonzero(qref >= 0)[0]
         q_prim[qref[qmask]] = qmask
-        # only full spheres skip the z/phi clip tests
-        clip_q = any(float(p[3]) < 2 * np.pi - 1e-5
-                     or float(p[1]) > -float(p[0]) + 1e-6
-                     or float(p[2]) < float(p[0]) - 1e-6
-                     for _, _, p, _ in self.quads)
+        clip_q = any(_needs_clip(p, qt) for _, _, p, qt, _ in self.quads)
 
         mats = self.materials or [MaterialSpec()]
 
@@ -589,7 +604,8 @@ class SceneBuilder:
             prim_light=reorder("prim_light", np.int32),
             prim_instance=reorder("prim_instance", np.int32),
             prim_flip_normal=reorder("prim_flip", bool),
-            quad_w2o=q_w2o, quad_params=q_par, quad_prim=q_prim,
+            quad_w2o=q_w2o, quad_params=q_par, quad_type=q_type,
+            quad_prim=q_prim,
             quad_anim_t=q_at, quad_anim_q=q_aq, quad_anim_s=q_as,
             mat_type=np.asarray([m.type for m in mats], np.int32),
             mat_kd=mcol("kd"), mat_ks=mcol("ks"), mat_kr=mcol("kr"),
@@ -699,7 +715,8 @@ class SceneBuilder:
                 lt_cdf[li, len(tris) + 1:] = 1.0
                 l_area[li] = total
             else:
-                # an area light on a sphere: its quadric
+                # an area light on a sphere: its quadric (one on another
+                # quadric gets no light geometry, as in the JAX package)
                 cand = np.nonzero((soa["prim_light"] == li)
                                   & (soa["prim_type"] == PRIM_SPHERE))[0]
                 if len(cand):
@@ -789,6 +806,16 @@ class SceneBuilder:
         return arrays, statics
 
 
+def _needs_clip(params, qtype):
+    """Whether a quadric needs the z / phi clip tests: every one but a
+    full sphere (pbrt_tpu/scene/ir.py:876-884)."""
+    if qtype != PRIM_SPHERE:
+        return True
+    return (float(params[3]) < 2 * np.pi - 1e-5
+            or float(params[1]) > -float(params[0]) + 1e-6
+            or float(params[2]) < float(params[0]) - 1e-6)
+
+
 def check_dense_cap(n_prims, animated):
     """Raise NotImplementedError for a scene the dense kernels do not
     take: over MAX_DENSE_PRIMS primitives, or MAX_MOTION_PRIMS with an
@@ -841,6 +868,8 @@ def _scene_from_arrays(arrays, statics, device):
         n_lights=int(statics["n_lights"]),
         n_quadrics=int(statics["n_quadrics"]),
         clip_quadrics=bool(statics["clip_quadrics"]),
+        quad_kinds=tuple(sorted({int(t) for t in np.asarray(
+            arrays["quad_type"])[:int(statics["n_quadrics"])]})),
         dense_chunk=int(dt["chunk"]),
         has_animated_mesh=bool(statics["has_animated_mesh"]),
         has_animated_quads=bool(statics["has_animated_quads"]),
@@ -890,8 +919,6 @@ def scene_from_jax(arrays: dict, statics: dict, device) -> SceneData:
                   mat_k_spec=row[:, _MPK_K_SPEC:_MPK_K_SPEC + _NS],
                   mat_opacity=row[:, _MPK_OPACITY:_MPK_OPACITY + _NS],
                   mat_beckmann=row[:, _MPK_BECKMANN] > 0.5)
-    if np.any(np.asarray(arrays["prim_type"]) > PRIM_SPHERE):
-        raise NotImplementedError("only triangles and spheres are ported")
     if statics["has_animated_mesh"] and not statics["dense_motion"]:
         raise NotImplementedError(
             "animated meshes on the BVH path are not ported")

@@ -409,6 +409,22 @@ def main_path_batches(scene, camera, cfg, width, height, rays, depth,
     return _recorded_batches(run, depth)
 
 
+def bitonic_batch(scene, n_rays=65536, seed=0):
+    """(r16, tmax, None): rays from points inside the scene's box in
+    uniform directions, unsorted, so that a tile's 128 rays enter most of
+    the scene's chunks, more than K1 orders by counting
+    (dense.QUEUE_RANK_MAX) on a scene of a few hundred chunks."""
+    dev = scene.dense_w.device
+    rs = np.random.RandomState(seed)
+    lo = scene.dense_cb[:, 0:3].amin(0).cpu().numpy()
+    hi = scene.dense_cb[:, 4:7].amax(0).cpu().numpy()
+    o = rs.uniform(lo + 0.1 * (hi - lo), hi - 0.1 * (hi - lo), (n_rays, 3))
+    d = _unit(rs.normal(size=(n_rays, 3)))
+    o, d = _to(dev, o, d)
+    r16 = dense.ray_vectors(o, d, scene.dense_center)
+    return r16, torch.full((n_rays,), 1e30, device=dev), None
+
+
 def refpath_batches(scene, camera, width, height, depth):
     """The batches one matched-RNG pass (integrators/refpath.py, sample
     0, every pixel) hands the dense kernels: "camera", the W*H camera rays

@@ -3,10 +3,11 @@ src/main/pbrt.cpp).
 
     python -m pbrt_tpu_torch.tools.pbrt scene.pbrt [--outfile x.exr]
         [--spp N] [--maxdepth N] [--quick] [--quiet] [--cpu]
-        [--sampler refsobol]
+        [--sampler refsobol] [--cropwindow x0 x1 y0 y1]
 
-Parses the scene (parser/api.py lists the ported directives; the others
-raise NotImplementedError), builds it and its camera (perspective,
+Parses the scene (parser/api.py lists the directives and kinds; one the
+JAX package renders and the port does not yet raises NotImplementedError,
+one neither knows is skipped with a warning), builds it and its camera (perspective,
 orthographic, environment, or the lens cameras realistic, omni and
 realisticEye) on the first CUDA card, or on the CPU with --cpu only,
 renders it with the scene's sampler and integrator (path, volpath,
@@ -16,7 +17,9 @@ integrator, integrators/refpath.py), and writes the
 RGB image (EXR or PNG by extension, else PNG), the ISET spectral
 `.dat` (the fork's spectralFlag, on by default) and the fork's metadata
 sidecars <out>_mesh.txt / <out>_materials.txt (api.cpp:1630-1689).
-Without a visible card and without --cpu it raises.
+Without a visible card and without --cpu it raises.  --cropwindow is
+accepted and, as in the JAX package's CLI, not used: the Film's
+"float cropwindow" crops the render.
 """
 
 from __future__ import annotations
@@ -157,6 +160,10 @@ def main(argv=None):
     ap.add_argument("--maxdepth", type=int, default=None)
     ap.add_argument("--cpu", action="store_true",
                     help="render on the CPU instead of the CUDA card")
+    ap.add_argument("--cropwindow", type=float, nargs=4, default=None,
+                    metavar=("X0", "X1", "Y0", "Y1"),
+                    help="accepted and not used, as by pbrt_tpu's CLI "
+                         "(the Film's cropwindow crops)")
     ap.add_argument("--sampler", default=None, choices=["refsobol"],
                     help="override the scene's sampler; 'refsobol' runs the "
                          "matched-RNG parity integrator (pbrt's Sobol' "

@@ -40,7 +40,11 @@ equals static K2, whether or not it is told which chunks are static, and
 K2 motion with and without `chunk_static` are equal on a mixed table.
 Lists with one tile of all C chunks and one of a single chunk, and
 static K2 at 1024-triangle chunks (180 KB of shared memory for two
-stages), are held to the plain versions by the contract above.
+stages), are held to the plain versions by the contract above.  So are
+the shapes cell's batches (319 chunks of 512 triangles; K1's bitonic
+sort), with ties at shared edges allowed as on the matched-RNG batches
+and one lane a batch of another triangle where rounding explains it
+(dense.loop_prim_skipped).
 """
 import numpy as np
 import pytest
@@ -527,26 +531,76 @@ def test_k2_on_the_matched_rng_mixed_batch(device):
     assert batches["bounce1"][0].shape[0] == 3 * 128 * 128
     assert int((batches["bounce1"][0][:, 12] > 0.5).sum()) == 128 * 128
     for r16, tmax, _ in batches.values():
-        cl, na = dense.tile_chunk_lists(r16, tmax, scene.dense_cb)
-        cl_p, na_p = dense.tile_chunk_lists_plain(r16, tmax, scene.dense_cb)
-        assert torch.equal(cl, cl_p) and torch.equal(na, na_p)
-        t, p = dense.loop_hits(r16, tmax, scene.dense_w, cl, na)
-        tp, pp = dense.loop_hits_plain(r16, tmax, scene.dense_w, cl, na)
-        torch.cuda.synchronize()
-        assert ((p >= 0) == (pp >= 0)).float().mean() >= 0.9999
-        anyhit = r16[:, 12] > 0.5
-        occ = anyhit & ((p >= 0) != (pp >= 0))
-        assert dense.loop_hit_marginal(r16[occ], tmax[occ], scene.dense_w,
-                                       torch.maximum(p, pp)[occ]).all()
-        differ = ~anyhit & (p >= 0) & (pp >= 0) & (p != pp)
-        assert dense.loop_prim_tie(r16[differ], scene.dense_w, p[differ],
-                                   pp[differ]).all()
-        closest = ~anyhit & (p == pp) & (p >= 0)
-        t64, bound = dense.loop_t_reference(r16[closest], scene.dense_w,
-                                            p[closest])
-        for tt in (t, tp):
-            assert ((tt[closest].double() - t64).abs()
-                    <= bound * t64.abs()).all()
+        _seam_contract(scene, r16, tmax)
+
+
+def _seam_contract(scene, r16, tmax, skips=0):
+    """K1's lists equal the plain lists; K2 against its plain version on
+    them with ties at shared edges allowed (test_k2_on_the_matched_rng_
+    mixed_batch), and at most `skips` closest-hit lanes of another
+    triangle without a tie, each explained by dense.loop_prim_skipped.
+    Returns K1's n_active and [(lane, crack)] for those lanes."""
+    cl, na = dense.tile_chunk_lists(r16, tmax, scene.dense_cb)
+    cl_p, na_p = dense.tile_chunk_lists_plain(r16, tmax, scene.dense_cb)
+    assert torch.equal(cl, cl_p) and torch.equal(na, na_p)
+    t, p = dense.loop_hits(r16, tmax, scene.dense_w, cl, na)
+    tp, pp = dense.loop_hits_plain(r16, tmax, scene.dense_w, cl, na)
+    torch.cuda.synchronize()
+    assert ((p >= 0) == (pp >= 0)).float().mean() >= 0.9999
+    anyhit = r16[:, 12] > 0.5
+    occ = anyhit & ((p >= 0) != (pp >= 0))
+    assert dense.loop_hit_marginal(r16[occ], tmax[occ], scene.dense_w,
+                                   torch.maximum(p, pp)[occ]).all()
+    differ = ~anyhit & (p >= 0) & (pp >= 0) & (p != pp)
+    lanes = torch.nonzero(differ)[:, 0]
+    lanes = lanes[~dense.loop_prim_tie(r16[lanes], scene.dense_w, p[lanes],
+                                       pp[lanes])]
+    assert len(lanes) <= skips
+    explained, crack = dense.loop_prim_skipped(
+        r16[lanes], tmax[lanes], scene.dense_w, p[lanes], pp[lanes])
+    assert explained.all()
+    closest = ~anyhit & (p == pp) & (p >= 0)
+    t64, bound = dense.loop_t_reference(r16[closest], scene.dense_w,
+                                        p[closest])
+    for tt in (t, tp):
+        assert ((tt[closest].double() - t64).abs()
+                <= bound * t64.abs()).all()
+    return na, list(zip(lanes.tolist(), crack.tolist()))
+
+
+@pytest.mark.parametrize("batch", ["camera", "bounce1", "bitonic"])
+def test_k1_k2_on_the_shapes_cell(device, tmp_path, batch):
+    """K1 and the static K2 on the shapes cell (tools/shapes_scene.py at
+    its defaults: 162,962 triangles in 319 chunks of 512): its camera and
+    bounce-1 batches at 256x256 and kernel_workloads.bitonic_batch, some
+    of whose tiles enter more chunks than K1 orders by counting
+    (dense.QUEUE_RANK_MAX), so that its bitonic sort runs.  The contract
+    of test_k2_on_the_matched_rng_mixed_batch (the heightfield and the
+    blobs share edges between triangles), with one closest-hit lane of
+    a batch allowed another triangle without a tie if rounding explains
+    it.  Pinned: lane 39696 of the bounce-1 batch, where K2 passes
+    between the two faces of a blob edge (148389, which the plain version
+    returns, and the face across the edge) to face 147926 behind them, a
+    crack of the formulation (ROADMAP Queue 3, open)."""
+    from pbrt_tpu_torch.parser.api import parse_scene
+    from pbrt_tpu_torch.samplers.samplers import SamplerConfig
+    from pbrt_tpu_torch.tools import pbrt as cli
+    from pbrt_tpu_torch.tools import shapes_scene
+    job = parse_scene(shapes_scene.write_shapes_scene(str(tmp_path)),
+                      device=device)
+    scene = job.scene
+    assert scene.dense_chunk == 512
+    assert scene.dense_w.shape[0] > dense.QUEUE_RANK_MAX
+    if batch == "bitonic":
+        r16, tmax, _ = kernel_workloads.bitonic_batch(scene)
+    else:
+        r16, tmax, _ = kernel_workloads.main_path_batches(
+            scene, cli.build_camera(job, 256, 256, device),
+            SamplerConfig("sobol", 0, 4), 256, 256, 65536, 5)[batch]
+    na, skipped = _seam_contract(scene, r16, tmax, skips=1)
+    if batch == "bitonic":
+        assert (na > dense.QUEUE_RANK_MAX).any()
+    assert skipped == ([(39696, True)] if batch == "bounce1" else [])
 
 
 def test_trace_ref_on_the_card_matches_the_cpu(device):

@@ -294,3 +294,71 @@ def test_loop_prim_tie_and_marginal_hits():
         r16, torch.tensor([5.0, 5.0, 1.0, 5.0]), W,
         torch.tensor([0, 0, 0, 2]))
     assert marginal.tolist() == [True, False, True, True]
+
+
+def test_loop_prim_skipped_tells_a_graze_from_a_crack():
+    """loop_prim_skipped: a unit quad at z = 0 (triangles 0, 1, split
+    along x = y) over a larger quad at z = -1 (2, 3, split along
+    x + y = 1), rays straight down.  A ray through x = 1, an edge of 0
+    that no other triangle shares (a silhouette), may hit 0 or pass it
+    and hit 3 below: explained either way round, no crack.  Through the
+    diagonal both 0 and 1 are marginal at one t: returning 2 below
+    passes between them, explained as a crack.  Through the middle of 0,
+    or of 1 with 0 returned as the nearer answer, it is not explained:
+    the triangle is hit whatever the rounding."""
+    v = np.array([[0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0]], np.float32)
+    big = np.array([[-1, -1, -1], [2, -1, -1], [2, 2, -1], [-1, 2, -1]],
+                   np.float32)
+    tv = np.concatenate([v[[[0, 1, 2], [0, 2, 3]]],
+                         big[[[0, 1, 3], [1, 2, 3]]]])
+    tab = tdense.build_dense_tables(tv[:, 0], tv[:, 1] - tv[:, 0],
+                                    tv[:, 2] - tv[:, 0])
+    o = torch.tensor([[1.0, 0.2, 1.0], [1.0, 0.2, 1.0], [0.3, 0.3, 1.0],
+                      [0.8, 0.3, 1.0], [0.3, 0.6, 1.0]])
+    d = torch.tensor([[0.0, 0.0, -1.0]]).expand(5, 3)
+    r16 = tdense.ray_vectors(o, d, torch.from_numpy(tab["center"]))
+    W = torch.from_numpy(tab["W"])
+    tmax = torch.full((5,), 5.0)
+    a, b = torch.tensor([0, 3, 0, 0, 0]), torch.tensor([3, 0, 2, 3, 2])
+    assert not tdense.loop_prim_tie(r16, W, a, b).any()
+    explained, crack = tdense.loop_prim_skipped(r16, tmax, W, a, b, lanes=2)
+    assert explained.tolist() == [True, True, True, False, False]
+    assert crack.tolist() == [False, False, True, False, False]
+
+
+def test_shared_edges_are_not_watertight_in_the_reference_either():
+    """The dense formulation evaluates each triangle's sides on their own
+    (per-triangle Pluecker columns, each at its own scale), so the two
+    faces of a shared edge do not split a ray between them exactly: a ray
+    through the edge may miss both.  Pinned here on 2,048 rays from one
+    origin through points of the edge two tilted triangles share, a
+    floor below: pbrt_tpu's K2 (interpret mode) and the port's plain K2
+    each pass between the faces to the floor on some lanes, and
+    loop_prim_skipped explains each of the port's such lanes, against
+    either face, as a crack (ROADMAP Queue 3)."""
+    rs = np.random.RandomState(7)
+    p, q = np.array([-0.7, 0.1, 0.3]), np.array([0.8, -0.2, -0.1])
+    a, b = np.array([0.1, 0.9, 0.2]), np.array([-0.2, -0.8, 0.4])
+    floor = np.array([[-9, -9, -4], [9, -9, -4], [0, 9, -4]], np.float64)
+    tv = np.stack([[p, q, a], [q, p, b], floor]).astype(np.float32)
+    v0, e1, e2 = tv[:, 0], tv[:, 1] - tv[:, 0], tv[:, 2] - tv[:, 0]
+    n = 2048
+    s = rs.rand(n, 1) * 0.8 + 0.1
+    tgt = p + s * (q - p)
+    o = np.tile(np.array([[0.3, 0.4, 5.0]]), (n, 1))
+    d = tgt - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o, d = o.astype(np.float32), d.astype(np.float32)
+    tmax = np.full(n, BIG, np.float32)
+    _, jprim = _run_dense(v0, e1, e2, o, d, tmax)
+    t, prim = _port_run(v0, e1, e2, o, d, tmax)
+    assert set(np.unique(jprim)) <= {0, 1, 2} and (jprim == 2).any()
+    assert set(np.unique(prim)) <= {0, 1, 2} and (prim == 2).any()
+    tab, r16 = _port_inputs(v0, e1, e2, o, d)
+    W = torch.from_numpy(tab["W"])
+    through = np.nonzero(prim == 2)[0]
+    for face in (0, 1):
+        explained, crack = tdense.loop_prim_skipped(
+            r16[through], torch.from_numpy(tmax[through]), W,
+            torch.full((len(through),), face), torch.full((len(through),), 2))
+        assert explained.all() and crack.all()

@@ -165,13 +165,13 @@ def test_camera_keyframes_parse_like_jax():
 
 
 @pytest.mark.parametrize("snippet,name", [
-    ('CoordinateSystem "cam"', "CoordinateSystem"),
+    ('Material "hair"', "hair"),
     ('Texture "t" "spectrum" "ptex" "string filename" "x.ptx"', "ptex"),
     ('MakeNamedMaterial "m" "string type" "hair"', "hair"),
     ('Material "fourier"', "fourier"),
     ('Material "subsurface"', "subsurface"),
     ('Material "kdsubsurface"', "kdsubsurface"),
-    ('Shape "cylinder"', "cylinder"),
+    ('AreaLightSource "goniometric"\nShape "disk"', "goniometric"),
     ('AreaLightSource "goniometric"', "goniometric"),
 ])
 def test_unported_world_directives_raise(snippet, name):
@@ -182,7 +182,7 @@ def test_unported_world_directives_raise(snippet, name):
 
 @pytest.mark.parametrize("snippet,name", [
     ('Camera "fisheye"', "fisheye"),
-    ('Accelerator "kdtree"', "Accelerator"),
+    ('Camera "thinlens"', "thinlens"),
     ('PixelFilter "lanczos"', "lanczos"),
     ('Film "rgb"', "rgb"),
     ("TransformTimes 0 2", "TransformTimes"),
