@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py
 
-Builds the dense intersector's CUDA kernels from `pbrt_tpu_torch/csrc`
-and holds each against its plain PyTorch version on the card at the
+Builds the port's CUDA kernels from `pbrt_tpu_torch/csrc` (the dense
+intersector's and, for scenes over its cap, the BVH and kd walks; phase
+25) and holds each against its plain PyTorch version on the card at the
 shapes the main paths give it: K1 and the static K2 on the Cornell
 scene's camera and bounce-1 batches, K1 and K2 motion on those of
 `pbrt_tpu_torch/scenes/cornell_motion.pbrt`.  K1's chunk lists must
@@ -206,6 +207,32 @@ brighter than spp times the cap, some darker than the full render's),
 and the metadata integrator's "mesh" ids at 1 spp (each blob instance
 and each wall has its own id).
 
+Phase 25 drives scenes over the dense cap, written under
+chiprun_out/walk_cells by `tools/shapes_scene.py`: shapes_1m (`--level 6
+--instances 12 --field 256`, ~1.12M triangles, the BVH walk, 256x256, 4
+spp), shapes_motion (the defaults with `--moving-field`, 162,962
+triangles over the motion cap: the BVH walk's motion instantiation,
+128x128), shapes_kd (`--level 5 --instances 13 --accel kdtree`, just
+over the cap: the kd walk, 256x256, 4 spp) and shapes_kd_motion
+(shapes_motion with `--accel kdtree`: the kd walk's motion
+instantiation, 128x128): (a) each cell's triangles, quadrics, BVH and
+kd nodes, kd list entries, table MiB and parse + build seconds, its
+route, and no dense table; (b) bvh_walk, bvh_walk<motion>, kd_walk and
+kd_walk<motion> against their plain versions on the cells' camera and
+bounce-1 batches (`kernel_workloads.accel_batches`, any-hit
+lanes included): (t, prim) bit for bit on every lane or another prim at
+a tie, timed, with node visits a lane and the bound from the plain
+version's counts; (c) kd_walk against bvh_walk on the kd cells' batches,
+every differing lane a tie or a large-leaf lane (ROADMAP Queue 3 (v)), each
+named; (d) shapes_1m through the CLI's run_job over WALK_PASSES passes,
+counted as phase 5 is (bvh_walk six times a pass, no K1 or K2): ms a
+pass, rays/s, one profiled pass's launches, device ms and idle share,
+peak device memory; the other cells one pass each; (e) shapes_1m on
+the card against the CPU at 32x32 2 spp; and, as evidence for ROADMAP
+Queue 3's open crack, phase 24's shapes cell through K2 and through
+bvh_walk (the same scene with use_dense false), the lanes the two answer
+differently printed with why.
+
 Every lens render is finite, non-negative and non-black.  Mitchell's
 and sinc's negative lobes make some developed pixels negative where the
 image has a sharp edge (the reference clamps them when it writes the
@@ -232,6 +259,7 @@ staging buffers and the merge keys' fills.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import os
@@ -264,6 +292,7 @@ from pbrt_tpu_torch.integrators import volpath  # noqa: E402
 from pbrt_tpu_torch.lights import lights  # noqa: E402
 from pbrt_tpu_torch.materials import bsdf  # noqa: E402
 from pbrt_tpu_torch.models import flagship  # noqa: E402
+from pbrt_tpu_torch.ops import accel_walk  # noqa: E402
 from pbrt_tpu_torch.ops import cuda_kernels  # noqa: E402
 from pbrt_tpu_torch.ops import dense_intersect as dense  # noqa: E402
 from pbrt_tpu_torch.ops import intersect as isect  # noqa: E402
@@ -764,7 +793,7 @@ def pass_profile(scene, camera, cfg, trace=None, depth=DEPTH):
     torch.profiler, after the timed render of the same cell warmed it:
     (device ms, kernel launches) or None if the trace held no device
     time."""
-    ids = torch.arange(RAYS_PER_PASS, device=scene.dense_w.device)
+    ids = torch.arange(RAYS_PER_PASS, device=scene.device)
     trace = trace or path.trace_paths
     opts, use_rd = path.trace_options(scene, camera, trace)
     with torch.profiler.profile(
@@ -2303,6 +2332,366 @@ def phase24(run_path, card, device, res):
     print(f"phase 24 shapes pass; wall s write + parse {t_write + t_parse:.1f}"
           f", kernels {t_kernels:.1f}, render {t_render:.1f}, GPU vs CPU "
           f"{t_cpu:.1f}, CLI {time.perf_counter() - t0:.1f}")
+    return sc, cam, cfg, strategy
+
+
+# phase 25: the walk routes' cells (PERF.md section 4), written into the
+# gitignored output directory: (tools/shapes_scene.py arguments, the
+# route, resolution, spp, the walk kernel)
+WALK_DIR = os.path.join(ROOT, "chiprun_out", "walk_cells")
+WALK_CELLS = {
+    "shapes_1m": (dict(level=6, instances=12, field=256), "BVH", 256, 4,
+                  "bvh_walk"),
+    "shapes_motion": (dict(moving_field=True), "BVH", 128, 4,
+                      "bvh_walk_motion"),
+    "shapes_kd": (dict(level=5, instances=13, accel="kdtree"), "kd-tree",
+                  256, 4, "kd_walk"),
+    "shapes_kd_motion": (dict(moving_field=True, accel="kdtree"), "kd-tree",
+                         128, 4, "kd_walk_motion"),
+}
+# the walk kernels' rows of the kernels line: (row, cell, batch)
+WALK_ROWS = (("bvh_1m_camera", "shapes_1m", "camera"),
+             ("bvh_1m_bounce1", "shapes_1m", "bounce1"),
+             ("bvh_motion_bounce1", "shapes_motion", "bounce1"),
+             ("kd_camera", "shapes_kd", "camera"),
+             ("kd_bounce1", "shapes_kd", "bounce1"),
+             ("kd_motion_bounce1", "shapes_kd_motion", "bounce1"))
+WALK_SOURCE = "pbrt_tpu_torch/csrc/accel_walk.cu"
+# the XLA loops each walk replaces (no pl.pallas_call)
+WALK_REPLACES = {"bvh_walk": "pbrt_tpu/ops/intersect.py:591",
+                 "bvh_walk_motion": "pbrt_tpu/ops/intersect.py:591",
+                 "kd_walk": "pbrt_tpu/ops/intersect.py:656",
+                 "kd_walk_motion": "pbrt_tpu/ops/intersect.py:656"}
+# the shapes cell's passes measured in (d)
+WALK_PASSES = 3
+
+
+def compare_walk(sc, name, args, card):
+    """A walk kernel against its plain version on one recorded batch:
+    (t, prim) equal bit for bit on every lane, or prim of another
+    triangle at a tie; timed, and bounded by the plain version's counts
+    (kernel_workloads.walk_bound).  Returns the record."""
+    kd = sc.use_kd
+    run_k = functools.partial(
+        accel_walk.kd_walk if kd else accel_walk.bvh_walk, **args)
+    run_p = functools.partial(
+        accel_walk.kd_walk_plain if kd else accel_walk.bvh_walk_plain, **args)
+    t_k, p_k = run_k()
+    t_p, p_p, counts = run_p(counts=True)
+    same = (p_k == p_p) & (t_k.view(torch.int32) == t_p.view(torch.int32))
+    lanes = torch.nonzero(~same)[:, 0]
+    tie = kw.walk_ties(sc, args["o"], args["d"], args.get("time"), lanes,
+                       p_k, p_p)
+    anyhit = args.get("anyhit")
+    n_any = 0 if anyhit is None else int(anyhit.sum())
+    found = (p_k >= 0).float().mean().item()
+    both = (p_k == p_p) & (p_k >= 0)
+    rec = dict(
+        max_abs_err=((t_k - t_p)[both].abs().max().item()
+                     if bool(both.any()) else 0.0),
+        ms=kw.time_ms(run_k, 20, sc.device), device=kw.device_ms(run_k),
+        # (the counts call above warmed the plain version)
+        plain_ms=kw.time_ms(run_p, 1, sc.device, warmup=False),
+        bound=kw.walk_bound(args, counts, kd),
+        visits_mean=counts.visits.float().mean().item(),
+        visits_max=int(counts.visits.max()),
+        tests_mean=counts.tests.float().mean().item(),
+        nodes=counts.nodes, tris=counts.tris, B=int(p_k.shape[0]))
+    print(f"phase 25b {name}: B={rec['B']} any-hit lanes={n_any} found="
+          f"{found:.4f}; lanes not bit for bit equal to the plain version "
+          f"{len(lanes)}, of them ties {int(tie.sum())}; node visits a lane "
+          f"mean {rec['visits_mean']:.1f} max {rec['visits_max']}, triangle "
+          f"tests a lane {rec['tests_mean']:.1f}, distinct nodes "
+          f"{counts.nodes} and triangles {counts.tris} read; kernel "
+          f"{_dev(rec)} ms device, {rec['ms']:.4f} ms events, plain "
+          f"{rec['plain_ms']:.2f} ms, bound {rec['bound'][0]:.5f} ms "
+          f"({rec['bound'][1]}) on {card}")
+    check(bool(tie.all()), f"walk {name}: {int((~tie).sum())} lanes differ "
+          "from the plain version without a tie")
+    check(found > 0.05, f"walk {name}: found share {found}")
+    return rec
+
+
+def _leaf_position(sc):
+    """[P] each primitive's position in its BVH leaf (leaf order)."""
+    bits = sc.bvh_packed[:, 6].contiguous().view(torch.int32)
+    leaf = bits >= 0
+    off, cnt = (bits[leaf] >> 5).long(), (bits[leaf] & 31).long()
+    pos = torch.zeros(sc.prim_type.shape[0], dtype=torch.long,
+                      device=sc.device)
+    for k in range(int(cnt.max())):
+        m = cnt > k
+        pos[off[m] + k] = k
+    return pos
+
+
+def kd_against_bvh(sc, name, args):
+    """(c): kd_walk against bvh_walk on one batch of a kd cell (which
+    holds both trees): closest-hit lanes of another prim must be ties or
+    large-leaf lanes, ROADMAP Queue 3 (v) (the kd prim sits past max_leaf
+    in its BVH leaf, and the BVH found nothing nearer); any-hit lanes
+    compare found only, the same way.  Each such lane is named."""
+    t_kd, p_kd = accel_walk.kd_walk(**args)
+    bargs = {k: v for k, v in args.items()
+             if k in kw.WALK_RAY_ARGS + ("tri_packed", "tri_motion")
+             and k != "tmax"}
+    t_b, p_b = accel_walk.bvh_walk(packed=sc.bvh_packed,
+                                   hit_links=sc.bvh_hit,
+                                   miss_links=sc.bvh_miss,
+                                   max_leaf=sc.max_leaf, **bargs)
+    anyhit = args.get("anyhit")
+    anyhit = (torch.zeros_like(p_kd, dtype=torch.bool) if anyhit is None
+              else anyhit)
+    differ = torch.where(anyhit, (p_kd >= 0) != (p_b >= 0), p_kd != p_b)
+    lanes = torch.nonzero(differ)[:, 0]
+    tie = kw.walk_ties(sc, args["o"], args["d"], args.get("time"), lanes,
+                       p_kd, p_b) & ~anyhit[lanes]
+    pos = _leaf_position(sc)
+    skipped = ((p_kd[lanes] >= 0)
+               & (pos[p_kd[lanes].clamp(min=0).long()] >= sc.max_leaf)
+               & ((p_b[lanes] < 0) | (t_kd[lanes] < t_b[lanes])))
+    for i, lane in enumerate(lanes.tolist()):
+        why = ("a tie" if tie[i] else "Queue 3 (v): the BVH leaf's "
+               f"position {int(pos[p_kd[lane].clamp(min=0)])} is past "
+               "max_leaf" if skipped[i] else "NOT EXPLAINED")
+        print(f"phase 25c {name} lane {lane}: kd prim {int(p_kd[lane])} t "
+              f"{t_kd[lane].item():.8g}, BVH prim {int(p_b[lane])} t "
+              f"{t_b[lane].item():.8g}{' (any-hit)' if anyhit[lane] else ''}"
+              f": {why}")
+    print(f"phase 25c {name}: kd against BVH on {len(p_kd)} lanes: "
+          f"{len(lanes)} differ, ties {int(tie.sum())}, Queue 3 (v) "
+          f"{int((skipped & ~tie).sum())}")
+    check(bool((tie | skipped).all()), f"kd against BVH {name}: a lane "
+          "differs without a tie or a Queue 3 (v) leaf")
+
+
+def dense_crack_crosscheck(sc, cam, cfg, strategy):
+    """The dense route's crack (ROADMAP Queue 3): phase 24's shapes cell,
+    its camera and bounce-1 intersect calls through K1 / K2 and through
+    bvh_walk (the same SceneData with use_dense false).  Prints the lanes
+    the two answer differently, each with its position in K2's sorted
+    batch and why: a tie, the walk nearer (K2 passed the walk's
+    triangle: a crack or a graze of the dense table), or K2 nearer."""
+    calls = []
+    inner = isect.intersect
+
+    def record(scene, ray, presorted=False, anyhit_mask=None):
+        calls.append((ray, presorted, anyhit_mask))
+        return inner(scene, ray, presorted=presorted,
+                     anyhit_mask=anyhit_mask)
+
+    def run():
+        ids = torch.arange(RAYS_PER_PASS, device=sc.device)
+        ray, _, _, pid, sidx = path.camera_rays_for_pixels(
+            cam, W, H, cfg, ids, 0)
+        path.trace_paths(sc, ray, pid, sidx, cfg, max_depth=1,
+                         light_strategy=strategy)
+
+    isect.intersect = record
+    try:
+        run()
+    finally:
+        isect.intersect = inner
+    walk_sc = dataclasses.replace(sc, use_dense=False)
+    for name, (ray, presorted, amask) in zip(("camera", "bounce1"), calls):
+        t_d, p_d, f_d = inner(sc, ray, presorted=presorted,
+                              anyhit_mask=amask)
+        t_w, p_w, f_w = inner(walk_sc, ray, anyhit_mask=amask)
+        given = amask
+        amask = (torch.zeros_like(f_d) if amask is None else amask)
+        differ = torch.where(amask, f_d != f_w, p_d != p_w)
+        lanes = torch.nonzero(differ)[:, 0]
+        # each lane's position in K2's coherence-sorted batch
+        t_init, _ = isect._quadric_prehit(sc, ray)
+        order = (torch.arange(len(t_init), device=sc.device) if presorted
+                 else isect._coherence_order(sc, ray.o, ray.d, t_init,
+                                             given))
+        pos = torch.empty_like(order)
+        pos[order] = torch.arange(len(order), device=sc.device)
+        tie = kw.walk_ties(sc, ray.o, ray.d, None, lanes, p_d,
+                           p_w) & ~amask[lanes]
+        kinds = {"tie": 0, "walk nearer": 0, "K2 nearer": 0, "any-hit": 0}
+        for i, lane in enumerate(lanes.tolist()):
+            if amask[lane]:
+                why = "any-hit"
+            elif tie[i]:
+                why = "tie"
+            elif not f_d[lane] or (f_w[lane] and t_w[lane] < t_d[lane]):
+                why = "walk nearer"
+            else:
+                why = "K2 nearer"
+            kinds[why] += 1
+            print(f"phase 25 crack cross-check {name} lane {lane} (K2's "
+                  f"sorted lane {int(pos[lane])}): K2 prim {int(p_d[lane])} "
+                  f"t {t_d[lane].item():.8g}, BVH walk prim "
+                  f"{int(p_w[lane])} t {t_w[lane].item():.8g}: {why}")
+        # the whole intersect call by each route on this batch
+        calls_ms = {}
+        for route, scene in (("dense", sc), ("BVH walk", walk_sc)):
+            def call():
+                return inner(scene, ray, presorted=presorted,
+                             anyhit_mask=amask)
+            calls_ms[route] = (kw.time_ms(call, 10, sc.device),
+                               kw.device_ms(call))
+        print(f"phase 25 crack cross-check {name}: {len(lanes)} of "
+              f"{len(f_d)} lanes differ between K2 and the BVH walk: "
+              + ", ".join(f"{k} {v}" for k, v in kinds.items())
+              + "; one intersect call " + ", ".join(
+                  f"{r} {m:.4f} ms events, " + (
+                      "device not measured" if d is None else
+                      f"{d[0]:.4f} ms device in {d[1]:.0f} kernels")
+                  for r, (m, d) in calls_ms.items()))
+
+
+def phase25(run_walk, card, device, res, shapes=None):
+    """The walk routes (module docstring): (a) the cells, (b) each walk
+    against its plain version, (c) kd against BVH, (d) the renders, (e)
+    the card against the CPU; shapes: phase 24's (scene, camera, cfg,
+    strategy) for the dense route's crack cross-check."""
+    jobs, batches = {}, {}
+    t_setup = time.perf_counter()
+    for cell, (opts, route, r, spp, kern) in WALK_CELLS.items():
+        t0 = time.perf_counter()
+        scene_path = shapes_scene.write_shapes_scene(
+            os.path.join(WALK_DIR, cell), res=r, spp=spp, **opts)
+        t_write = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        job = parse_scene(scene_path, device=device)
+        torch.cuda.synchronize()
+        t_parse = time.perf_counter() - t1
+        sc = job.scene
+        n_tri = int((sc.prim_type == 0).sum())
+        walk_mib = nbytes(sc.bvh_packed, sc.bvh_hit, sc.bvh_miss,
+                          sc.tri_packed) / 2**20
+        if sc.has_animated_mesh:
+            walk_mib += nbytes(sc.tri_motion) / 2**20
+        kd_txt = "no kd-tree"
+        if sc.use_kd:
+            walk_mib += nbytes(sc.kd_packed, sc.kd_prim_idx) / 2**20
+            M, P = sc.kd_prim_idx.shape[0], sc.prim_type.shape[0]
+            kd_txt = (f"kd nodes {sc.kd_packed.shape[0]}, kd list entries "
+                      f"{M} ({M / P:.3f} a primitive, {M - P} duplicated), "
+                      f"largest leaf {sc.kd_max_leaf}")
+        all_mib = nbytes(*(v for v in vars(sc).values()
+                           if torch.is_tensor(v))) / 2**20
+        print(f"phase 25a {cell} {scene_path}: {n_tri} triangles, "
+              f"{sc.n_quadrics} quadrics, route {cli.route_name(sc)}, BVH "
+              f"nodes {sc.n_nodes} ({sc.n_nodes / sc.prim_type.shape[0]:.3f}"
+              f" a primitive), {kd_txt}; walk tables {walk_mib:.2f} MiB, all "
+              f"scene tensors {all_mib:.2f} MiB; written in {t_write:.2f} s, "
+              f"parsed + built in {t_parse:.2f} s on {card}")
+        check(cli.route_name(sc) == route and sc.dense_w is None
+              and not sc.use_dense and sc.n_quadrics == 5,
+              f"{cell}: route {cli.route_name(sc)}, dense table "
+              f"{sc.dense_w is not None}")
+        check(sc.has_animated_mesh == kern.endswith("_motion"),
+              f"{cell}: animated mesh {sc.has_animated_mesh}")
+        jobs[cell] = job
+        cam = cli.build_camera(job, r, r, device)
+        strategy = dispatch.light_strategy(job.integrator_params)
+        batches[cell] = kw.accel_batches(
+            sc, cam, SamplerConfig("sobol", 0, spp), r, r,
+            min(r * r, RAYS_PER_PASS), DEPTH, light_strategy=strategy)
+    print(f"phase 25a cells written, parsed and their batches recorded in "
+          f"{time.perf_counter() - t_setup:.1f} s")
+
+    # (b) each walk kernel against its plain version
+    t0 = time.perf_counter()
+    for row, cell, batch in WALK_ROWS:
+        res[row] = compare_walk(jobs[cell].scene, row, batches[cell][batch],
+                                card)
+    t_kernels = time.perf_counter() - t0
+
+    # (c) kd against BVH on the kd cells
+    for cell, batch in (("shapes_kd", "camera"), ("shapes_kd", "bounce1"),
+                        ("shapes_kd_motion", "bounce1")):
+        kd_against_bvh(jobs[cell].scene, f"{cell}_{batch}",
+                       batches[cell][batch])
+
+    # (d) the renders: shapes_1m over WALK_PASSES passes and one profiled;
+    # the other cells one pass each
+    t0 = time.perf_counter()
+    job = jobs["shapes_1m"]
+    sc = job.scene
+    cli.run_job(job, spp=1, max_rays_per_pass=RAYS_PER_PASS)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    t1 = time.perf_counter()
+    (film, _), counts = run_walk(
+        "shapes_1m render", lambda: cli.run_job(
+            job, spp=WALK_PASSES, max_rays_per_pass=RAYS_PER_PASS,
+            stats=stats), {"bvh_walk": (DEPTH + 1) * WALK_PASSES})
+    dt = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated() - base
+    ms = dt * 1e3 / WALK_PASSES
+    img = filmmod.develop_spectral(film)
+    check_image(img, "shapes_1m render")
+    cam = cli.build_camera(job, W, H, device)
+    cfg = SamplerConfig("sobol", 0, 4)
+    prof = pass_profile(sc, cam, cfg, trace=functools.partial(
+        path.trace_paths,
+        light_strategy=dispatch.light_strategy(job.integrator_params)))
+    idle = "not measured" if prof is None else f"{1 - prof[0] / ms:.3f}"
+    print(f"phase 25d shapes_1m render {W}x{H} {WALK_PASSES} passes depth "
+          f"{DEPTH}: {ms:.2f} ms/pass, {stats['rays']} rays, "
+          f"{stats['rays'] / dt:.4e} rays/s, image mean "
+          f"{img.mean().item():.6f}, {_prof(prof)}, idle share {idle}, peak "
+          f"device memory {peak / 2**20:.1f} MiB above the scene's "
+          f"{base / 2**20:.1f} MiB, launches {counts} on {card}")
+    for cell in ("shapes_motion", "shapes_kd", "shapes_kd_motion"):
+        j = jobs[cell]
+        kern = WALK_CELLS[cell][4]
+        t1 = time.perf_counter()
+        (f, _), counts = run_walk(
+            f"{cell} render", lambda: cli.run_job(
+                j, spp=1, max_rays_per_pass=RAYS_PER_PASS),
+            {kern: DEPTH + 1})
+        dt = time.perf_counter() - t1
+        im = filmmod.develop_spectral(f)
+        check_image(im, f"{cell} render")
+        print(f"phase 25d {cell} render {j.film_width}x{j.film_height} one "
+              f"pass depth {DEPTH}: {dt * 1e3:.2f} ms, image mean "
+              f"{im.mean().item():.6f}, launches {counts} on {card}")
+    t_render = time.perf_counter() - t0
+
+    # (e) the card against the CPU on shapes_1m at 32x32
+    t0 = time.perf_counter()
+
+    def shapes_1m_32(dev):
+        j = (dataclasses.replace(job) if dev == "cuda" else parse_scene(
+            os.path.join(WALK_DIR, "shapes_1m", "shapes.pbrt"), device=dev))
+        j.film_width = j.film_height = 32
+        return cli.run_job(j, spp=2, max_depth=DEPTH)[0]
+
+    compare_cpu([("shapes_1m", shapes_1m_32)])
+    t_cpu = time.perf_counter() - t0
+
+    if shapes is not None:
+        dense_crack_crosscheck(*shapes)
+    print(f"phase 25 walks pass; wall s kernels {t_kernels:.1f}, render "
+          f"{t_render:.1f}, GPU vs CPU {t_cpu:.1f}")
+
+
+def walk_rows(res, launches):
+    """The walk kernels' rows of the kernels line (WALK_ROWS), each with
+    its kernel's launches on phase 25's render paths."""
+    rows = []
+    for row, cell, batch in WALK_ROWS:
+        r, kern = res[row], WALK_CELLS[cell][4]
+        rows.append({
+            "name": row, "route": "cuda", "source": WALK_SOURCE,
+            "replaces": WALK_REPLACES[kern], "launches": launches[kern],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "device_ms": _ms(r["device"]), "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+            "library_ms": None, "kernel": kern, "cell": cell,
+            "batch_rays": r["B"], "node_visits_mean": r["visits_mean"],
+            "node_visits_max": r["visits_max"],
+            "tri_tests_mean": r["tests_mean"], "nodes_read": r["nodes"],
+            "tris_read": r["tris"]})
+    return rows
 
 
 def _luminance(raw):
@@ -2332,7 +2721,8 @@ def main():
     cuda_kernels.library()
     print(f"phase 2 build: {build_s:.2f} s (one nvcc, sm_90a; kernels "
           "dense_queue (its lists and its cull alone), dense_loop (5 "
-          "modes and the tile dump), dense_loop_motion)")
+          "modes and the tile dump), dense_loop_motion, bvh_walk and "
+          "kd_walk (static and motion))")
     for line in log.splitlines():
         if any(k in line for k in ("registers", "Compiling entry",
                                    "spill")):
@@ -2370,10 +2760,13 @@ def main():
         expect = dict(expect, dense_loop_init=calls if dense.loop_blocks(
             sc.dense_w.shape[0]) > 1 else 0)
         dense.reset_launch_counts()
+        accel_walk.reset_launch_counts()
         out = fn()
         torch.cuda.synchronize()
         counts = dict(dense.LAUNCHES)
         check_launches(counts, expect, what)
+        check_launches(accel_walk.LAUNCHES, dict.fromkeys(
+            accel_walk.LAUNCHES, 0), what)
         for k in KERNELS:
             launches[k] += counts[k]
         init_launches[k2] += counts["dense_loop_init"]
@@ -2587,8 +2980,30 @@ def main():
 
     # --- phase 24: every shape and the rest of the scene format ---
     t0 = time.perf_counter()
-    phase24(run_path, card, device, res)
+    shapes = phase24(run_path, card, device, res)
     print(f"phase 24 shapes; wall s {time.perf_counter() - t0:.1f}")
+
+    # --- phase 25: scenes over the dense cap, the BVH and kd walks ---
+    walk_launches = dict.fromkeys(accel_walk.LAUNCHES, 0)
+
+    def run_walk(what, fn, expect):
+        """run_path for the walk routes: expect {walk kernel: exact
+        count}; no K1 or K2 launches."""
+        dense.reset_launch_counts()
+        accel_walk.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = dict(accel_walk.LAUNCHES)
+        check_launches(dense.LAUNCHES, dict.fromkeys(dense.LAUNCHES, 0),
+                       what)
+        check_launches(counts, {k: expect.get(k, 0) for k in counts}, what)
+        for k, n in counts.items():
+            walk_launches[k] += n
+        return out, counts
+
+    t0 = time.perf_counter()
+    phase25(run_walk, card, device, res, shapes)
+    print(f"phase 25 walks; wall s {time.perf_counter() - t0:.1f}")
 
     rows = []
     for k, (src, rep) in KERNELS.items():
@@ -2649,6 +3064,7 @@ def main():
         row["launches_harnesses"] = harness["counts"][k]
         rows.append(row)
     rows += harness["rows"]
+    rows += walk_rows(res, walk_launches)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

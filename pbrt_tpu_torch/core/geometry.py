@@ -13,6 +13,14 @@ from dataclasses import dataclass
 import torch
 
 INF = float("inf")
+#: machine-epsilon/2 for fp32, used for conservative error bounds
+MACHINE_EPS = 5.960464477539063e-08
+
+
+def gamma(n):
+    """pbrt's gamma(n) rounding-error bound (reference: src/core/pbrt.h
+    :292-294)."""
+    return (n * MACHINE_EPS) / (1 - n * MACHINE_EPS)
 
 
 def dot(a, b):
@@ -119,3 +127,15 @@ class Ray:
     def to(self, device):
         return Ray(*(getattr(self, f.name).to(device)
                      for f in dataclasses.fields(self)))
+
+
+def bounds_ray_intersect(lo, hi, o, inv_d, tmax):
+    """Slab test (reference: geometry.h Bounds3::IntersectP :1460-1494) of
+    boxes lo, hi [...,3] against rays o, inv_d [...,3] up to tmax [...]:
+    the hit mask, conservative by the 1 + 2 gamma(3) factor on the far t.
+    csrc/accel_walk.cu repeats it in the same f32 operations."""
+    t0 = (lo - o) * inv_d
+    t1 = (hi - o) * inv_d
+    tnear = torch.amax(torch.minimum(t0, t1), dim=-1)
+    tfar = torch.amin(torch.maximum(t0, t1), dim=-1) * (1 + 2 * gamma(3))
+    return (tnear <= tfar) & (tnear < tmax) & (tfar > 0.0)

@@ -285,4 +285,4 @@ def build_medium_from_job(job, device):
 def make_trace_volpath(job):
     """volpath's trace_fn for a parsed job, on its scene's device."""
     return make_trace_volpath_medium(
-        build_medium_from_job(job, job.scene.dense_w.device))
+        build_medium_from_job(job, job.scene.device))

@@ -64,7 +64,9 @@ def _bvh_lib():
 
 
 def build_bvh_native(prim_lo, prim_hi, max_leaf):
-    """SAH BVH over [P,3] bounds; returns the [P] new->old prim order."""
+    """SAH BVH over [P,3] bounds: (packed [N,8] f32, hit links [8,N] i32,
+    miss links [8,N] i32, prim order [P] i32), trimmed to the N nodes the
+    builder reports (accel/bvh.py's layout)."""
     lib = _bvh_lib()
     plo = np.ascontiguousarray(prim_lo, np.float64)
     phi = np.ascontiguousarray(prim_hi, np.float64)
@@ -86,4 +88,63 @@ def build_bvh_native(prim_lo, prim_hi, max_leaf):
                              ptr(order, ctypes.c_int32))
     if n <= 0:
         raise RuntimeError(f"native BVH build failed ({n})")
-    return order
+    # the link tables were written with stride N, the real node count
+    return (packed[:n].copy(), hit[:8 * n].reshape(8, n).copy(),
+            miss[:8 * n].reshape(8, n).copy(), order)
+
+
+@functools.lru_cache(maxsize=None)
+def _kd_lib():
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "kdtree_builder.cc")
+    path, _ = build_shared_library(
+        "pbrt_kdtree", [src], ["g++", "-O2", "-ffp-contract=off", "-shared",
+                               "-fPIC", "-std=c++17"])
+    lib = ctypes.CDLL(path)
+    lib.kd_build.restype = ctypes.c_void_p
+    lib.kd_build.argtypes = [
+        ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_double,
+        ctypes.c_double, ctypes.c_double]
+    lib.kd_sizes.restype = None
+    lib.kd_sizes.argtypes = [ctypes.c_void_p,
+                             ctypes.POINTER(ctypes.c_int64),
+                             ctypes.POINTER(ctypes.c_int64)]
+    lib.kd_copy.restype = None
+    lib.kd_copy.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_float),
+                            ctypes.POINTER(ctypes.c_int32),
+                            ctypes.POINTER(ctypes.c_int32)]
+    lib.kd_free.restype = None
+    lib.kd_free.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def build_kdtree_native(lo, hi, max_depth, max_prims, isect_cost,
+                        traversal_cost, empty_bonus):
+    """accel/kdtree.py's build in C++ (native/kdtree_builder.cc) over f32
+    boxes lo / hi [P,3]: (nodes_f [N] f32, nodes_i [N,3] i32, prim_idx [M]
+    i32)."""
+    lib = _kd_lib()
+    plo = np.ascontiguousarray(lo, np.float32)
+    phi = np.ascontiguousarray(hi, np.float32)
+
+    def ptr(a, t):
+        return a.ctypes.data_as(ctypes.POINTER(t))
+    h = lib.kd_build(ptr(plo, ctypes.c_float), ptr(phi, ctypes.c_float),
+                     ctypes.c_int64(plo.shape[0]), int(max_depth),
+                     int(max_prims), float(isect_cost), float(traversal_cost),
+                     float(empty_bonus))
+    if not h:
+        raise RuntimeError("native kd-tree build failed")
+    try:
+        n, m = ctypes.c_int64(), ctypes.c_int64()
+        lib.kd_sizes(h, ctypes.byref(n), ctypes.byref(m))
+        nodes_f = np.zeros(n.value, np.float32)
+        nodes_i = np.zeros((n.value, 3), np.int32)
+        prim_idx = np.zeros(m.value, np.int32)
+        lib.kd_copy(h, ptr(nodes_f, ctypes.c_float),
+                    ptr(nodes_i, ctypes.c_int32),
+                    ptr(prim_idx, ctypes.c_int32))
+    finally:
+        lib.kd_free(h)
+    return nodes_f, nodes_i, prim_idx

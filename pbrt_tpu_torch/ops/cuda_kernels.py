@@ -1,4 +1,5 @@
-"""Build and bind the dense intersector's CUDA kernels (csrc/*.cu).
+"""Build and bind the port's CUDA kernels (csrc/*.cu): the dense
+intersector's K1 and K2, and the BVH and kd-tree walks.
 
 The sources are compiled by `nvcc` for sm_90a into one shared library
 with a plain C interface, loaded with ctypes.  The build runs at first
@@ -21,7 +22,7 @@ from pbrt_tpu_torch.native.build import build_shared_library
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 SOURCES = tuple(os.path.join(CSRC, f)
-                for f in ("dense_queue.cu", "dense_loop.cu"))
+                for f in ("dense_queue.cu", "dense_loop.cu", "accel_walk.cu"))
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -70,6 +71,10 @@ def library():
     lib.pbrt_dense_loop_ablate.argtypes = [i] + [p] * 5 + [i] * 5 + [p] * 4
     lib.pbrt_dense_tile_dump.restype = ctypes.c_int
     lib.pbrt_dense_tile_dump.argtypes = [p] * 4 + [i] * 3 + [p] * 6
+    lib.pbrt_bvh_walk.restype = ctypes.c_int
+    lib.pbrt_bvh_walk.argtypes = [p] * 11 + [i] * 4 + [p] * 3
+    lib.pbrt_kd_walk.restype = ctypes.c_int
+    lib.pbrt_kd_walk.argtypes = [p] * 12 + [i] * 5 + [p] * 3
     return lib
 
 

@@ -1,17 +1,22 @@
-"""Ray-scene intersection (port of the dense path of pbrt_tpu.ops.intersect).
+"""Ray-scene intersection (port of pbrt_tpu.ops.intersect).
 
 Every query runs the quadric pre-test (every sphere, cylinder, disk, cone
-and paraboloid against every ray, plain torch), a coherence sort of the
-rays, the dense kernels K1 and K2 (ops/dense_intersect.py) and the inverse
-permutation; `make_hit` then re-solves the winner in f32 and gathers the
-surface record.  The search runs under `torch.no_grad()`: visibility is
-not differentiated (the JAX package's stop_gradient).
+and paraboloid against every ray, plain torch), then one of three routes,
+as pbrt_tpu's `intersect` dispatches (:450-459): a scene under the dense
+cap (`use_dense`) takes a coherence sort of the rays, the dense kernels
+K1 and K2 (ops/dense_intersect.py) and the inverse permutation; a larger
+scene walks its kd-tree when it was built (`use_kd`, `_intersect_kd`),
+else its BVH (`_intersect_bvh`), one CUDA thread per ray
+(ops/accel_walk.py).  `make_hit` then re-solves the winner in f32 and
+gathers the surface record.  The search runs under `torch.no_grad()`:
+visibility is not differentiated (the JAX package's stop_gradient).
 
 Motion blur: in a scene with moving meshes (`dense_motion`) each ray's
 shutter time, clipped to [0,1], rides through the sort beside its origin
-and direction into the motion K2, and `make_hit` moves the winner's
-vertices to that time; moving quadrics are intersected, and their normals
-taken, through the transform interpolated at the ray's time.
+and direction into the motion K2 (over the cap, into the walk's motion
+instantiation), and `make_hit` moves the winner's vertices to that time;
+moving quadrics are intersected, and their normals taken, through the
+transform interpolated at the ray's time.
 
 Shadow rays toward a sphere light run closest-hit and drop a hit on that
 light's own sphere (`nee_ignore_light`, `trace_pair(ignore_light=)`);
@@ -28,6 +33,7 @@ import torch
 
 from pbrt_tpu_torch.core import geometry as geom
 from pbrt_tpu_torch.core import transform as tfm
+from pbrt_tpu_torch.ops import accel_walk
 from pbrt_tpu_torch.ops import dense_intersect as dense
 from pbrt_tpu_torch.scene.ir import (MAT_NONE, PRIM_CONE, PRIM_CYLINDER,
                                      PRIM_DISK, PRIM_PARABOLOID,
@@ -265,22 +271,34 @@ def _coherence_key(scene: SceneData, o, d, tmax):
     return torch.where(tmax > 0, (octant << 15) | m, 1 << 18)
 
 
+def _coherence_order(scene: SceneData, o, d, t_init, anyhit_mask=None):
+    """The dense route's coherence sort: the stable permutation by
+    _coherence_key; given anyhit_mask, any-hit lanes sort behind
+    closest-hit lanes and dead lanes last."""
+    key = _coherence_key(scene, o, d, t_init)
+    if anyhit_mask is not None:
+        key = torch.where(t_init > 0,
+                          key | (anyhit_mask.to(torch.int32) << 19), 1 << 20)
+    return torch.sort(key, stable=True).indices
+
+
 @torch.no_grad()
 def intersect(scene: SceneData, ray: geom.Ray, presorted=False,
               anyhit_mask=None):
     """Closest-hit query, any-hit for lanes flagged in anyhit_mask [B].
 
-    presorted skips the coherence sort (camera batches arrive in
-    scanline order, already tile-coherent).  Returns (t, prim, found)
-    [B]; any-hit lanes that hit a triangle report t = -1."""
+    The route: the dense kernels when `scene.use_dense`, else the kd-tree
+    when built (`use_kd`), else the BVH.  presorted skips the dense
+    route's coherence sort (camera batches arrive in scanline order,
+    already tile-coherent).  Returns (t, prim, found) [B]; an any-hit
+    lane's t is meaningless (the dense route reports -1 where it hit a
+    triangle, a walk the t of its first hit)."""
+    if not scene.use_dense:
+        if scene.use_kd:
+            return _intersect_kd(scene, ray, anyhit_mask)
+        return _intersect_bvh(scene, ray, anyhit_mask)
     o, d = ray.o, ray.d
-    t_init = ray.tmax.to(torch.float32)
-    prim_init = torch.full(t_init.shape, -1, dtype=torch.int32,
-                           device=t_init.device)
-    if scene.n_quadrics > 0:
-        tq, qprim, qhit = all_quadrics_test(scene, o, d, t_init, ray.time)
-        t_init = torch.where(qhit, tq, t_init)
-        prim_init = torch.where(qhit, qprim, prim_init)
+    t_init, prim_init = _quadric_prehit(scene, ray)
     rtime = (torch.clamp(ray.time, 0.0, 1.0).to(torch.float32)
              if scene.dense_motion else None)
     if presorted:
@@ -289,13 +307,7 @@ def intersect(scene: SceneData, ray: geom.Ray, presorted=False,
                                              scene.dense_cb,
                                              scene.dense_static, time=rtime)
     else:
-        key = _coherence_key(scene, o, d, t_init)
-        if anyhit_mask is not None:
-            # any-hit lanes sort behind closest-hit lanes, dead lanes last
-            key = torch.where(t_init > 0,
-                              key | (anyhit_mask.to(torch.int32) << 19),
-                              1 << 20)
-        order = torch.sort(key, stable=True).indices
+        order = _coherence_order(scene, o, d, t_init, anyhit_mask)
         r16 = dense.ray_vectors(
             o[order], d[order], scene.dense_center,
             anyhit=None if anyhit_mask is None else anyhit_mask[order])
@@ -309,6 +321,57 @@ def intersect(scene: SceneData, ray: geom.Ray, presorted=False,
         prim[order] = prim_s
     # the kernels report triangle wins only; keep the quadric pre-hit
     prim = torch.where(prim >= 0, prim, prim_init)
+    return t, prim, prim >= 0
+
+
+def _quadric_prehit(scene: SceneData, ray: geom.Ray):
+    """(t_init [B] f32, prim_init [B] i32): the ray's tmax and no prim,
+    or its closest quadric hit where it has one."""
+    t_init = ray.tmax.to(torch.float32)
+    prim_init = torch.full(t_init.shape, -1, dtype=torch.int32,
+                           device=t_init.device)
+    if scene.n_quadrics > 0:
+        tq, qprim, qhit = all_quadrics_test(scene, ray.o, ray.d, t_init,
+                                            ray.time)
+        t_init = torch.where(qhit, tq, t_init)
+        prim_init = torch.where(qhit, qprim, prim_init)
+    return t_init, prim_init
+
+
+def _walk_args(scene: SceneData, ray: geom.Ray, anyhit_mask):
+    """The walks' common arguments: contiguous rays, the quadric pre-hit,
+    the any-hit flags, and the time and motion rows when meshes move."""
+    t_init, prim_init = _quadric_prehit(scene, ray)
+    motion = scene.has_animated_mesh
+    return dict(
+        o=ray.o.contiguous(), d=ray.d.contiguous(),
+        t_init=t_init.contiguous(), prim_init=prim_init.contiguous(),
+        anyhit=None if anyhit_mask is None else anyhit_mask.contiguous(),
+        time=ray.time.contiguous() if motion else None,
+        tri_motion=scene.tri_motion if motion else None)
+
+
+@torch.no_grad()
+def _intersect_bvh(scene: SceneData, ray: geom.Ray, anyhit_mask=None):
+    """The BVH route (pbrt_tpu's _intersect_bvh): the quadric pre-test,
+    then accel_walk.bvh_walk.  Returns (t, prim, found) [B]."""
+    t, prim = accel_walk.bvh_walk(
+        packed=scene.bvh_packed, hit_links=scene.bvh_hit,
+        miss_links=scene.bvh_miss, tri_packed=scene.tri_packed,
+        max_leaf=scene.max_leaf, **_walk_args(scene, ray, anyhit_mask))
+    return t, prim, prim >= 0
+
+
+@torch.no_grad()
+def _intersect_kd(scene: SceneData, ray: geom.Ray, anyhit_mask=None):
+    """The kd-tree route (pbrt_tpu's _intersect_kd): the quadric pre-test,
+    then accel_walk.kd_walk.  Returns (t, prim, found) [B]."""
+    t, prim = accel_walk.kd_walk(
+        tmax=ray.tmax.contiguous(),
+        kd_packed=scene.kd_packed, kd_prim_idx=scene.kd_prim_idx,
+        kd_bounds=scene.kd_bounds, tri_packed=scene.tri_packed,
+        kd_max_leaf=scene.kd_max_leaf,
+        **_walk_args(scene, ray, anyhit_mask))
     return t, prim, prim >= 0
 
 
@@ -592,7 +655,7 @@ def _shadow_anyhit(scene: SceneData, ignore_light, B):
     first accepted face of that light cannot park the lane before a real
     blocker (nee_ignore_light only names sphere lights, so with it every
     lane is any-hit)."""
-    ones = torch.ones(B, dtype=torch.bool, device=scene.dense_w.device)
+    ones = torch.ones(B, dtype=torch.bool, device=scene.device)
     if ignore_light is None or not scene.has_mesh_lights:
         return ones
     lq = scene.light_quad[torch.clamp(ignore_light, 0,

@@ -19,9 +19,19 @@ medium and the scene its camera's (the JAX package's tables and
 primitive order).  Hair, fourier, the subsurface materials and ptex
 textures are not ported: the builder raises naming them.
 
+The hit search takes one of three routes, as pbrt_tpu's does
+(pbrt_tpu/scene/ir.py:900, ops/intersect.py:450-459): the dense kernels
+K1 / K2 over a table of chunked triangles (`use_dense`) for a scene of at
+most MAX_DENSE_PRIMS primitives (MAX_MOTION_PRIMS once a mesh moves),
+else the SAH kd-tree when the scene names `Accelerator "kdtree"`
+(`use_kd`), else the octant-threaded BVH.  The BVH is always built: its
+leaf order is the primitive order of every route.  Above the cap no
+dense table is built.
+
 Two-keyframe motion blur: a mesh given a second object-to-world keyframe
 moves its vertices linearly over the shutter (`tri_motion`), and the
-scene's dense table becomes the motion table (`dense_motion`); a quadric
+scene's dense table becomes the motion table (`dense_motion`; above the
+cap the walks move each tested triangle to the ray's time); a quadric
 given one interpolates its decomposed transform per ray (`quad_anim_*`).
 The other shapes of the scene format (plymesh, loopsubdiv, heightfield,
 curve, nurbs, hyperboloid) reach the builder as triangle meshes.
@@ -38,7 +48,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from pbrt_tpu_torch.accel.bvh import build_bvh_order
+from pbrt_tpu_torch.accel.bvh import MAX_LEAF_SIZE, build_bvh
+from pbrt_tpu_torch.accel.kdtree import build_kdtree
 from pbrt_tpu_torch.core import device as devmod
 from pbrt_tpu_torch.core import spectrum as spec
 from pbrt_tpu_torch.core.transform import Transform, animated_pair
@@ -91,8 +102,8 @@ UNPORTED_MATERIALS = {MAT_HAIR: "hair", MAT_FOURIER: "fourier",
                       MAT_KDSUBSURFACE: "kdsubsurface", MAT_SSW: "ssw"}
 
 # scenes beyond these many primitives (animated meshes: the lower cap)
-# leave the dense kernels for the JAX package's BVH or kd-tree route,
-# which is not ported (pbrt_tpu/scene/ir.py:900)
+# leave the dense kernels for the BVH or kd-tree walks
+# (pbrt_tpu/scene/ir.py:900; dense_route)
 MAX_DENSE_PRIMS = 300_000
 MAX_MOTION_PRIMS = 150_000
 
@@ -128,13 +139,18 @@ JAX_COLUMNS = (PRIM_COLUMNS + QUAD_COLUMNS + MAT_COLUMNS + LIGHT_COLUMNS
 # hi + residual is the f32 value exactly
 PACKED_COLUMNS = ("mat_eta_spec", "mat_k_spec", "mat_opacity",
                   "mat_beckmann")
-JAX_ARRAYS = JAX_COLUMNS + ("mat_packed",)
+# the walks' trees (accel/bvh.py, accel/kdtree.py); pbrt_tpu leaves the
+# kd arrays None without `Accelerator "kdtree"`
+BVH_COLUMNS = ("bvh_packed", "bvh_hit", "bvh_miss")
+KD_COLUMNS = ("kd_packed", "kd_prim_idx", "kd_bounds")
+JAX_ARRAYS = JAX_COLUMNS + ("mat_packed",) + BVH_COLUMNS + KD_COLUMNS
 JAX_STATICS = ("n_lights", "n_quadrics", "clip_quadrics", "dense_chunk",
                "has_animated_mesh", "has_animated_quads", "dense_motion",
                "has_disney", "has_mix", "has_beckmann", "has_bump",
                "mat_families", "tex_kinds", "light_kinds", "has_mesh_lights",
                "has_sphere_lights", "has_infinite", "inf_light_idx",
-               "has_prim_media", "has_grid_media", "camera_medium")
+               "has_prim_media", "has_grid_media", "camera_medium",
+               "n_nodes", "max_leaf", "use_dense", "use_kd", "kd_max_leaf")
 # pbrt_tpu/scene/ir.py's MPK_* offsets into a mat_packed row
 _NS = spec.N_SPECTRAL_SAMPLES
 _MPK_ETA_SPEC, _MPK_K_SPEC, _MPK_OPACITY = 4 * _NS, 5 * _NS, 6 * _NS
@@ -236,13 +252,14 @@ class SceneData:
     med_w2m: torch.Tensor          # [K,4,4] world -> unit-cube medium
     med_inv_maxd: torch.Tensor     # [K] 1 / max density (the majorant)
     med_is_grid: torch.Tensor      # [K] bool
-    # --- dense intersector tables (ops/dense_intersect.py) ---
-    dense_w: torch.Tensor          # [C,16,4*chunk] f32 sections s1|s2|num|s0
-    #                                (motion: [C,16,N_COEF*4*chunk])
-    dense_cb: torch.Tensor         # [C,8] chunk AABBs (centered coords)
-    dense_static: torch.Tensor     # [C] bool: no triangle of the chunk
-    #                                moves (all true for a static table)
-    dense_center: torch.Tensor     # [3]
+    # --- the BVH (accel/bvh.py's octant-threaded layout) and the walks'
+    # triangle rows ---
+    bvh_packed: torch.Tensor       # [N,8] f32 lo, hi, bitcast(leaf_bits),
+    #                                axis
+    bvh_hit: torch.Tensor          # [8,N] i32 per-octant enter links
+    bvh_miss: torch.Tensor         # [8,N] i32 per-octant skip links
+    tri_packed: torch.Tensor       # [P,12] f32 v0|e1|e2|0 (zero rows for
+    #                                quadrics: they never hit)
     # --- textures (textures/textures.py); entry 0 is unused ---
     tex_images: torch.Tensor       # [T,2*RES,RES,3] mip canvases
     tex_type: torch.Tensor         # [T] TEX_*
@@ -251,6 +268,20 @@ class SceneData:
     tex_c1: torch.Tensor           # [T,3]
     tex_c2: torch.Tensor           # [T,3]
     world_radius: torch.Tensor     # [] half the scene's diagonal + 1e-3
+    # --- dense intersector tables (ops/dense_intersect.py); None when
+    # the scene is over the dense cap (use_dense false) ---
+    dense_w: torch.Tensor = None   # [C,16,4*chunk] f32 s1|s2|num|s0
+    #                                (motion: [C,16,N_COEF*4*chunk])
+    dense_cb: torch.Tensor = None  # [C,8] chunk AABBs (centered coords)
+    dense_static: torch.Tensor = None  # [C] bool: no triangle of the
+    #                                chunk moves (all true when static)
+    dense_center: torch.Tensor = None  # [3]
+    # --- the SAH kd-tree (accel/kdtree.py), with `Accelerator "kdtree"`:
+    # rows [split, bitcast(flags | above|offset | n_prims)] and the
+    # duplicated primitive list ---
+    kd_packed: torch.Tensor = None     # [Nk,4] f32 (ints bitcast)
+    kd_prim_idx: torch.Tensor = None   # [M] i32
+    kd_bounds: torch.Tensor = None     # [2,3] root box
     # the env map's luminance (the sampling tables' f32 product), so that
     # env sampling gathers one value a lane, not a row of spectra
     env_lum: torch.Tensor = None   # [He,We]
@@ -284,6 +315,17 @@ class SceneData:
     has_prim_media: bool = False   # a MediumInterface bound a medium
     has_grid_media: bool = False   # ... and one of them is a grid
     camera_medium: int = -1        # the medium the camera sits in
+    # the route (dense_route): the dense kernels, else the kd-tree when
+    # built, else the BVH
+    use_dense: bool = True
+    use_kd: bool = False
+    n_nodes: int = 0               # BVH nodes
+    max_leaf: int = MAX_LEAF_SIZE  # prims a BVH leaf test takes (Queue 3 (v))
+    kd_max_leaf: int = 0           # the largest kd leaf
+
+    @property
+    def device(self):
+        return self.tri_v0.device
 
     def to(self, device):
         return dataclasses.replace(self, **{
@@ -534,16 +576,21 @@ class SceneBuilder:
             lo[i], hi[i] = wc.min(0), wc.max(0)
         return lo, hi
 
-    def build(self, device=None) -> SceneData:
-        """The SceneData on `device` (None: the first CUDA card)."""
+    def build(self, device=None, accel="bvh") -> SceneData:
+        """The SceneData on `device` (None: the first CUDA card).
+
+        The BVH is always built (SAH, leaves of MAX_LEAF_SIZE); accel
+        "kdtree" also builds the kd-tree over the reordered bounds, as
+        pbrt_tpu does, and a scene over the dense cap then walks it."""
         device = devmod.resolve(device)
         P = self._n_prims
         if P == 0:
             raise ValueError("scene has no primitives")
-        check_dense_cap(P, self.has_animated_mesh)
         soa = self._concat()
         lo, hi = self._prim_bounds(soa)
-        order = build_bvh_order(lo, hi)
+        bvh = build_bvh(lo, hi, MAX_LEAF_SIZE)
+        order = bvh.prim_order
+        kd = build_kdtree(lo[order], hi[order]) if accel == "kdtree" else None
 
         def reorder(key, dtype=np.float32):
             return soa[key][order].astype(dtype)
@@ -631,12 +678,18 @@ class SceneBuilder:
             tex_c1=tex_a, tex_c2=tex_b, world_radius=world_radius,
             prim_medium_in=reorder("prim_medium_in", np.int32),
             prim_medium_out=reorder("prim_medium_out", np.int32),
+            bvh_packed=bvh.packed, bvh_hit=bvh.hit_links,
+            bvh_miss=bvh.miss_links, **_kd_arrays(kd),
             **self._media_arrays(), **light_arrays)
+        use_dense = dense_route(P, self.has_animated_mesh)
         statics = dict(n_quadrics=len(self.quads),
                        clip_quadrics=bool(clip_q), dense_chunk=None,
                        has_animated_mesh=self.has_animated_mesh,
                        has_animated_quads=animated_quads,
-                       dense_motion=self.has_animated_mesh,
+                       dense_motion=self.has_animated_mesh and use_dense,
+                       use_dense=use_dense, use_kd=kd is not None,
+                       n_nodes=bvh.n_nodes, max_leaf=bvh.max_leaf_size,
+                       kd_max_leaf=0 if kd is None else kd["max_leaf"],
                        has_prim_media=bool(self.media_table),
                        has_grid_media=any(m[3] is not None
                                           for m in self.media_table),
@@ -816,19 +869,24 @@ def _needs_clip(params, qtype):
             or float(params[2]) < float(params[0]) - 1e-6)
 
 
-def check_dense_cap(n_prims, animated):
-    """Raise NotImplementedError for a scene the dense kernels do not
-    take: over MAX_DENSE_PRIMS primitives, or MAX_MOTION_PRIMS with an
-    animated mesh.  The JAX package renders such scenes through its BVH
-    or kd-tree, which the port does not have."""
-    cap = MAX_MOTION_PRIMS if animated else MAX_DENSE_PRIMS
-    if n_prims > cap:
-        kind = "with animated meshes " if animated else ""
-        raise NotImplementedError(
-            f"a scene {kind}of {n_prims} primitives is over the dense "
-            f"intersector's cap of {cap}: it takes the BVH / kd-tree route "
-            "(pbrt_tpu.ops.intersect._intersect_bvh / _intersect_kd), which "
-            "is not ported")
+def dense_route(n_prims, animated):
+    """Whether a scene of n_prims primitives takes the dense kernels:
+    at most MAX_DENSE_PRIMS, or MAX_MOTION_PRIMS once a mesh moves (the
+    motion table is 4x as large), as pbrt_tpu/scene/ir.py:900 decides.
+    Above the cap it walks the BVH or the kd-tree."""
+    return 0 < n_prims <= (MAX_MOTION_PRIMS if animated else MAX_DENSE_PRIMS)
+
+
+def _kd_arrays(kd):
+    """The SceneData columns of a build_kdtree result (None: no tree), as
+    pbrt_tpu packs them (pbrt_tpu/scene/ir.py:1111-1117)."""
+    if kd is None:
+        return dict.fromkeys(KD_COLUMNS)
+    return dict(
+        kd_packed=np.concatenate([
+            kd["nodes_f"][:, None],
+            kd["nodes_i"].astype(np.int32).view(np.float32)], 1),
+        kd_prim_idx=kd["prim_idx"], kd_bounds=kd["bounds"])
 
 
 def material_statics(mat_type, beckmann, bump_tex, tex_type):
@@ -845,32 +903,43 @@ def material_statics(mat_type, beckmann, bump_tex, tex_type):
 
 
 def _scene_from_arrays(arrays, statics, device):
-    if statics["dense_motion"]:
-        dt = build_dense_tables_motion(
-            arrays["tri_v0"], arrays["tri_e1"], arrays["tri_e2"],
-            arrays["tri_motion"], chunk=statics["dense_chunk"])
-    else:
-        dt = build_dense_tables(arrays["tri_v0"], arrays["tri_e1"],
-                                arrays["tri_e2"], chunk=statics["dense_chunk"])
-        dt["chunk_static"] = np.ones(dt["W"].shape[0], bool)
+    use_dense = bool(statics["use_dense"])
+    dense = {}
+    if use_dense:
+        if statics["dense_motion"]:
+            dt = build_dense_tables_motion(
+                arrays["tri_v0"], arrays["tri_e1"], arrays["tri_e2"],
+                arrays["tri_motion"], chunk=statics["dense_chunk"])
+        else:
+            dt = build_dense_tables(arrays["tri_v0"], arrays["tri_e1"],
+                                    arrays["tri_e2"],
+                                    chunk=statics["dense_chunk"])
+            dt["chunk_static"] = np.ones(dt["W"].shape[0], bool)
+        dense = dict(dense_w=dt["W"], dense_cb=dt["chunk_bounds"],
+                     dense_static=dt["chunk_static"],
+                     dense_center=dt["center"])
+    v0 = np.asarray(arrays["tri_v0"], np.float32)
+    tri_packed = np.concatenate([v0, np.asarray(arrays["tri_e1"], np.float32),
+                                 np.asarray(arrays["tri_e2"], np.float32),
+                                 np.zeros_like(v0)], 1)
     cols = {k: torch.as_tensor(np.array(arrays[k]), device=device)
-            for k in JAX_COLUMNS + PACKED_COLUMNS}
+            for k in JAX_COLUMNS + PACKED_COLUMNS + BVH_COLUMNS
+            + (KD_COLUMNS if statics["use_kd"] else ())}
+    cols.update((k, torch.as_tensor(np.array(v), device=device))
+                for k, v in dense.items())
     # the f32 product of the env tables' builder (pbrt_tpu/scene/ir.py:820)
     env_lum = np.asarray(arrays["env_map"], np.float32) @ \
         spec.CIE_Y.astype(np.float32)
     return SceneData(
         **cols,
         env_lum=torch.as_tensor(env_lum, device=device),
-        dense_w=torch.as_tensor(dt["W"], device=device),
-        dense_cb=torch.as_tensor(dt["chunk_bounds"], device=device),
-        dense_static=torch.as_tensor(dt["chunk_static"], device=device),
-        dense_center=torch.as_tensor(dt["center"], device=device),
+        tri_packed=torch.as_tensor(tri_packed, device=device),
         n_lights=int(statics["n_lights"]),
         n_quadrics=int(statics["n_quadrics"]),
         clip_quadrics=bool(statics["clip_quadrics"]),
         quad_kinds=tuple(sorted({int(t) for t in np.asarray(
             arrays["quad_type"])[:int(statics["n_quadrics"])]})),
-        dense_chunk=int(dt["chunk"]),
+        dense_chunk=int(dt["chunk"]) if use_dense else 0,
         has_animated_mesh=bool(statics["has_animated_mesh"]),
         has_animated_quads=bool(statics["has_animated_quads"]),
         dense_motion=bool(statics["dense_motion"]),
@@ -887,7 +956,10 @@ def _scene_from_arrays(arrays, statics, device):
         inf_light_idx=int(statics["inf_light_idx"]),
         has_prim_media=bool(statics["has_prim_media"]),
         has_grid_media=bool(statics["has_grid_media"]),
-        camera_medium=int(statics["camera_medium"]))
+        camera_medium=int(statics["camera_medium"]),
+        use_dense=use_dense, use_kd=bool(statics["use_kd"]),
+        n_nodes=int(statics["n_nodes"]), max_leaf=int(statics["max_leaf"]),
+        kd_max_leaf=int(statics["kd_max_leaf"]))
 
 
 def scene_from_jax(arrays: dict, statics: dict, device) -> SceneData:
@@ -896,10 +968,11 @@ def scene_from_jax(arrays: dict, statics: dict, device) -> SceneData:
     arrays: {name: np.asarray(getattr(jax_scene, name))} for every name in
     JAX_ARRAYS; statics: the static fields named in JAX_STATICS.  The
     conductor spectra, the opacity and the Beckmann flag come from the
-    packed material table (PACKED_COLUMNS).  The dense tables (static, or
-    motion when `dense_motion`) are recomputed from tri_v0/e1/e2 and
-    tri_motion, since the JAX scene's `dense_w` is the TPU's bf16x2
-    layout."""
+    packed material table (PACKED_COLUMNS).  The BVH, the kd-tree (when
+    `use_kd`) and the route's flags come across unchanged.  The dense
+    tables (static, or motion when `dense_motion`) are recomputed from
+    tri_v0/e1/e2 and tri_motion when `use_dense`, since the JAX scene's
+    `dense_w` is the TPU's bf16x2 layout."""
     for k in JAX_ARRAYS:
         if k not in arrays:
             raise KeyError(f"scene_from_jax needs array {k!r}")
@@ -919,8 +992,4 @@ def scene_from_jax(arrays: dict, statics: dict, device) -> SceneData:
                   mat_k_spec=row[:, _MPK_K_SPEC:_MPK_K_SPEC + _NS],
                   mat_opacity=row[:, _MPK_OPACITY:_MPK_OPACITY + _NS],
                   mat_beckmann=row[:, _MPK_BECKMANN] > 0.5)
-    if statics["has_animated_mesh"] and not statics["dense_motion"]:
-        raise NotImplementedError(
-            "animated meshes on the BVH path are not ported")
-    check_dense_cap(len(arrays["prim_type"]), statics["has_animated_mesh"])
     return _scene_from_arrays(arrays, statics, devmod.resolve(device))

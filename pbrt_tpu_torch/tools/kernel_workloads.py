@@ -29,6 +29,10 @@ from the same numpy seeds by the port's own code.
                     each a MediumInterface, over a floor: every shadow
                     ray from the floor crosses a triangle at each of the
                     shadow walk's 8 steps (volpath_walk_batches).
+  accel_batches     the camera and bounce-1 batches of a render over the
+                    dense cap, as its BVH or kd walk receives them, and
+                    walk_bound, the walks' bound from the plain version's
+                    counts.
 
 Each takes a device and a seed; nothing is built at import.  The s3
 script drew its rays with jax.random; here numpy draws them from the same
@@ -50,6 +54,7 @@ import torch
 from torch.autograd import DeviceType
 
 from pbrt_tpu_torch.models import flagship
+from pbrt_tpu_torch.ops import accel_walk
 from pbrt_tpu_torch.ops import dense_intersect as dense
 from pbrt_tpu_torch.ops import intersect as isect
 from pbrt_tpu_torch.scene.ir import SceneBuilder, MaterialSpec, MAT_MATTE
@@ -381,7 +386,7 @@ def volpath_walk_batches(job, camera, cfg, width, height, rays, depth,
     trace = volpath.make_trace_volpath(job)
 
     def run():
-        ids = torch.arange(rays, device=job.scene.dense_w.device)
+        ids = torch.arange(rays, device=job.scene.device)
         ray, _, _, pid, sidx = path.camera_rays_for_pixels(
             camera, width, height, cfg, ids, 0)
         trace(job.scene, ray, pid, sidx, cfg, max_depth=depth)
@@ -400,13 +405,56 @@ def main_path_batches(scene, camera, cfg, width, height, rays, depth,
     from pbrt_tpu_torch.integrators import path
 
     def run():
-        ids = torch.arange(rays, device=scene.dense_w.device)
+        ids = torch.arange(rays, device=scene.device)
         ray, _, _, pid, sidx = path.camera_rays_for_pixels(
             camera, width, height, cfg, ids, 0)
         path.trace_paths(scene, ray, pid, sidx, cfg, max_depth=depth,
                          **trace_kw)
 
     return _recorded_batches(run, depth)
+
+
+# the walks' per-ray arguments (the rest are the scene's tables)
+WALK_RAY_ARGS = ("o", "d", "tmax", "t_init", "prim_init", "anyhit", "time")
+
+
+def accel_batches(scene, camera, cfg, width, height, rays, depth,
+                  **trace_kw):
+    """The walk route's main_path_batches: the arguments that one pass of
+    `rays` camera rays (trace_paths with trace_kw) hands the BVH walk, or
+    the kd walk when the scene took the kd-tree, as {"camera": call 0,
+    "bounce1": call 1 (bounce-1 rays + bounce-0 shadow rays)}; each a dict
+    of keyword arguments of accel_walk.bvh_walk / kd_walk, the per-ray
+    tensors cloned.  The scene must be over the dense cap (or have
+    use_dense set false)."""
+    from pbrt_tpu_torch.integrators import path
+    if scene.use_dense:
+        raise ValueError("accel_batches: the scene takes the dense route")
+    name = "kd_walk" if scene.use_kd else "bvh_walk"
+    inner = getattr(accel_walk, name)
+    calls = []
+
+    def record(**kw):
+        calls.append({k: (v.clone() if k in WALK_RAY_ARGS and v is not None
+                          else v) for k, v in kw.items()})
+        return inner(**kw)
+
+    def run():
+        ids = torch.arange(rays, device=scene.device)
+        ray, _, _, pid, sidx = path.camera_rays_for_pixels(
+            camera, width, height, cfg, ids, 0)
+        path.trace_paths(scene, ray, pid, sidx, cfg, max_depth=depth,
+                         **trace_kw)
+
+    setattr(accel_walk, name, record)
+    try:
+        run()
+    finally:
+        setattr(accel_walk, name, inner)
+    if len(calls) != depth + 1:
+        raise AssertionError(f"expected {depth + 1} walk calls, got "
+                             f"{len(calls)}")
+    return {"camera": calls[0], "bounce1": calls[1]}
 
 
 def bitonic_batch(scene, n_rays=65536, seed=0):
@@ -434,7 +482,7 @@ def refpath_batches(scene, camera, width, height, depth):
 
     def run():
         sampler = refpath.RefSampler.make(width, height)
-        ids = torch.arange(width * height, device=scene.dense_w.device)
+        ids = torch.arange(width * height, device=scene.device)
         ray, _, _, pid, sidx = refpath.camera_rays_ref(
             camera, width, height, sampler, ids, 0)
         refpath.trace_ref(scene, refpath.build_ref_lights(scene), sampler,
@@ -512,6 +560,73 @@ def loop_bytes(mode, r16, tmax, W, chunk_list, n_active, *outs,
 
 
 # ---------------------------------------------------------------------------
+# the walks' bound
+# ---------------------------------------------------------------------------
+
+# f32 operations: a BVH slab test (3 x (2 subs, 2 muls, min, max), the
+# far scale, 3 compares), a kd descent step (p_at, t_split, the compares)
+# and a triangle test (ray_triangle: the shear of three vertices, three
+# edge functions with their on-edge test, det, t and the range test; a
+# moving triangle's 9 multiply-adds more)
+SLAB_FLOPS, KD_STEP_FLOPS = 22, 9
+TRI_FLOPS, TRI_FLOPS_MOVING = 68, 86
+
+
+def walk_bytes(kw, counts, kd=False):
+    """Bytes a walk must move on these inputs (kw: accel_batches' record),
+    each read once: every lane's ray (o, d, t_init, prim_init; tmax for
+    the kd walk, the any-hit flag and the time where given), the distinct
+    node rows it touched (a BVH node's 32 bytes and its link, a kd node's
+    16), the distinct triangle rows (48 bytes, 96 with motion) and kd
+    list entries, and the outputs t, prim.  counts: the plain version's
+    WalkCounts."""
+    B = kw["o"].shape[0]
+    per_ray = 24 + 8 + 8 + (4 if kd else 0)
+    per_ray += 1 if kw.get("anyhit") is not None else 0
+    per_ray += 4 if kw.get("time") is not None else 0
+    tri = 96 if kw.get("time") is not None else 48
+    node = 16 if kd else 32 + 4
+    return (B * per_ray + counts.nodes * node + counts.tris * tri
+            + counts.list_entries * 4)
+
+
+def walk_bound(kw, counts, kd=False):
+    """(ms, what bounds it) of a walk on these inputs: SLAB_FLOPS (or
+    KD_STEP_FLOPS) a node step and TRI_FLOPS (TRI_FLOPS_MOVING with
+    motion) a triangle test, from the plain version's counts, against
+    walk_bytes."""
+    steps = int(counts.visits.sum())
+    tests = int(counts.tests.sum())
+    tri = TRI_FLOPS_MOVING if kw.get("time") is not None else TRI_FLOPS
+    flops = (KD_STEP_FLOPS if kd else SLAB_FLOPS) * steps + tri * tests
+    return bound(flops, walk_bytes(kw, counts, kd))
+
+
+def walk_ties(scene, o, d, time, lanes, prim_a, prim_b, rel=1e-5):
+    """[len(lanes)] bool: whether each lane's two prims are both
+    triangles that hit its ray at t within `rel` of each other (the port's
+    f32 ray_triangle, at the ray's clamped time when `time` is given), so
+    that either answer is the nearest."""
+    if not len(lanes):
+        return torch.zeros(0, dtype=torch.bool, device=prim_a.device)
+    pid = torch.stack([prim_a[lanes], prim_b[lanes]], 1).long()
+    both = (pid >= 0).all(1)
+    pid = pid.clamp(min=0)
+    tp = scene.tri_packed[pid]
+    v0, e1, e2 = tp[..., 0:3], tp[..., 3:6], tp[..., 6:9]
+    if time is not None:
+        tm = scene.tri_motion[pid]
+        u = time[lanes].clamp(0, 1)[:, None, None]
+        v0, e1, e2 = (v0 + u * tm[..., 0:3], e1 + u * tm[..., 3:6],
+                      e2 + u * tm[..., 6:9])
+    t, _, _, hit = isect.ray_triangle(
+        o[lanes], d[lanes], v0, e1, e2,
+        torch.full((len(lanes),), 1e30, device=v0.device))
+    return both & hit.all(1) & ((t[:, 0] - t[:, 1]).abs()
+                                <= rel * t[:, 1].abs())
+
+
+# ---------------------------------------------------------------------------
 # K1's bound
 # ---------------------------------------------------------------------------
 
@@ -548,11 +663,12 @@ def queue_bound(mode, r16, tmax, chunk_bounds):
 # timing, shared by the tools
 # ---------------------------------------------------------------------------
 
-def time_ms(fn, reps, device):
-    """Mean time of fn() in ms over `reps` calls after one warm-up: CUDA
-    events on a card; on the CPU the host clock (the plain versions'
-    time, never a device time)."""
-    fn()
+def time_ms(fn, reps, device, warmup=True):
+    """Mean time of fn() in ms over `reps` calls after one warm-up (none
+    when the caller has just run it): CUDA events on a card; on the CPU
+    the host clock (the plain versions' time, never a device time)."""
+    if warmup:
+        fn()
     if device.type != "cuda":
         t0 = time.perf_counter()
         for _ in range(reps):

@@ -71,6 +71,13 @@ def build_camera(job, width, height, device=None):
         device=device)
 
 
+def route_name(scene):
+    """The scene's hit search: "dense", "kd-tree" or "BVH"."""
+    if scene.use_dense:
+        return "dense"
+    return "kd-tree" if scene.use_kd else "BVH"
+
+
 def run_job(job, spp=None, max_depth=None, max_rays_per_pass=1 << 18,
             stats=None, sampler_override=None):
     """Render a RenderJob on its scene's device -> (film, camera).
@@ -90,7 +97,7 @@ def run_job(job, spp=None, max_depth=None, max_rays_per_pass=1 << 18,
         raise NotImplementedError(
             f'the matched-RNG integrator with Camera "{job.camera_kind}" '
             "is not ported")
-    device = job.scene.dense_w.device
+    device = job.scene.device
     W, H = job.film_width, job.film_height
     camera = build_camera(job, W, H, device)
     fp = dict(job.filter_params)
@@ -179,7 +186,8 @@ def main(argv=None):
         print(f"parsed + built scene in {time.perf_counter() - t0:.1f}s "
               f"({job.scene.prim_type.shape[0]} prims, "
               f"{job.scene.n_lights} lights"
-              f"{', motion blur' if job.scene.dense_motion else ''})")
+              f"{', motion blur' if job.scene.has_animated_mesh else ''}, "
+              f"{route_name(job.scene)} route)")
     stats = {}
     t0 = time.perf_counter()
     film, _ = run_job(job, spp=1 if args.quick else args.spp,

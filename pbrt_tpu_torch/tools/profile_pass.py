@@ -64,7 +64,7 @@ def grad_problem(scene, camera, W, H, cfg, rays, depth):
     """The inverse-rendering problem --grad profiles: (start params,
     target, pixel ids) for mat_kd and light_L at 0.5 and 0.7 of the
     scene's values, the target rendered at the scene's own at sample 0."""
-    ids = torch.arange(rays, device=scene.dense_w.device)
+    ids = torch.arange(rays, device=scene.device)
     truth = {"mat_kd": scene.mat_kd, "light_L": scene.light_L}
     with torch.no_grad():
         target, _ = diff.render_samples(truth, scene, camera, W, H, cfg,

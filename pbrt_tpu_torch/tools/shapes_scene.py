@@ -3,7 +3,7 @@ the Cornell box of scenes/cornell_bench.pbrt (its walls and area light).
 
     python -m pbrt_tpu_torch.tools.shapes_scene OUT_DIR [--level 5]
         [--instances 6] [--field 128] [--subdiv 4] [--seed 0] [--res 256]
-        [--spp 4]
+        [--spp 4] [--accel bvh|kdtree] [--moving-field]
 
 writes OUT_DIR/shapes.pbrt and its binary PLY, OUT_DIR/blob.ply.  At the
 defaults (the full-size cell):
@@ -22,8 +22,16 @@ defaults (the full-size cell):
 
 It renders at 256x256 with Sobol, 4 spp, depth 5 and the path
 integrator.  Small arguments give a small scene of the same structure
-(the tests': level 1, 2 instances, a 6 x 6 field, subdiv 1).  Nothing of
-it is committed: it is written from the seed.
+(the tests': level 1, 2 instances, a 6 x 6 field, subdiv 1); larger ones
+a scene over the dense cap (the walks' cells: `--level 6 --instances 12
+--field 256`, ~1.12M triangles, takes the BVH).  Two options change the
+test data, each with directives both packages parse: `--accel kdtree`
+writes that Accelerator line (a scene over the cap then walks the
+kd-tree), and `--moving-field` moves the heightfield by (0, 0, 0.15) over
+the shutter (ActiveTransform EndTime, as pbrt_tpu_torch/scenes/
+cornell_motion.pbrt:24-26 moves its mirror), so that the scene has an
+animated mesh (over 150,000 primitives it walks the BVH with per-ray
+time).  Nothing of it is committed: it is written from the seed.
 """
 
 from __future__ import annotations
@@ -143,11 +151,12 @@ def instance_transforms(instances):
 
 
 def scene_text(level=5, instances=6, field=128, subdiv=4, seed=0,
-               res=256, spp=4):
+               res=256, spp=4, accel="bvh", moving_field=False):
     """The .pbrt text of the shapes scene; its plymesh is "blob.ply"."""
     rng = np.random.default_rng(seed + 1)
     out = [_HEADER.replace("[256]", f"[{res}]").replace(
-        '"integer pixelsamples" [4]', f'"integer pixelsamples" [{spp}]')]
+        '"integer pixelsamples" [4]', f'"integer pixelsamples" [{spp}]')
+        .replace('Accelerator "bvh"', f'Accelerator "{accel}"')]
     # the blob, once, then its instances
     out.append('ObjectBegin "blob"\n'
                'Material "plastic" "rgb Kd" [.35 .45 .7] "rgb Ks" '
@@ -166,7 +175,10 @@ def scene_text(level=5, instances=6, field=128, subdiv=4, seed=0,
         z += np.sin(kx * xs + rng.uniform(0, 6.3)) \
             * np.cos(ky * ys + rng.uniform(0, 6.3))
     z = 0.01 + 0.24 * (z - z.min()) / max(np.ptp(z), 1e-9)
-    out.append('AttributeBegin\nMaterial "matte" "rgb Kd" [.6 .55 .4]\n'
+    motion = ("ActiveTransform EndTime\nTranslate 0 0 0.15\n"
+              "ActiveTransform All\n" if moving_field else "")
+    out.append('AttributeBegin\n' + motion
+               + 'Material "matte" "rgb Kd" [.6 .55 .4]\n'
                "Translate 0.02 0.02 0\nScale 4.96 4.96 1\n"
                f'Shape "heightfield" "integer nu" [{field}] "integer nv" '
                f'[{field}] "float Pz" [{_floats(z)}]\nAttributeEnd\n')
@@ -227,7 +239,8 @@ def scene_text(level=5, instances=6, field=128, subdiv=4, seed=0,
 
 
 def write_shapes_scene(out_dir, level=5, instances=6, field=128, subdiv=4,
-                       seed=0, res=256, spp=4):
+                       seed=0, res=256, spp=4, accel="bvh",
+                       moving_field=False):
     """Write out_dir/shapes.pbrt and out_dir/blob.ply (binary
     little-endian); returns the .pbrt path."""
     os.makedirs(out_dir, exist_ok=True)
@@ -236,7 +249,8 @@ def write_shapes_scene(out_dir, level=5, instances=6, field=128, subdiv=4,
               binary=True)
     path = os.path.join(out_dir, "shapes.pbrt")
     with open(path, "w") as f:
-        f.write(scene_text(level, instances, field, subdiv, seed, res, spp))
+        f.write(scene_text(level, instances, field, subdiv, seed, res, spp,
+                           accel, moving_field))
     return path
 
 
@@ -250,10 +264,12 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--res", type=int, default=256)
     ap.add_argument("--spp", type=int, default=4)
+    ap.add_argument("--accel", choices=("bvh", "kdtree"), default="bvh")
+    ap.add_argument("--moving-field", action="store_true")
     args = ap.parse_args(argv)
     print(write_shapes_scene(args.out_dir, args.level, args.instances,
                              args.field, args.subdiv, args.seed, args.res,
-                             args.spp))
+                             args.spp, args.accel, args.moving_field))
     return 0
 
 

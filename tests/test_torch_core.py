@@ -44,6 +44,14 @@ def one_torch_thread():
 U32 = 2.0 ** -24
 
 
+def tensors_equal(x, y):
+    """Equal values, or, for f32, equal bits: the BVH's packed rows hold
+    int bits, NaN patterns among them, which torch.equal calls unequal."""
+    return torch.equal(x, y) or (
+        x.dtype == y.dtype == torch.float32
+        and torch.equal(x.view(torch.int32), y.view(torch.int32)))
+
+
 def rounding_bound(fn, sites, ulps, h=1e-7):
     """An f64 evaluation of an f32 formula and a per-element bound on how
     far an f32 evaluation of it may lie from that value.

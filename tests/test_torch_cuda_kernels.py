@@ -624,3 +624,86 @@ def test_trace_ref_on_the_card_matches_the_cpu(device):
     assert np.isfinite(g).all() and (g >= 0).all()
     assert abs(g.mean() / c.mean() - 1) < 1e-3
     assert (np.abs(g - c) <= 1e-2 * np.abs(c)).mean() >= 0.99
+
+
+# ---------------------------------------------------------------------------
+# the BVH and kd-tree walks (csrc/accel_walk.cu)
+# ---------------------------------------------------------------------------
+
+def _walk_scene(device, accel, moving, n=3000, seed=5):
+    """n random triangles (a quarter of them moving, for `moving`), four of
+    them sharing one box centre, and a sphere, built for the walks."""
+    from pbrt_tpu_torch.core.transform import Transform, translate
+    from pbrt_tpu_torch.scene import ir
+    rs = np.random.RandomState(seed)
+    base = rs.rand(n, 3) * 10 - 5
+    verts = base[:, None, :] + np.concatenate(
+        [np.zeros((n, 1, 3)), rs.randn(n, 2, 3) * 0.4], 1)
+    verts[:4] = np.array([[-1, -1, 0], [1, -1, 0], [0, 1, 0]]) \
+        * np.arange(1, 5)[:, None, None]
+    b = ir.SceneBuilder()
+    m = b.add_material(ir.MaterialSpec())
+    k = n // 4 if moving else 0
+    b.add_triangle_mesh(verts[:n - k].reshape(-1, 3),
+                        np.arange(3 * (n - k)).reshape(-1, 3), m)
+    if k:
+        b.add_triangle_mesh(verts[n - k:].reshape(-1, 3),
+                            np.arange(3 * k).reshape(-1, 3), m,
+                            object_to_world1=translate(0.3, -0.2, 0.1))
+    b.add_sphere(Transform(), 1.2, m)
+    s = b.build(device=device, accel=accel)
+    assert s.has_animated_mesh == moving
+    return s
+
+
+@pytest.mark.parametrize("accel", ["bvh", "kdtree"])
+@pytest.mark.parametrize("moving", [False, True], ids=["static", "motion"])
+def test_walk_equals_plain(device, accel, moving):
+    """bvh_walk and kd_walk (static and motion instantiations) against
+    their plain versions on the same CUDA tensors: (t, prim) equal bit
+    for bit on every lane, the closest-hit and the any-hit ones; rays from
+    inside and outside the triangles' box, axis-parallel ones, dead lanes
+    and finite tmax, shutter times outside [0, 1] included."""
+    from pbrt_tpu_torch.core import geometry as geom
+    from pbrt_tpu_torch.ops import accel_walk
+    from pbrt_tpu_torch.ops import intersect as isect
+    s = _walk_scene(device, accel, moving)
+    rs = np.random.RandomState(9)
+    B = 8192
+    o = rs.uniform(-8, 8, (B, 3)).astype(np.float32)
+    d = rs.randn(B, 3)
+    d[:6] = [[1, 0, 0], [0, -1, 0], [0, 0, 1], [1, 1e-21, 0],
+             [-1, 0, -1e-22], [0, 0, -1]]
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    tmax = np.full(B, np.inf, np.float32)
+    tmax[::13] = -1
+    tmax[3::5] = rs.uniform(0.5, 6, len(tmax[3::5]))
+    ray = geom.Ray.make(*(torch.as_tensor(x, device=device) for x in (o, d)),
+                        tmax=torch.as_tensor(tmax, device=device),
+                        time=torch.as_tensor(rs.uniform(-0.2, 1.2, B)
+                                             .astype(np.float32),
+                                             device=device))
+    anyhit = torch.as_tensor(rs.rand(B) < 0.4, device=device)
+    args = isect._walk_args(s, ray, anyhit)
+    assert (args["time"] is not None) == moving
+    if accel == "kdtree":
+        fn, plain = accel_walk.kd_walk, accel_walk.kd_walk_plain
+        args.update(tmax=ray.tmax.contiguous(), kd_packed=s.kd_packed,
+                    kd_prim_idx=s.kd_prim_idx, kd_bounds=s.kd_bounds,
+                    kd_max_leaf=s.kd_max_leaf)
+    else:
+        fn, plain = accel_walk.bvh_walk, accel_walk.bvh_walk_plain
+        args.update(packed=s.bvh_packed, hit_links=s.bvh_hit,
+                    miss_links=s.bvh_miss, max_leaf=s.max_leaf)
+    accel_walk.reset_launch_counts()
+    t, prim = fn(tri_packed=s.tri_packed, **args)
+    torch.cuda.synchronize()
+    name = ("kd_walk" if accel == "kdtree" else "bvh_walk") + (
+        "_motion" if moving else "")
+    assert accel_walk.LAUNCHES[name] == 1
+    tp, pp = plain(tri_packed=s.tri_packed, **args)
+    assert torch.equal(prim, pp)
+    assert torch.equal(t.view(torch.int32), tp.view(torch.int32))
+    found = prim >= 0
+    assert 0.2 < found.float().mean().item() < 0.95
+    assert (prim[~anyhit & found] >= 0).all()

@@ -1,6 +1,7 @@
 """The port's metadata and spectralpath integrators, their dispatch, the
-CLI's `--sampler refsobol`, and the dense intersector's scene cap, each
-against pbrt_tpu on the same inputs where pbrt_tpu has a twin.
+CLI's `--sampler refsobol`, and the dense intersector's scene cap (the
+threshold of the BVH / kd-tree route), each against pbrt_tpu on the same
+inputs where pbrt_tpu has a twin.
 
 Tolerances, each with the figure measured on the CPU:
 - metadata, all four strategies on scenes/metadata_depth.pbrt, per ray
@@ -37,6 +38,7 @@ from pbrt_tpu.parser.api import parse_scene as jparse
 from pbrt_tpu.samplers import samplers as jsamp
 from pbrt_tpu.samplers.samplers import SamplerConfig as JCfg
 from pbrt_tpu.tools.pbrt import build_camera as jbuild_camera
+from pbrt_tpu_torch.core.transform import translate
 from pbrt_tpu_torch.film import film as tfilm
 from pbrt_tpu_torch.film import io as tio
 from pbrt_tpu_torch.integrators import dispatch as tdispatch
@@ -264,24 +266,31 @@ def test_cli_refsobol_writes_the_render_ref_dat(tmp_path):
 # the dense intersector's cap
 # ---------------------------------------------------------------------------
 
-def test_dense_cap_raises_for_the_unported_bvh_route():
+def test_dense_cap_routes_to_the_bvh():
     """Above 300,000 static primitives (150,000 with an animated mesh)
     pbrt_tpu leaves the dense kernels for its BVH or kd-tree
-    (pbrt_tpu/scene/ir.py:900); the port has no such route, so the build
-    raises before it makes any table."""
-    tir.check_dense_cap(tir.MAX_DENSE_PRIMS, animated=False)
-    tir.check_dense_cap(tir.MAX_MOTION_PRIMS, animated=True)
-    with pytest.raises(NotImplementedError, match="BVH"):
-        tir.check_dense_cap(tir.MAX_DENSE_PRIMS + 1, animated=False)
-    with pytest.raises(NotImplementedError, match="animated"):
-        tir.check_dense_cap(tir.MAX_MOTION_PRIMS + 1, animated=True)
+    (pbrt_tpu/scene/ir.py:900); so does the port: the caps are the
+    route's thresholds, and a build over them makes no dense table."""
     assert (tir.MAX_DENSE_PRIMS, tir.MAX_MOTION_PRIMS) == (300_000, 150_000)
-    b = tir.SceneBuilder()
-    m = b.add_material(tir.MaterialSpec())
-    n = tir.MAX_DENSE_PRIMS + 1
-    b.add_triangle_mesh(np.eye(3), np.zeros((n, 3), np.int64) + [0, 1, 2], m)
-    with pytest.raises(NotImplementedError, match="300000"):
-        b.build(device=DEV)
+    assert tir.dense_route(tir.MAX_DENSE_PRIMS, animated=False)
+    assert tir.dense_route(tir.MAX_MOTION_PRIMS, animated=True)
+    assert not tir.dense_route(tir.MAX_DENSE_PRIMS + 1, animated=False)
+    assert not tir.dense_route(tir.MAX_MOTION_PRIMS + 1, animated=True)
+    assert not tir.dense_route(0, animated=False)
+    for n, animated in ((tir.MAX_DENSE_PRIMS + 1, False),
+                        (tir.MAX_MOTION_PRIMS + 1, True)):
+        b = tir.SceneBuilder()
+        m = b.add_material(tir.MaterialSpec())
+        move = translate(0.25, 0.0, 0.0) if animated else None
+        b.add_triangle_mesh(np.eye(3), np.zeros((n, 3), np.int64)
+                            + [0, 1, 2], m, object_to_world1=move)
+        s = b.build(device=DEV)
+        assert s.prim_type.shape[0] == n and s.has_animated_mesh == animated
+        assert not s.use_dense and not s.use_kd and not s.dense_motion
+        assert s.dense_w is None and s.dense_cb is None
+        assert s.bvh_packed.shape == (s.n_nodes, 8) and s.n_nodes > 1
+        assert s.tri_packed.shape == (n, 12)
+        assert tcli.route_name(s) == "BVH"
 
 
 # ---------------------------------------------------------------------------

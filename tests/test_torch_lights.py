@@ -65,6 +65,7 @@ from pbrt_tpu_torch.parser.api import parse_scene as tparse
 from pbrt_tpu_torch.scene import ir as tir
 from pbrt_tpu_torch.tools import pbrt as tcli
 from test_torch_core import one_torch_thread  # noqa: F401  (autouse)
+from test_torch_core import tensors_equal
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCENE_DIR = os.path.join(ROOT, "pbrt_tpu_torch", "scenes")
@@ -160,7 +161,7 @@ def test_lights_scene_parses_like_jax(scenes):
     for f in tp.__dataclass_fields__:
         x, y = getattr(tp, f), getattr(ts, f)
         if torch.is_tensor(x):
-            assert x.dtype == y.dtype and torch.equal(x, y), f
+            assert x.dtype == y.dtype and tensors_equal(x, y), f
         else:
             assert x == y, f
     assert tp.light_kinds == tuple(range(7)) and tp.n_lights == 8

@@ -27,6 +27,7 @@ from pbrt_tpu_torch.parser.api import parse_scene as tparse
 from pbrt_tpu_torch.scene import ir as tir
 from pbrt_tpu_torch.tools import pbrt as tcli
 from test_torch_core import one_torch_thread  # noqa: F401  (autouse)
+from test_torch_core import tensors_equal
 
 DEV = "cpu"
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -46,7 +47,7 @@ def assert_scene_equal(a, b):
         x, y = getattr(a, f), getattr(b, f)
         if torch.is_tensor(x):
             assert x.dtype == y.dtype and x.shape == y.shape, f
-            assert torch.equal(x, y), f
+            assert tensors_equal(x, y), f
         else:
             assert x == y, f
 

@@ -18,6 +18,7 @@ from pbrt_tpu_torch.models import flagship as tflag
 from pbrt_tpu_torch.ops import dense_intersect as tdense
 from pbrt_tpu_torch.scene import ir as tir
 from test_torch_core import one_torch_thread  # noqa: F401  (autouse)
+from test_torch_core import tensors_equal
 
 DEV = "cpu"
 
@@ -40,7 +41,7 @@ def _assert_scene_equal(a, b):
         x, y = getattr(a, f), getattr(b, f)
         if torch.is_tensor(x):
             assert x.dtype == y.dtype and x.shape == y.shape, f
-            assert torch.equal(x, y), f
+            assert tensors_equal(x, y), f
         else:
             assert x == y, f
 
