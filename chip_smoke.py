@@ -233,6 +233,28 @@ Queue 3's open crack, phase 24's shapes cell through K2 and through
 bvh_walk (the same scene with use_dense false), the lanes the two answer
 differently printed with why.
 
+Phase 26 drives the rest of the materials on the skin scene
+(`tools/skin_scene.py` at its defaults, written under
+chiprun_out/skin_scene: cornell_bench's box and camera, a tall block in
+subsurface "Skin1" at scale 30, a short block in kdsubsurface with a rough
+interface, a fourier sphere of a 3-channel 5-order table, a ptex back wall
+of one colour a face and a swatch of 600 hair curves; 12,354 triangles):
+(a) the CLI's `run_job` at 256x256, Sobol, 4 spp, depth 5, 65,536 rays a
+pass, counted as phase 5 is (K1 and the static K2 26 times a pass: the
+camera's call and, at each of 5 bounces, 4 probe passes and the
+trace_pair): ms a pass, rays/s, one profiled pass's launches, device ms
+and idle share; (b) K1 and K2 against their plain versions on the first
+and last probe pass of bounces 0 and 1 (many dead lanes, finite tmax),
+through compare_kernels with seams (SKIN_SKIPS lanes a batch may be
+explained by dense.loop_prim_skipped), each batch's live lanes, and the
+probe lanes whose next pass returned the same triangle; (c) the card
+against the CPU at 32x32 2 spp; (d) tests/test_bssrdf.py's three
+physical checks at 64x64: a bright subsurface sphere more than 4x a dark
+one, the probe against the diffusion limit (whitted) on a flat slab
+within 0.5-2, and the three-slab chain (2 probe passes find at most 2
+hits, 4 at least 3, 8 at most 6), with the slabs rendered at 2 probe
+passes, counted.
+
 Every lens render is finite, non-negative and non-black.  Mitchell's
 and sinc's negative lobes make some developed pixels negative where the
 image has a sharp edge (the reference clamps them when it writes the
@@ -279,6 +301,7 @@ from torch.autograd import DeviceType  # noqa: E402
 
 from pbrt_tpu_torch.cameras import lens  # noqa: E402
 from pbrt_tpu_torch.cameras import projective  # noqa: E402
+from pbrt_tpu_torch.core import geometry as geom  # noqa: E402
 from pbrt_tpu_torch.core import spectrum  # noqa: E402
 from pbrt_tpu_torch.core import transform as tfm  # noqa: E402
 from pbrt_tpu_torch.film import film as filmmod  # noqa: E402
@@ -312,6 +335,7 @@ from pbrt_tpu_torch.tools import lenstool  # noqa: E402
 from pbrt_tpu_torch.tools import profile_pass  # noqa: E402
 from pbrt_tpu_torch.tools import pbrt as cli  # noqa: E402
 from pbrt_tpu_torch.tools import shapes_scene  # noqa: E402
+from pbrt_tpu_torch.tools import skin_scene  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BENCH_SCENE = os.path.join(ROOT, "scenes", "cornell_bench.pbrt")
@@ -2674,6 +2698,246 @@ def phase25(run_walk, card, device, res, shapes=None):
           f"{t_render:.1f}, GPU vs CPU {t_cpu:.1f}")
 
 
+# phase 26: the rest of the materials (PERF.md section 4): the skin scene,
+# written into the gitignored output directory, and the probe batches
+# whose kernels are held to their plain versions (b)
+SKIN_DIR = os.path.join(ROOT, "chiprun_out", "skin_scene")
+# closest-hit probe lanes of a batch whose triangle may differ from the
+# plain version's without a tie, each explained by dense.loop_prim_skipped
+# (a crack between the two faces of a fiber's or a block's edge)
+SKIN_SKIPS = 2
+# tests/test_bssrdf.py's scenes, larger: (d)
+SSS_SPHERE = """
+Integrator "path" "integer maxdepth" [5]
+Sampler "sobol" "integer pixelsamples" [8]
+Film "image" "integer xresolution" [64] "integer yresolution" [64]
+LookAt 0 0 4  0 0 0  0 1 0
+Camera "perspective" "float fov" [40]
+WorldBegin
+AttributeBegin
+  Translate 0 4 4
+  LightSource "point" "color I" [60 60 60]
+AttributeEnd
+Material "subsurface" "color sigma_a" [{a} {a} {a}]
+         "color sigma_s" [{s} {s} {s}] "float eta" [1.33]
+Shape "sphere" "float radius" [1]
+WorldEnd
+"""
+SSS_SLAB = """
+Integrator "{kind}" "integer maxdepth" [6]
+Sampler "sobol" "integer pixelsamples" [16]
+Film "image" "integer xresolution" [64] "integer yresolution" [64]
+LookAt 0 3 0  0 0 0  0 0 1
+Camera "perspective" "float fov" [35]
+WorldBegin
+AttributeBegin
+  Translate 0 8 0
+  LightSource "point" "color I" [100 100 100]
+AttributeEnd
+Material "subsurface" "color sigma_a" [0.05 0.05 0.05]
+         "color sigma_s" [12 12 12] "float eta" [1.33]
+Shape "trianglemesh" "integer indices" [0 1 2 2 3 0]
+  "point P" [-20 0 -20  -20 0 20  20 0 20  20 0 -20]
+WorldEnd
+"""
+
+
+def _slab_stack(res=64, spp=2):
+    """tests/test_bssrdf.py::_render_slabs's three stacked slabs."""
+    slabs = "\n".join(
+        f'AttributeBegin\nTranslate 0 {0.12 * i} 0\n'
+        f'Shape "trianglemesh" "integer indices" [0 1 2 2 3 0'
+        f' 4 6 5 4 7 6]\n'
+        f'  "point P" [-4 0 -4  -4 0 4  4 0 4  4 0 -4'
+        f'  -4 -0.05 -4  -4 -0.05 4  4 -0.05 4  4 -0.05 -4]\n'
+        f'AttributeEnd' for i in range(3))
+    return f"""
+Integrator "path" "integer maxdepth" [5]
+Sampler "sobol" "integer pixelsamples" [{spp}]
+Film "image" "integer xresolution" [{res}] "integer yresolution" [{res}]
+LookAt 0 3 0.01  0 0 0  0 0 1
+Camera "perspective" "float fov" [35]
+WorldBegin
+AttributeBegin
+  Translate 0 8 0
+  LightSource "point" "color I" [100 100 100]
+AttributeEnd
+Material "subsurface" "color sigma_a" [0.05 0.05 0.05]
+         "color sigma_s" [6 6 6] "float eta" [1.33]
+{slabs}
+WorldEnd
+"""
+
+
+def skin_32(dev):
+    job = parse_scene(os.path.join(SKIN_DIR, "skin.pbrt"), device=dev)
+    job.film_width = job.film_height = 32
+    return cli.run_job(job, spp=2, max_depth=DEPTH)[0]
+
+
+def _probe_calls(passes, depth=DEPTH):
+    """K1 / K2 calls of a main-path pass in a scene with subsurface
+    materials: the camera's, then each bounce's probe passes and its
+    trace_pair."""
+    return 1 + depth * (passes + 1)
+
+
+def _sss_gates(run_path, card, device):
+    """(d): tests/test_bssrdf.py's three physical checks at a larger size
+    on the card."""
+    means = {}
+    for name, a, s_ in (("bright", 0.02, 8.0), ("dark", 4.0, 0.5)):
+        job = PbrtAPI(device).parse_string(SSS_SPHERE.format(a=a, s=s_))
+        (film, _), _ = run_path(
+            f"subsurface sphere {name}", lambda: cli.run_job(job),
+            {"dense_queue": _probe_calls(path.SSS_PROBE_PASSES) * job.spp,
+             "dense_queue_cull": 0,
+             "dense_loop": _probe_calls(path.SSS_PROBE_PASSES) * job.spp,
+             "dense_loop_motion": 0}, job.scene)
+        rgb = filmmod.develop_rgb(film)
+        check(bool(torch.isfinite(rgb).all()) and bool((rgb >= 0).all()),
+              f"subsurface sphere {name}: non-finite or negative")
+        means[name] = (rgb.mean().item(), rgb.max().item())
+    ratio = means["bright"][0] / max(means["dark"][0], 1e-6)
+    print(f"phase 26d subsurface sphere 64x64 8 spp: bright mean "
+          f"{means['bright'][0]:.6f} (max {means['bright'][1]:.3f}), dark "
+          f"{means['dark'][0]:.6f}: ratio {ratio:.2f} (> 4)")
+    check(ratio > 4 and means["bright"][1] < 1e3,
+          f"subsurface sphere: bright / dark {ratio}")
+    flat = {}
+    for kind in ("path", "whitted"):
+        job = PbrtAPI(device).parse_string(SSS_SLAB.format(kind=kind))
+        film, _ = cli.run_job(job)
+        img = filmmod.develop_rgb(film)
+        check(bool(torch.isfinite(img).all()), f"slab {kind}: not finite")
+        n = img.shape[0]
+        flat[kind] = img[n // 4:3 * n // 4, n // 4:3 * n // 4].mean().item()
+    r = flat["path"] / max(flat["whitted"], 1e-9)
+    print(f"phase 26d flat slab 64x64 16 spp: probe {flat['path']:.6f}, "
+          f"diffusion limit (whitted) {flat['whitted']:.6f}: ratio {r:.4f} "
+          "(0.5-2)")
+    check(0.5 < r < 2.0, f"flat slab: probe / diffusion limit {r}")
+    # the three-slab chain: a probe straight down walks every hit
+    job = PbrtAPI(device).parse_string(_slab_stack())
+    sc = job.scene
+    g = torch.linspace(-3.0, 3.0, 256, device=device)
+    gx, gz = torch.meshgrid(g, g, indexing="ij")
+    o = torch.stack([gx.reshape(-1), torch.ones_like(gx).reshape(-1),
+                     gz.reshape(-1)], -1)
+    d = torch.tensor([0.0, -1.0, 0.0], device=device).expand_as(o)
+    counts = {}
+    for passes in (2, 4, 8):
+        cur, remaining = o, torch.full((o.shape[0],), 3.0, device=device)
+        n = torch.zeros(o.shape[0], dtype=torch.int64, device=device)
+        for _ in range(passes):
+            t, prim, found = isect.intersect(sc, geom.Ray.make(
+                cur, d, tmax=remaining))
+            pm = sc.prim_material[prim.clamp(min=0).long()]
+            n += (found & (pm >= 0)).long()
+            step = torch.where(found, t * 1.0002 + 1e-4, 0.0)
+            cur = cur + step[:, None] * d
+            remaining = torch.where(found, remaining - step, -1.0)
+        counts[passes] = int(n.max())
+    old = path.SSS_PROBE_PASSES
+    path.SSS_PROBE_PASSES = 2
+    try:
+        (film, _), c = run_path(
+            "three slabs, 2 probe passes", lambda: cli.run_job(job, spp=2),
+            {"dense_queue": _probe_calls(2) * 2, "dense_queue_cull": 0,
+             "dense_loop": _probe_calls(2) * 2, "dense_loop_motion": 0}, sc)
+    finally:
+        path.SSS_PROBE_PASSES = old
+    check_image(filmmod.develop_spectral(film), "three slabs")
+    print(f"phase 26d three slabs, {o.shape[0]} probes straight down: "
+          f"most hits {counts} by passes (2: 2, 4: >= 3, 8: <= 6); the "
+          f"render at 2 probe passes launches {c}")
+    check(counts[2] == 2 and counts[4] >= 3 and counts[8] <= 6,
+          f"three-slab chain: {counts}")
+
+
+def phase26(run_path, card, device, res):
+    """The rest of the materials (module docstring): (a) the skin scene
+    through the CLI, (b) K1 and K2 on its probe batches, (c) the card
+    against the CPU, (d) tests/test_bssrdf.py's checks."""
+    t0 = time.perf_counter()
+    scene_path = skin_scene.write_skin_scene(SKIN_DIR)
+    job = parse_scene(scene_path, device=device)
+    torch.cuda.synchronize()
+    t_parse = time.perf_counter() - t0
+    sc = job.scene
+    n_tri = int((sc.prim_type == 0).sum())
+    check(sc.use_dense and sc.has_sss and sc.has_hair and sc.has_fourier
+          and sc.has_ptex, "skin scene: a material family or the dense "
+          "route is missing")
+    P = path.SSS_PROBE_PASSES
+    calls = _probe_calls(P)
+    print(f"phase 26a skin scene {scene_path}: {n_tri} triangles, C="
+          f"{sc.dense_w.shape[0]} chunks of {sc.dense_chunk}, families "
+          f"{sc.mat_families}, {sc.bssrdf_profile.shape[0]} BSSRDF tables, "
+          f"{sc.fourier_grid.shape[0]} fourier lattice, written, parsed + "
+          f"built in {t_parse:.2f} s; {P} probe passes, {calls} K1 and K2 "
+          "calls a pass")
+    passes = SPP * (-(-W * H // RAYS_PER_PASS))
+    cli.run_job(job, spp=1, max_rays_per_pass=RAYS_PER_PASS)
+    torch.cuda.synchronize()
+    stats = {}
+    t1 = time.perf_counter()
+    (film, _), counts = run_path(
+        "skin render",
+        lambda: cli.run_job(job, spp=SPP, max_rays_per_pass=RAYS_PER_PASS,
+                            stats=stats),
+        {"dense_queue": calls * passes, "dense_queue_cull": 0,
+         "dense_loop": calls * passes, "dense_loop_motion": 0}, sc)
+    dt = time.perf_counter() - t1
+    ms = dt * 1e3 / passes
+    img = filmmod.develop_spectral(film)
+    check_image(img, "skin render")
+    cam = cli.build_camera(job, W, H, device)
+    cfg = SamplerConfig("sobol", 0, SPP)
+    strategy = dispatch.light_strategy(job.integrator_params)
+    prof = pass_profile(sc, cam, cfg, trace=functools.partial(
+        path.trace_paths, light_strategy=strategy))
+    idle = "not measured" if prof is None else f"{1 - prof[0] / ms:.3f}"
+    print(f"phase 26a skin render {W}x{H} {SPP} spp depth {DEPTH}: "
+          f"{passes} passes, {ms:.2f} ms/pass, {stats['rays']} rays "
+          f"(probe lanes in the closest-hit count), "
+          f"{stats['rays'] / dt:.4e} rays/s, image mean "
+          f"{img.mean().item():.6f}, {_prof(prof)}, idle share {idle}, "
+          f"launches {counts} on {card}")
+    t_render = time.perf_counter() - t0
+
+    # (b) K1 and K2 on the first and last probe pass of bounces 0 and 1
+    t0 = time.perf_counter()
+    batches = kw.sss_probe_batches(sc, cam, cfg, W, H, RAYS_PER_PASS, DEPTH,
+                                   light_strategy=strategy)
+    for k, (r16, tmax, _) in batches.items():
+        print(f"phase 26b probe batch {k}: {int((tmax > 0).sum())} live "
+              f"lanes of {tmax.shape[0]}")
+    pres = compare_kernels(sc, {f"skin_probe_{k}": v
+                                for k, v in batches.items()},
+                           card, "dense_loop", seams=True, skips=SKIN_SKIPS)
+    for k, v in pres.items():
+        res[k].update(v)
+    rep = kw.probe_repeats(sc, cam, cfg, W, H, RAYS_PER_PASS, DEPTH,
+                           light_strategy=strategy)
+    print("phase 26b probe lanes whose pass k+1 returned pass k's triangle "
+          "(the march step re-hit it), by bounce: " + ", ".join(
+              f"{b}: {s_} of {n} live" for b, (s_, n) in rep.items()))
+    t_kernels = time.perf_counter() - t0
+
+    # (c) the card against the CPU
+    t0 = time.perf_counter()
+    compare_cpu([("skin", skin_32)])
+    t_cpu = time.perf_counter() - t0
+
+    # (d) tests/test_bssrdf.py's three scenes, larger
+    t0 = time.perf_counter()
+    _sss_gates(run_path, card, device)
+    print(f"phase 26 materials pass; wall s write + parse + render "
+          f"{t_render:.1f}, kernels {t_kernels:.1f}, GPU vs CPU {t_cpu:.1f}"
+          f", bssrdf gates {time.perf_counter() - t0:.1f}")
+
+
 def walk_rows(res, launches):
     """The walk kernels' rows of the kernels line (WALK_ROWS), each with
     its kernel's launches on phase 25's render paths."""
@@ -3005,6 +3269,11 @@ def main():
     phase25(run_walk, card, device, res, shapes)
     print(f"phase 25 walks; wall s {time.perf_counter() - t0:.1f}")
 
+    # --- phase 26: subsurface, hair, fourier and ptex ---
+    t0 = time.perf_counter()
+    phase26(run_path, card, device, res)
+    print(f"phase 26 materials; wall s {time.perf_counter() - t0:.1f}")
+
     rows = []
     for k, (src, rep) in KERNELS.items():
         r = res[k]
@@ -3048,7 +3317,9 @@ def main():
                   "lights_bounce1", "volpath_walk1", "volpath_walk2",
                   "volpath_bench_walk1", "volpath_shells_walk2",
                   "volpath_shells_walk5", "volpath_shells_walk8",
-                  "shapes_camera", "shapes_bounce1", "shapes_bitonic"):
+                  "shapes_camera", "shapes_bounce1", "shapes_bitonic",
+                  "skin_probe_b0_p0", "skin_probe_b0_p3",
+                  "skin_probe_b1_p0", "skin_probe_b1_p3"):
             if b in r:
                 row.update({f"ms_{b}": r[b]["ms"],
                             f"device_ms_{b}": _ms(r[b]["device"]),

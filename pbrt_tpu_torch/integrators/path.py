@@ -29,12 +29,20 @@ non-delta light depends on the strategy (a recorded deviation from the
 reference's estimator).  Shadow rays toward a sphere light ignore its
 own sphere (intersect.nee_ignore_light).
 
-Not ported yet: subsurface (BSSRDF probe), hair and the primary-sample-
-space `uniforms` hook.
+Subsurface (`_sss_event`, in a scene with a BSSRDF table): after the
+shading frame, a subsurface lane either reflects off the interface or
+is relocated to an exit point found by SSS_PROBE_PASSES closest-hit
+probe passes (each an intersect call, K1 and K2 on the card), and this
+bounce's NEE and sampling then run there with the Sw exit lobe.  Hair
+lanes shade in a frame along the fiber (bsdf.shading_frame) and sample
+with a ninth sampler dimension a bounce.
+
+Not ported: the primary-sample-space `uniforms` hook (MLT's).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import inspect
 
 import numpy as np
@@ -47,6 +55,7 @@ from pbrt_tpu_torch.core import spectrum as spec
 from pbrt_tpu_torch.film import film as filmmod
 from pbrt_tpu_torch.lights import distrib, lights
 from pbrt_tpu_torch.materials import bsdf
+from pbrt_tpu_torch.materials import bssrdf as bssrdfmod
 from pbrt_tpu_torch.ops import intersect as isect
 from pbrt_tpu_torch.samplers.samplers import SamplerConfig, sample_dim
 from pbrt_tpu_torch.scene import ir
@@ -59,14 +68,190 @@ DIM_LENS_V = 3
 DIM_TIME = 4
 DIMS_PER_BOUNCE = 9
 DIM_BOUNCE_BASE = 5
+# the BSSRDF probe's dimensions, in their own block above the bounces'
+# (depths below 64)
+DIM_SSS_BASE = DIM_BOUNCE_BASE + 64 * DIMS_PER_BOUNCE
+DIMS_PER_SSS = 8
 # the "all" strategy's two dimensions a light a bounce, in their own block
-# above the BSSRDF probe's (the JAX package's DIM_ALL_BASE)
-DIM_ALL_BASE = DIM_BOUNCE_BASE + 64 * DIMS_PER_BOUNCE + 64 * 8
+# above the BSSRDF probe's
+DIM_ALL_BASE = DIM_SSS_BASE + 64 * DIMS_PER_SSS
 RR_THRESHOLD = 1.0       # the reference's rrThreshold default
+# the probe's closest-hit passes a subsurface event: the reference walks
+# the whole chain of intersections along the probe segment
+# (bssrdf.cpp:255-270); each pass here extends it by one hit,
+# reservoir-sampling among the hits of the same material, so chains of
+# up to this many hits are exact and longer ones truncated.  4 covers a
+# two-sided slab pierced twice.  The JAX package reads it from the
+# environment; here it is a module constant that callers may set.
+SSS_PROBE_PASSES = 4
 
 
 def _bdim(bounce, k):
     return DIM_BOUNCE_BASE + bounce * DIMS_PER_BOUNCE + k
+
+
+def _sdim_sss(bounce, k):
+    return DIM_SSS_BASE + bounce * DIMS_PER_SSS + k
+
+
+def _sss_event(scene, hit, mat, beta, alive, ss, ts, sdim, bounce,
+               wavelength, n_rays=None, count_rays=False):
+    """The BSSRDF interface event and probe-ray relocation (reference
+    SeparableBSSRDF::Sample_S / Sample_Sp / Pdf_Sp, bssrdf.cpp:214-309;
+    path.cpp:155-180; pbrt_tpu/integrators/path.py:76-244).
+
+    With probability Fr a subsurface lane reflects off the interface: a
+    mirror where the interface is smooth, the reflection-only rough-glass
+    lobe where it is rough (Fr at a visible-GGX half vector; that lobe
+    multiplies by F again, the JAX package's F^2, kept).  Otherwise it
+    enters and is relocated to an exit point pi found by SSS_PROBE_PASSES
+    closest-hit probes along a chord through a radius drawn from the
+    diffusion profile, reservoir-picking among hits of its own material;
+    it takes beta *= Sp / Pdf_Sp and the Sw exit lobe (MAT_SSW), so the
+    bounce's NEE and sampling run at pi.  A lane whose probe finds no exit
+    dies.  sdim(dim): the lanes' sampler dimension.
+
+    Returns (hit, mat, beta, alive, n_rays); n_rays [4] (count_rays) gets
+    the probe lanes added to its closest-hit count."""
+    t = mat.type
+    NS = spec.N_SPECTRAL_SAMPLES
+    dev = beta.device
+    is_ss = alive & ((t == ir.MAT_SUBSURFACE) | (t == ir.MAT_KDSUBSURFACE))
+    # the interface's Fresnel: the macro normal's where it is smooth
+    # (FresnelSpecular, subsurface.cpp:64-66), a visible-GGX half vector's
+    # where it is rough (the TrowbridgeReitz interface, :68-87)
+    rough_if = is_ss & ((mat.rough_u > 0) | (mat.rough_v > 0))
+    wo_l0 = geom.world_to_frame(ss, ts, hit.ns, hit.wo)
+    wh_l = bsdf.ggx_sample_wh(wo_l0, sdim(_sdim_sss(bounce, 6)),
+                              sdim(_sdim_sss(bounce, 7)),
+                              torch.clamp(mat.rough_u, min=1e-3),
+                              torch.clamp(mat.rough_v, min=1e-3))
+    cos_if = torch.where(rough_if, (wo_l0 * wh_l).sum(-1),
+                         geom.dot(hit.wo, hit.ns))
+    fr = bsdf.fresnel_dielectric(cos_if, 1.0, mat.eta)
+    refl = is_ss & (sdim(_sdim_sss(bounce, 0)) < fr)
+    trans = is_ss & ~refl
+    # reflected lanes: the smooth interface's mirror, the rough one's
+    # reflection-only rough glass (MicrofacetReflection with dielectric
+    # Fresnel, subsurface.cpp:76-83); a rough interface's transmission
+    # keeps the FresnelSpecular-style (1 - Fr) cancellation
+    mat = dataclasses.replace(
+        mat,
+        type=torch.where(refl, torch.where(rough_if, ir.MAT_ROUGHGLASS,
+                                           ir.MAT_MIRROR), mat.type),
+        kr=torch.where(refl[:, None], 1.0, mat.kr),
+        kt=torch.where((refl & rough_if)[:, None], 0.0, mat.kt))
+
+    # ---- the probe (Sample_Sp): projection axis, channel, radius ----
+    u_ax = sdim(_sdim_sss(bounce, 1))
+    pick_ns = (u_ax < 0.5)[:, None]
+    pick_ss = ((u_ax >= 0.5) & (u_ax < 0.75))[:, None]
+    vx = torch.where(pick_ns, ss, torch.where(pick_ss, ts, hit.ns))
+    vy = torch.where(pick_ns, ts, torch.where(pick_ss, hit.ns, ss))
+    vz = torch.where(pick_ns, hit.ns, torch.where(pick_ss, ss, ts))
+    ch = torch.clamp((sdim(_sdim_sss(bounce, 2)) * NS).to(torch.int64), 0,
+                     NS - 1)
+    sigt_ch = torch.gather(mat.sss_sigma_t, 1, ch[:, None])[:, 0]
+    rho_ch = torch.gather(mat.sss_rho, 1, ch[:, None])[:, 0]
+    tid = torch.clamp(mat.sss_tid, 0, scene.bssrdf_profile.shape[0] - 1)
+    u_r = sdim(_sdim_sss(bounce, 3))
+    r_opt = bssrdfmod.sr_sample_device(scene.bssrdf_cdf, scene.bssrdf_radius,
+                                       scene.bssrdf_rho, tid, rho_ch, u_r)
+    r_max_opt = bssrdfmod.sr_sample_device(
+        scene.bssrdf_cdf, scene.bssrdf_radius, scene.bssrdf_rho, tid, rho_ch,
+        torch.full_like(u_r, 0.999))
+    inv_sigt = 1.0 / torch.clamp(sigt_ch, min=1e-9)
+    r_w = r_opt * inv_sigt
+    r_max = r_max_opt * inv_sigt
+    ok_r = trans & (sigt_ch > 1e-9) & (r_w < r_max)
+    half_l = torch.sqrt(torch.clamp(r_max * r_max - r_w * r_w, min=0.0))
+    phi = 2.0 * np.pi * sdim(_sdim_sss(bounce, 4))
+    pstart = (hit.p + r_w[:, None] * (torch.cos(phi)[:, None] * vx
+                                      + torch.sin(phi)[:, None] * vy)
+              + half_l[:, None] * vz)
+    pdir = -vz
+
+    # ---- the chained probe: a reservoir pick among same-material hits;
+    # the march step is the JAX package's, sized for its kernel's bf16x2
+    # t, kept ----
+    P = scene.prim_type.shape[0]
+    eps = 1e-4 * torch.clamp(torch.abs(pstart).amax(-1), min=1.0)
+    cur_o = pstart
+    remaining = torch.where(ok_r, 2.0 * half_l, -1.0)
+    dist0 = torch.zeros_like(remaining)
+    nfound = torch.zeros_like(ch)
+    pick_t = torch.zeros_like(dist0)
+    pick_prim = torch.zeros_like(ch)
+    u_pick = sdim(_sdim_sss(bounce, 5))
+    for k in range(SSS_PROBE_PASSES):
+        pray = geom.Ray.make(cur_o, pdir, tmax=remaining,
+                             wavelength=wavelength)
+        if count_rays:
+            n_rays[0] += (remaining > 0).sum()
+        tt, prim, found = isect.intersect(scene, pray)
+        pm = scene.prim_material[torch.clamp(prim, 0, P - 1).long()]
+        match = found & (pm == hit.material)
+        nfound = nfound + match.to(nfound.dtype)
+        # a golden-ratio shift decorrelates the passes' reservoir draws
+        u_k = torch.remainder(u_pick + 0.61803398875 * k, 1.0)
+        accept = match & (u_k * nfound.to(torch.float32) < 1.0)
+        pick_t = torch.where(accept, dist0 + tt, pick_t)
+        pick_prim = torch.where(accept, prim.to(pick_prim.dtype), pick_prim)
+        if k + 1 < SSS_PROBE_PASSES:
+            step = torch.where(found, tt * (1.0 + 2e-4) + eps, 0.0)
+            dist0 = dist0 + step
+            cur_o = cur_o + step[:, None] * pdir
+            remaining = torch.where(found, remaining - step, -1.0)
+    found_any = trans & (nfound > 0)
+    probe_ray = geom.Ray.make(pstart, pdir,
+                              tmax=torch.clamp(remaining, min=0.0),
+                              wavelength=wavelength)
+    pih = isect.make_hit(scene, probe_ray, pick_t, pick_prim, found_any)
+
+    # ---- Sp and its pdf at pi (TabulatedBSSRDF::Sr and Pdf_Sp) ----
+    d_vec = pih.p - hit.p
+    d_w = geom.length(d_vec)
+    sig2 = mat.sss_sigma_t * mat.sss_sigma_t                    # [B,31]
+    sp = bssrdfmod.sr_eval_device(
+        scene.bssrdf_profile, scene.bssrdf_rho, scene.bssrdf_radius,
+        tid[:, None], mat.sss_rho, d_w[:, None] * mat.sss_sigma_t) * sig2
+    dl = torch.stack([geom.dot(ss, d_vec), geom.dot(ts, d_vec),
+                      geom.dot(hit.ns, d_vec)], -1)             # [B,3]
+    nl = torch.stack([geom.dot(ss, pih.ng), geom.dot(ts, pih.ng),
+                      geom.dot(hit.ns, pih.ng)], -1)
+    r_proj = torch.sqrt(torch.clamp(torch.stack(
+        [dl[:, 1] ** 2 + dl[:, 2] ** 2,
+         dl[:, 2] ** 2 + dl[:, 0] ** 2,
+         dl[:, 0] ** 2 + dl[:, 1] ** 2], -1), min=1e-20))       # [B,3]
+    # MIS over the 3 projection axes and the NS channels
+    # (bssrdf.cpp:283-309)
+    pdf_terms = bssrdfmod.sr_pdf_device(
+        scene.bssrdf_profile, scene.bssrdf_cdf, scene.bssrdf_rho,
+        scene.bssrdf_radius, tid[:, None, None], mat.sss_rho[:, None, :],
+        r_proj[:, :, None] * mat.sss_sigma_t[:, None, :]) \
+        * sig2[:, None, :]                                      # [B,3,31]
+    axis_prob = torch.tensor([0.25, 0.25, 0.5], device=dev)
+    pdf_sp = (pdf_terms * torch.abs(nl)[:, :, None]
+              * axis_prob[None, :, None]).sum((1, 2)) / NS
+    pdf_sp = pdf_sp / torch.clamp(nfound.to(torch.float32), min=1.0)
+
+    ok = found_any & (pdf_sp > 1e-12)
+    beta = torch.where(ok[:, None],
+                       beta * sp / torch.clamp(pdf_sp, min=1e-12)[:, None],
+                       beta)
+    alive = alive & ~(trans & ~ok)
+    okc = ok[:, None]
+    hit = hit.replace(p=torch.where(okc, pih.p, hit.p),
+                      ng=torch.where(okc, pih.ng, hit.ng),
+                      ns=torch.where(okc, pih.ns, hit.ns),
+                      uv=torch.where(okc, pih.uv, hit.uv),
+                      prim=torch.where(ok, pih.prim, hit.prim),
+                      instance=torch.where(ok, pih.instance, hit.instance),
+                      # the Sw lobe does not depend on wo; wo along ns
+                      # keeps the shading frame well formed
+                      wo=torch.where(okc, pih.ns, hit.wo))
+    mat = dataclasses.replace(mat, type=torch.where(ok, ir.MAT_SSW, mat.type))
+    return hit, mat, beta, alive, n_rays
 
 
 def trace_paths(scene: ir.SceneData, ray: geom.Ray, pixel_id, sample_idx,
@@ -153,10 +338,17 @@ def trace_paths(scene: ir.SceneData, ray: geom.Ray, pixel_id, sample_idx,
         mat = bsdf.gather_materials(
             scene, hit.material, uv=hit.uv, p=hit.p,
             u_mix=sdim(_bdim(bounce, 7)) if scene.has_mix else None,
-            uv_width=uv_w, duv=hit.duv)
+            uv_width=uv_w, duv=hit.duv, face=hit.face)
         hit = hit.replace(ns=bsdf.bump_shading_normal(scene, hit.material,
                                                       hit))
-        ss, ts = geom.coordinate_system(hit.ns)
+        ss, ts = bsdf.shading_frame(scene, hit)
+        # ---- the BSSRDF probe relocation (bssrdf.cpp Sample_S): relocated
+        # lanes run this bounce's NEE and sampling at their exit point ----
+        if scene.has_sss:
+            hit, mat, beta, alive, n_rays = _sss_event(
+                scene, hit, mat, beta, alive, ss, ts, sdim, bounce,
+                ray.wavelength, n_rays, count_rays)
+            ss, ts = bsdf.shading_frame(scene, hit)
         wo_l = geom.world_to_frame(ss, ts, hit.ns, hit.wo)
 
         # ---- NEE: one light, power-heuristic MIS; the shadow ray is
@@ -217,7 +409,8 @@ def trace_paths(scene: ir.SceneData, ray: geom.Ray, pixel_id, sample_idx,
         # ---- BSDF sampling (path.cpp:141-148) ----
         wi_l, f, pdf, is_spec, transmitted, eta_fac = bsdf.sample_f(
             mat, wo_l, sdim(_bdim(bounce, 3)), sdim(_bdim(bounce, 4)),
-            sdim(_bdim(bounce, 5)))
+            sdim(_bdim(bounce, 5)),
+            u3=sdim(_bdim(bounce, 8)) if scene.has_hair else None)
         wi_w = geom.frame_to_world(ss, ts, hit.ns, wi_l)
         cos_t = geom.absdot(wi_w, hit.ns)
         ok = (pdf > 1e-12) & ~spec.is_black(f)

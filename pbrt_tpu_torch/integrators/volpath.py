@@ -28,7 +28,10 @@ and the shadow walk draw their samples at salts 256 apart a bounce, so
 their dimensions overlap from one bounce to the next; the shadow walk
 treats a grid as homogeneous when it is given no pixel ids; and the
 per-lane grid walks stop after media.LANE_TRACK_STEPS majorant steps.
-Subsurface materials are not ported (the builder raises on them).
+Surface lanes shade in bsdf.shading_frame (fiber-aligned on hair) and
+take the path integrator's BSSRDF probe event (path._sss_event) in a
+scene with subsurface materials, as volpath.cpp handles subsurface;
+its probe passes are closest-hit intersect calls of their own.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ import torch
 from pbrt_tpu_torch.core import geometry as geom
 from pbrt_tpu_torch.core import sampling
 from pbrt_tpu_torch.core import spectrum as spec
-from pbrt_tpu_torch.integrators.path import _bdim
+from pbrt_tpu_torch.integrators.path import _bdim, _sss_event
 from pbrt_tpu_torch.lights import lights
 from pbrt_tpu_torch.materials import bsdf
 from pbrt_tpu_torch.media import media as medmod
@@ -168,7 +171,15 @@ def trace_volpath(scene, ray, pixel_id, sample_idx, cfg, medium,
 
         # ---- NEE from the vertex: the phase function or the BSDF ----
         mat = bsdf.gather_materials(scene, hit.material, uv=hit.uv, p=hit.p)
-        ss, ts = geom.coordinate_system(hit.ns)
+        ss, ts = bsdf.shading_frame(scene, hit)
+        # the BSSRDF probe relocation of surface lanes (path._sss_event)
+        if scene.has_sss:
+            hit, mat, beta, alive_s, _ = _sss_event(
+                scene, hit, mat, beta, alive & ~in_medium & hit.valid, ss,
+                ts, sdim, bounce, ray.wavelength)
+            alive = torch.where(in_medium, alive, alive_s)
+            ss, ts = bsdf.shading_frame(scene, hit)
+            p_vert = torch.where(in_medium[:, None], p_med, hit.p)
         wo_l = geom.world_to_frame(ss, ts, hit.ns, hit.wo)
         if scene.n_lights > 0:
             l = torch.clamp((sdim(_bdim(bounce, 0)) * n_lights)

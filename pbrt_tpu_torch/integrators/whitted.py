@@ -5,7 +5,9 @@ transmission only.
 
 As in the JAX package, the light is picked uniformly, NEE takes no MIS
 weight, and the materials are looked up without bump maps or texture
-footprints.
+footprints.  Hair shades in its fiber frame (bsdf.shading_frame); a
+subsurface material, which has no probe pass here, shades as its
+diffusion limit (the lobe masks' fallback).
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ def make_trace_whitted():
                 break
             mat = bsdf.gather_materials(scene, hit.material, uv=hit.uv,
                                         p=hit.p)
-            ss, ts = geom.coordinate_system(hit.ns)
+            ss, ts = bsdf.shading_frame(scene, hit)
             wo_l = geom.world_to_frame(ss, ts, hit.ns, hit.wo)
             if scene.n_lights > 0:
                 l = torch.clamp((sdim(_bdim(bounce, 0)) * n_lights)

@@ -1,7 +1,6 @@
 """Vectorized spectral BSDFs with mask-based type dispatch (port of
-pbrt_tpu.materials.bsdf without its hair, fourier and BSSRDF branches;
-reference: src/core/reflection.{h,cpp}, src/core/microfacet.{h,cpp},
-src/materials/*).
+pbrt_tpu.materials.bsdf; reference: src/core/reflection.{h,cpp},
+src/core/microfacet.{h,cpp}, src/materials/*).
 
 Each lane carries a gathered material record; each family is a
 closed-form eval/sample/pdf computed under a lane mask.  Shading frame:
@@ -12,9 +11,17 @@ Ported families: matte, plastic, mirror, glass, metal, uber (with
 opacity), substrate, translucent, the fork's retroreflective, disney,
 rough glass, mix (resolved to one of its two materials per lane) and the
 "none" interface; GGX or Beckmann microfacets per material; textured Kd /
-Ks and bump maps.  The scene's static `mat_families` tuple
-(MaterialParams.families) gates each family's lobes: an absent family
-launches nothing, as the JAX package compiles it away.
+Ks and bump maps; hair (materials/hair.py, in a frame whose x axis is the
+fiber, `shading_frame`); fourier (a baked lattice, materials/fourier.py);
+and the subsurface materials.  A subsurface lane that the path
+integrator's probe pass relocates (integrators/path.py _sss_event)
+becomes a mirror or rough-glass interface reflection or the Sw exit lobe
+MAT_SSW; one that reaches the dispatch unrelocated (whitted, ao,
+directlighting's fallback) shades as the diffusion limit, a plastic of
+the table's effective albedo.  The scene's static `mat_families` tuple
+(MaterialParams.families) and the has_hair / has_fourier / has_sss flags
+gate each family's lobes: an absent family launches nothing, as the JAX
+package compiles it away.
 """
 
 from __future__ import annotations
@@ -29,6 +36,9 @@ from pbrt_tpu_torch.core import geometry as geom
 from pbrt_tpu_torch.core import rng as _rng
 from pbrt_tpu_torch.core import sampling
 from pbrt_tpu_torch.core import spectrum as spec
+from pbrt_tpu_torch.materials import fourier as fouriermod
+from pbrt_tpu_torch.materials import hair as hairmod
+from pbrt_tpu_torch.materials.bssrdf import fresnel_moment1_torch
 from pbrt_tpu_torch.scene import ir
 from pbrt_tpu_torch.textures.textures import eval_texture
 
@@ -58,6 +68,22 @@ class MaterialParams:
     beckmann: torch.Tensor = None
     # [B,8] disney lobe weights; None: no disney material (has_disney)
     disney: torch.Tensor = None
+    # [B] the hair fiber's offset h in [-1, 1] (2 v - 1 across a curve's
+    # width); None: no hair (has_hair)
+    hair_h: torch.Tensor = None
+    # the scene's fourier lattices and marginals and each lane's lattice;
+    # None: no fourier material (has_fourier)
+    fourier_grid: torch.Tensor = None   # [F,NM,NM,NP,3]
+    fourier_id: torch.Tensor = None     # [B]
+    fourier_a0: torch.Tensor = None     # [F,NMi,NMo]
+    fourier_lum: torch.Tensor = None    # [F,NMi,NMo,NP]
+    # subsurface (None: no BSSRDF table, has_sss): the Sw lobe's
+    # normalisation c = 1 - 2 FresnelMoment1(1 / eta) (bssrdf.h:221), the
+    # profile table and the per-channel medium of the probe pass
+    sss_c: torch.Tensor = None          # [B]
+    sss_tid: torch.Tensor = None        # [B]
+    sss_sigma_t: torch.Tensor = None    # [B,31]
+    sss_rho: torch.Tensor = None        # [B,31]
     # static tuple of the MAT_* families present (None: all)
     families: tuple = None
 
@@ -114,6 +140,42 @@ def bump_shading_normal(scene: ir.SceneData, material_idx, hit):
     return torch.where((btex >= 0)[:, None], ns2, hit.ns)
 
 
+def hair_shading_frame(scene: ir.SceneData, hit, ss, ts):
+    """(ss, ts) with the x axis along the fiber on hair lanes: dpdu of the
+    hit triangle's uv parameterisation (curves run u along the fiber),
+    made tangent to ns.  The hair BSDF's frame is x the fiber, (y, z) the
+    normal plane (hair.h; the reference's dpdu-aligned BSDF frame)."""
+    m = torch.clamp(hit.material, 0, scene.mat_type.shape[0] - 1).long()
+    is_hair = (scene.mat_type[m] == ir.MAT_HAIR) & (hit.material >= 0)
+    prim = torch.clamp(hit.prim, 0, scene.tri_v0.shape[0] - 1).long()
+    uv = scene.tri_uv[prim]                       # [B,3,2]
+    e1 = scene.tri_e1[prim]
+    e2 = scene.tri_e2[prim]
+    duv1 = uv[:, 1] - uv[:, 0]
+    duv2 = uv[:, 2] - uv[:, 0]
+    det = duv1[:, 0] * duv2[:, 1] - duv1[:, 1] * duv2[:, 0]
+    ok = torch.abs(det) > 1e-12
+    inv = 1.0 / torch.where(ok, det, 1.0)
+    dpdu = (duv2[:, 1:2] * e1 - duv1[:, 1:2] * e2) * inv[:, None]
+    tang = dpdu - geom.dot(dpdu, hit.ns)[:, None] * hit.ns
+    ln = geom.length(tang)
+    ok = ok & (ln > 1e-9)
+    tang = tang / torch.clamp(ln, min=1e-9)[:, None]
+    use = (is_hair & ok)[:, None]
+    return (torch.where(use, tang, ss),
+            torch.where(use, geom.cross(hit.ns, tang), ts))
+
+
+def shading_frame(scene: ir.SceneData, hit):
+    """(ss, ts) about hit.ns, fiber-aligned on hair lanes when the scene
+    has hair (the reference's dpdu-aligned frame,
+    SurfaceInteraction::ComputeScatteringFunctions)."""
+    ss, ts = geom.coordinate_system(hit.ns)
+    if scene.has_hair:
+        ss, ts = hair_shading_frame(scene, hit, ss, ts)
+    return ss, ts
+
+
 def resolve_mix(scene: ir.SceneData, material_idx, u_mix=None, p=None):
     """MAT_MIX lanes resolved to one of their two named materials, `a`
     with probability `amount` (materials/mixmat.cpp blends the lobe sets;
@@ -136,12 +198,15 @@ def resolve_mix(scene: ir.SceneData, material_idx, u_mix=None, p=None):
 
 
 def gather_materials(scene: ir.SceneData, material_idx, uv=None, p=None,
-                     u_mix=None, uv_width=None, duv=None) -> MaterialParams:
+                     u_mix=None, uv_width=None, duv=None,
+                     face=None) -> MaterialParams:
     """Per-lane material records by plain indexing of the material table;
     mix lanes resolved (resolve_mix), texture-bound Kd / Ks evaluated at
     the hit's uv and world point when uv is given and the scene has
-    textures (uv_width, duv: the footprint, textures.eval_texture), and
-    uber's opacity applied to every lobe."""
+    textures (uv_width, duv: the footprint, textures.eval_texture; face:
+    the hits' face index, which ptex textures read), and uber's opacity
+    applied to every lobe.  The hair, fourier and subsurface fields are
+    filled only in a scene that has them."""
     material_idx = resolve_mix(scene, material_idx, u_mix, p)
     m = torch.clamp(material_idx, 0, scene.mat_type.shape[0] - 1).long()
     rough_u, rough_v = scene.mat_rough_u[m], scene.mat_rough_v[m]
@@ -161,9 +226,9 @@ def gather_materials(scene: ir.SceneData, material_idx, uv=None, p=None,
                                                  device=uv.device)
         for slot in ("kd", "ks"):
             tex_idx = getattr(scene, f"mat_{slot}_tex")[m]
-            s = spec.from_rgb(_texture(scene, tex_idx, uv, pw,
-                                       uv_width=uv_width, duv=duv),
-                              "reflectance")
+            s = spec.from_rgb(_texture(
+                scene, tex_idx, uv, pw, uv_width=uv_width, duv=duv,
+                face=face if scene.has_ptex else None), "reflectance")
             s = torch.where((tex_idx >= 0)[:, None], s,
                             kd if slot == "kd" else ks)
             if slot == "kd":
@@ -180,15 +245,31 @@ def gather_materials(scene: ir.SceneData, material_idx, uv=None, p=None,
         op = scene.mat_opacity[m]
         kd, ks, kr, kt = kd * op, ks * op, kr * op, kt * op
     metal = _present(fam, ir.MAT_METAL)
+    eta = scene.mat_eta[m]
+    extra = {}
+    if scene.has_hair and uv is not None:
+        extra["hair_h"] = torch.clamp(2.0 * uv[..., 1] - 1.0, -0.995, 0.995)
+    if scene.has_fourier:
+        extra.update(fourier_grid=scene.fourier_grid,
+                     fourier_id=scene.mat_fourier_id[m],
+                     fourier_a0=scene.fourier_a0,
+                     fourier_lum=scene.fourier_lum)
+    if scene.has_sss:
+        extra.update(
+            sss_c=torch.clamp(1.0 - 2.0 * fresnel_moment1_torch(
+                1.0 / torch.clamp(eta, min=1e-3)), min=1e-4),
+            sss_tid=scene.mat_bssrdf_id[m],
+            sss_sigma_t=scene.mat_sss_sigma_t[m],
+            sss_rho=scene.mat_sss_rho[m])
     return MaterialParams(
         type=torch.where(material_idx >= 0, scene.mat_type[m], ir.MAT_NONE),
         kd=kd, ks=ks, kr=kr, kt=kt, rough_u=au, rough_v=av,
-        eta=scene.mat_eta[m], sigma=scene.mat_sigma[m],
+        eta=eta, sigma=scene.mat_sigma[m],
         eta_spec=scene.mat_eta_spec[m] if metal else None,
         k_spec=scene.mat_k_spec[m] if metal else None, opacity=op,
         beckmann=scene.mat_beckmann[m] if scene.has_beckmann else None,
         disney=scene.mat_disney[m] if scene.has_disney else None,
-        families=fam)
+        families=fam, **extra)
 
 
 # ---------------------------------------------------------------------------
@@ -694,10 +775,14 @@ class _Masks:
         return out
 
     def has_diff(self):
-        return self(ir.MAT_MATTE, ir.MAT_PLASTIC, ir.MAT_UBER, ir.MAT_RETRO)
+        # subsurface lanes that reach the dispatch unrelocated take the
+        # diffusion limit: a plastic whose kd is the table's effective
+        # albedo (parser/api.py)
+        return self(ir.MAT_MATTE, ir.MAT_PLASTIC, ir.MAT_UBER, ir.MAT_RETRO,
+                    *_SSS)
 
     def has_ggx_diel(self):
-        return self(ir.MAT_PLASTIC, ir.MAT_UBER)
+        return self(ir.MAT_PLASTIC, ir.MAT_UBER, *_SSS)
 
     def is_delta(self):
         """mirror, glass and the "none" interface (every missed lane is
@@ -721,6 +806,16 @@ class _Masks:
         return torch.clamp(n, min=1.0)
 
 
+_SSS = (ir.MAT_SUBSURFACE, ir.MAT_KDSUBSURFACE)
+
+
+def _hair_args(params):
+    """hair.py's material arguments from the record's reused slots: kd
+    sigma_a, rough_u / rough_v beta_m / beta_n, sigma alpha in degrees."""
+    return dict(eta=params.eta, beta_m=params.rough_u,
+                beta_n=params.rough_v, alpha=params.sigma * (PI / 180.0))
+
+
 def eval_f(params: MaterialParams, wo, wi):
     """f(wo, wi) of the non-delta lobes, local frame; [B,31]."""
     t = params.type
@@ -740,11 +835,11 @@ def eval_f(params: MaterialParams, wo, wi):
                              lambertian_f(params.kd))
         f = torch.where((has_diff & refl)[..., None], f_diff, 0.0)
     if _present(fam, ir.MAT_PLASTIC, ir.MAT_UBER, ir.MAT_ROUGHGLASS,
-                ir.MAT_METAL, ir.MAT_DISNEY):
+                ir.MAT_METAL, ir.MAT_DISNEY, *_SSS):
         wh, _ = _safe_half(wo, wi)
     # dielectric-coat microfacet (plastic / uber / rough-glass reflection)
     if _present(fam, ir.MAT_PLASTIC, ir.MAT_UBER, ir.MAT_ROUGHGLASS,
-                ir.MAT_DISNEY):
+                ir.MAT_DISNEY, *_SSS):
         F_diel = fresnel_dielectric(geom.dot(wi, wh), 1.0,
                                     params.eta)[..., None]
     has_ggx_diel = mk.has_ggx_diel()
@@ -801,7 +896,29 @@ def eval_f(params: MaterialParams, wo, wi):
                                 f_rg_t * ((1.0 - dz[0]) * dz[6])[..., None],
                                 0.0))
     if f is None:
-        return torch.zeros_like(params.kd)
+        f = torch.zeros_like(params.kd)
+    # hair (materials/hair.cpp through materials/hair.py), in its frame
+    if params.hair_h is not None:
+        f = torch.where((t == ir.MAT_HAIR)[..., None], hairmod.hair_eval(
+            wo, wi, params.hair_h, params.kd, **_hair_args(params)), f)
+    # the Sw exit lobe at a probe's exit point: Fresnel transmission
+    # scaled to unit albedo, cosine-shaped (SeparableBSSRDF::Sw,
+    # bssrdf.h:221).  The reference's radiance-mode eta^2 in the adapter
+    # cancels the 1/eta^2 its FresnelSpecular entry applied (path.cpp:155,
+    # reflection.h:351); the probe event applies no entry factor, so the
+    # pair is folded to its net 1 here, as in the JAX package
+    if params.sss_c is not None:
+        fr_wi = fresnel_dielectric(cos_theta(wi), 1.0, params.eta)
+        f = torch.where(((t == ir.MAT_SSW) & refl)[..., None],
+                        ((1.0 - fr_wi) / (params.sss_c * PI))[..., None], f)
+    # fourier: the baked lattice, one lookup a lattice (F is small)
+    if params.fourier_id is not None:
+        is_four = t == ir.MAT_FOURIER
+        for gi in range(params.fourier_grid.shape[0]):
+            rgb = fouriermod.eval_grid(params.fourier_grid[gi], wo, wi)
+            f = torch.where((is_four & (params.fourier_id == gi))[..., None],
+                            spec.from_rgb(torch.clamp(rgb, min=0.0),
+                                          "reflectance"), f)
     return torch.where(valid[..., None], f, 0.0)
 
 
@@ -815,9 +932,9 @@ def pdf_f(params: MaterialParams, wo, wi):
     has_diff = mk.has_diff()
     pdf = None if has_diff is None else torch.where(has_diff, pdf_diff, 0.0)
     if _present(fam, ir.MAT_PLASTIC, ir.MAT_UBER, ir.MAT_METAL,
-                ir.MAT_SUBSTRATE, ir.MAT_ROUGHGLASS):
+                ir.MAT_SUBSTRATE, ir.MAT_ROUGHGLASS, *_SSS):
         pdf_ggx = microfacet_reflection_pdf(wo, wi, ax, ay, params.beckmann)
-        glossy = mk(ir.MAT_PLASTIC, ir.MAT_UBER, ir.MAT_METAL)
+        glossy = mk(ir.MAT_PLASTIC, ir.MAT_UBER, ir.MAT_METAL, *_SSS)
         if glossy is not None:
             pdf = _add(pdf, torch.where(glossy & (ax > 0), pdf_ggx, 0.0))
         is_substrate = mk(ir.MAT_SUBSTRATE)
@@ -845,6 +962,20 @@ def pdf_f(params: MaterialParams, wo, wi):
     if params.disney is not None:
         pdf = torch.where(t == ir.MAT_DISNEY, _disney_pdf(params, wo, wi),
                           pdf)
+    if params.hair_h is not None:
+        pdf = torch.where(t == ir.MAT_HAIR, hairmod.hair_pdf(
+            wo, wi, params.hair_h, params.kd, **_hair_args(params)), pdf)
+    if params.fourier_id is not None:
+        # the density of the Catmull-Rom sampler (fourier.py pdf_grid_cr)
+        for gi in range(params.fourier_grid.shape[0]):
+            pdf = torch.where(
+                (t == ir.MAT_FOURIER) & (params.fourier_id == gi),
+                fouriermod.pdf_grid_cr(params.fourier_a0[gi],
+                                       params.fourier_lum[gi], wo, wi), pdf)
+    if params.sss_c is not None:
+        # the Sw exit lobe: one-sided cosine (SeparableBSSRDFAdapter keeps
+        # BxDF's default cosine sampling)
+        pdf = torch.where(t == ir.MAT_SSW, pdf_diff, pdf)
     # uber opacity: the surface lobes are picked with probability 1 - p_tr
     is_uber = mk(ir.MAT_UBER)
     if is_uber is not None:
@@ -853,8 +984,11 @@ def pdf_f(params: MaterialParams, wo, wi):
     return torch.where(mk.is_delta(), 0.0, pdf)
 
 
-def sample_f(params: MaterialParams, wo, u_lobe, u1, u2):
+def sample_f(params: MaterialParams, wo, u_lobe, u1, u2, u3=None):
     """Sample wi; returns (wi, f, pdf, is_specular, transmitted, eta_fac).
+
+    u3: the hair azimuth's uniform; without it a hash of u1 and u2 stands
+    in (the JAX package's fallback).
 
     eta_fac: multiplicative update of the path's etaScale (Russian-roulette
     radiance correction, reference path.cpp:150-156)."""
@@ -877,7 +1011,8 @@ def sample_f(params: MaterialParams, wo, u_lobe, u1, u2):
                                   0.0, 1.0 - 1e-7), u_lobe)
 
     need_ggx = _present(fam, ir.MAT_PLASTIC, ir.MAT_UBER, ir.MAT_METAL,
-                        ir.MAT_SUBSTRATE, ir.MAT_ROUGHGLASS, ir.MAT_DISNEY)
+                        ir.MAT_SUBSTRATE, ir.MAT_ROUGHGLASS, ir.MAT_DISNEY,
+                        *_SSS)
     need_rt = _present(fam, ir.MAT_ROUGHGLASS, ir.MAT_DISNEY)
     ones = torch.ones_like(sgn)
     wi_diff = sampling.cosine_sample_hemisphere(u1, u2) * torch.cat(
@@ -888,7 +1023,7 @@ def sample_f(params: MaterialParams, wo, u_lobe, u1, u2):
                           torch.clamp(ay, min=1e-4), params.beckmann)
         wi_ggx = geom.reflect(wo, wh)
         # one lobe uniformly among the material's (BSDF::Sample_f)
-        two_lobe = mk(ir.MAT_PLASTIC, ir.MAT_UBER, ir.MAT_SUBSTRATE)
+        two_lobe = mk(ir.MAT_PLASTIC, ir.MAT_UBER, ir.MAT_SUBSTRATE, *_SSS)
         pick_spec = None if two_lobe is None else two_lobe & (u_lobe >= 0.5)
         is_metal = mk(ir.MAT_METAL)
         if is_metal is not None:
@@ -957,6 +1092,31 @@ def sample_f(params: MaterialParams, wo, u_lobe, u1, u2):
                                     torch.where(can_rt[..., None], wi_rt,
                                                 wi_ggx))))
         wi = torch.where(is_disney[..., None], wi_dis, wi)
+    # hair: the Chiang model's importance sampling (hair.cpp:389)
+    is_hair = None
+    if params.hair_h is not None:
+        is_hair = t == ir.MAT_HAIR
+        if u3 is None:
+            u3 = _rng.uniform_float(_rng.hash_combine(
+                (u1 * 16777216.0).to(torch.int64),
+                (u2 * 16777216.0).to(torch.int64)))
+        wi_hair, _, _ = hairmod.hair_sample(
+            wo, params.hair_h, params.kd,
+            torch.stack([u_lobe, u1, u2, u3], -1), **_hair_args(params))
+        wi = torch.where(is_hair[..., None], wi_hair, wi)
+    # fourier: invert the baked marginals (FourierBSDF::Sample_f,
+    # reflection.cpp:491-573); pdf_f has the matching density
+    is_four = None
+    if params.fourier_id is not None:
+        is_four = t == ir.MAT_FOURIER
+        wi_four = wi_diff
+        for gi in range(params.fourier_grid.shape[0]):
+            wi_four = torch.where(
+                (params.fourier_id == gi)[..., None],
+                fouriermod.sample_grid_cr(params.fourier_a0[gi],
+                                          params.fourier_lum[gi], wo,
+                                          u_lobe, u1, u2), wi_four)
+        wi = torch.where(is_four[..., None], wi_four, wi)
 
     # delta lobes
     is_none = t == ir.MAT_NONE
@@ -1019,7 +1179,8 @@ def sample_f(params: MaterialParams, wo, u_lobe, u1, u2):
     transmitted = None
     if is_glass is not None:
         transmitted = is_glass & ~do_reflect
-    through = mk(ir.MAT_ROUGHGLASS, ir.MAT_DISNEY, ir.MAT_TRANSLUCENT)
+    through = _or(_or(mk(ir.MAT_ROUGHGLASS, ir.MAT_DISNEY,
+                         ir.MAT_TRANSLUCENT), is_hair), is_four)
     if through is not None:
         crossed = through & ~same_hemisphere(wo, wi)
         transmitted = _or(transmitted, crossed)

@@ -54,6 +54,9 @@ class Hit:
     material: torch.Tensor   # [B] material id or -1
     light: torch.Tensor      # [B] area light id or -1
     instance: torch.Tensor   # [B] id of the hit Shape (sidecar names) or -1
+    # [B] the face index within the Shape, which only ptex reads: None in
+    # a scene without ptex textures (has_ptex)
+    face: torch.Tensor = None
     # uv units per world unit at the hit (sqrt of uv area / world area for
     # triangles): a ray cone of world radius r covers ~r * uv_density of
     # texture space.  None when the scene has no textures.
@@ -516,6 +519,7 @@ def make_hit(scene: SceneData, ray: geom.Ray, t, prim, found,
                material=torch.where(found, scene.prim_material[pid], -1),
                light=torch.where(found, scene.prim_light[pid], -1),
                instance=torch.where(found, scene.prim_instance[pid], -1),
+               face=scene.prim_face[pid] if scene.has_ptex else None,
                **extra)
 
 

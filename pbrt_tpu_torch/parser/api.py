@@ -16,13 +16,17 @@ Include, WorldBegin/End, AttributeBegin/End, ObjectBegin / ObjectEnd /
 ObjectInstance (each instance baked into world-space primitives with an
 instance id of its own), ReverseOrientation, Texture (constant, scale,
 mix and bilerp folded to constants; imagemap, checkerboard, uv, dots,
-fbm, wrinkled, marble, windy), Material and MakeNamedMaterial /
+fbm, wrinkled, marble, windy, ptex), Material and MakeNamedMaterial /
 NamedMaterial for "" / "none", matte, plastic, mirror, glass (rough glass
-too), metal, uber, substrate, translucent, retroreflective, disney and
-mix, with texture-valued Kd / Ks, "string distribution" ("ggx" or
-"beckmann") and "texture bumpmap", LightSource "point"/"spot"/"distant"/
-"infinite"/"exinfinite" (an env map in any format film/io.py reads)/
-"goniometric"/"projection", AreaLightSource "diffuse" on any shape,
+too), metal, uber, substrate, translucent, retroreflective, disney, mix,
+hair (sigma_a, color, or eumelanin and pheomelanin), fourier (a SCATFUN
+bsdffile, baked at parse time), subsurface (sigma_a / sigma_s, or a
+measured preset by "string name") and kdsubsurface (Kd and mfp through
+SubsurfaceFromDiffuse), with texture-valued Kd / Ks, "string
+distribution" ("ggx" or "beckmann") and "texture bumpmap", LightSource
+"point"/"spot"/"distant"/"infinite"/"exinfinite" (an env map in any
+format film/io.py reads)/"goniometric"/"projection", AreaLightSource
+"diffuse" on any shape,
 MakeNamedMedium (homogeneous, and "heterogeneous" / "grid" density grids
 under the CTM at their creation; presets, sigma_a, sigma_s, scale, g),
 MediumInterface (the camera's medium resolved at WorldEnd), and Shape
@@ -31,15 +35,15 @@ MediumInterface (the camera's medium resolved at WorldEnd), and Shape
 and "nurbs" tessellated to triangles (shapes/).  Each keeps the JAX
 package's semantics and warnings, including the two-keyframe CTM that
 gives meshes and quadrics motion blur (but for meshes inside ObjectBegin)
-and the imagemap that cannot be read becoming a 0.5 constant.
+and the imagemap or ptex file that cannot be read becoming a 0.5
+constant and the fourier file a matte material.
 
-A directive, light or shape the JAX package does not know is skipped
-with a warning, as there.  The kinds the JAX package renders and the
-port does not yet (the materials hair, fourier, subsurface and
-kdsubsurface, ptex textures, the goniometric area light, other cameras,
-films and filters, TransformTimes other than 0 1) raise
-NotImplementedError naming them: the parser never renders something
-other than what the scene asks for.
+A directive, light, shape or material the JAX package does not know is
+skipped with a warning, as there (an unknown material is matte).  The
+kinds the JAX package renders and the port does not yet (the goniometric
+area light, other cameras, films and filters, TransformTimes other than
+0 1) raise NotImplementedError naming them: the parser never renders
+something other than what the scene asks for.
 """
 
 from __future__ import annotations
@@ -55,8 +59,11 @@ from pbrt_tpu_torch.cameras.lens import LENS_KINDS
 from pbrt_tpu_torch.core import device as devmod
 from pbrt_tpu_torch.core import spectrum as spec
 from pbrt_tpu_torch.core import transform as tfm
+from pbrt_tpu_torch.materials import bssrdf as bssrdfmod
+from pbrt_tpu_torch.materials import fourier as fouriermod
 from pbrt_tpu_torch.materials.metal_data import conductor_eta_k
 from pbrt_tpu_torch.media.media import medium_coefficients, medium_grid
+from pbrt_tpu_torch.media.presets import get_medium_scattering_properties
 from pbrt_tpu_torch.parser.paramset import ParamSet, parse_param_list
 from pbrt_tpu_torch.parser.tokenizer import (TokenStream, tokenize,
                                              tokenize_file, unquote)
@@ -68,6 +75,7 @@ from pbrt_tpu_torch.shapes.nurbs import (tessellate_hyperboloid,
                                          tessellate_nurbs)
 from pbrt_tpu_torch.shapes.ply import read_ply
 from pbrt_tpu_torch.shapes.subdiv import loop_subdivide
+from pbrt_tpu_torch.textures import ptex as ptexmod
 from pbrt_tpu_torch.textures import textures as texmod
 
 log = logging.getLogger("pbrt_tpu_torch")
@@ -527,7 +535,25 @@ class PbrtAPI:
                   "windy": texmod.TEX_WINDY}[tclass]
             return ("tex", reg.add(tt, wscale=wscale))
         if tclass == "ptex":
-            raise _unported('Texture "ptex"')
+            # per-face textures baked to a tile atlas (textures/ptex.py;
+            # reference textures/ptex.cpp reads faceIndex the same way)
+            fname = self._filename(ps, "filename")
+            try:
+                pt = ptexmod.read_ptex(fname)
+                atlas, tpr, tile = ptexmod.bake_atlas(pt["faces"])
+                if len(pt["faces"]) > tpr * tpr:
+                    log.warning("ptex %r: %d faces exceed the %dx%d "
+                                "atlas; extra faces clamp to the last "
+                                "tile", fname, len(pt["faces"]), tpr, tpr)
+                gamma = ps.find_one_float("gamma", 1.0)
+                scale = ps.find_one_float("scale", 1.0)
+                if gamma != 1.0:
+                    atlas = np.power(np.maximum(atlas, 0.0), gamma)
+                return ("tex", reg.add(texmod.TEX_PTEX, image=atlas * scale,
+                                       p5=float(tpr), p6=float(tile)))
+            except Exception as e:
+                log.warning("ptex file %r unusable (%s) -> 0.5", fname, e)
+                return ("const", half)
         log.warning("texture class %r unsupported; using 0.5", tclass)
         return ("const", half)
 
@@ -603,8 +629,6 @@ class PbrtAPI:
         """reference dispatch api.cpp:552-625 + materials/*.cpp defaults;
         the JAX package's _make_material.  Returns the builder's material
         id."""
-        if mname in ir.UNPORTED_MATERIALS.values():
-            raise _unported(f'Material "{mname}"')
         m = MaterialSpec(name=name or mname)
         # an extension parameter: the microfacet NDF (microfacet.h:80)
         m.distribution = ps.find_one_string("distribution", "ggx")
@@ -713,8 +737,28 @@ class PbrtAPI:
                             "matte", n1, n2)
                 m.type = ir.MAT_MATTE
                 m.kd = np.full(31, 0.5, np.float32)
+        elif mname == "hair":
+            self._hair(m, ps)
+        elif mname == "fourier":
+            # materials/fourier.cpp: a SCATFUN measured BSDF, baked into a
+            # (muI, muO, phi) lattice at parse time (materials/fourier.py)
+            fname = self._filename(ps, "bsdffile")
+            try:
+                tab = fouriermod.read_bsdf(fname)
+                grid = fouriermod.bake_grid(tab)
+                m.type = ir.MAT_FOURIER
+                m.eta = tab["eta"]
+                m.fourier_id = self.builder.add_fourier_grid(grid)
+            except Exception as e:
+                log.warning("fourier bsdffile %r unusable (%s) -> matte",
+                            fname, e)
+                m.type = ir.MAT_MATTE
+                m.kd = np.full(31, 0.5, np.float32)
+        elif mname in ("subsurface", "kdsubsurface"):
+            self._subsurface(m, mname, ps)
         else:
-            raise _unported(f'Material "{mname}"')
+            log.warning("unknown material %r -> matte", mname)
+            m.type = ir.MAT_MATTE
         # a bump map binds to any material (reference material.h Bump)
         btex = ps.find_texture("bumpmap")
         if btex is not None:
@@ -723,6 +767,94 @@ class PbrtAPI:
                 m.bump_tex = entry[1]
         _check_unused(ps, f"material {mname}")
         return self.builder.add_material(m)
+
+    def _hair(self, m, ps):
+        """materials/hair.cpp CreateHairMaterial: sigma_a as given, or from
+        a color (the inverse of Chiang's fit), or from the melanin
+        concentrations; the record's slots hold the hair parameters (kd
+        sigma_a, rough_u / rough_v beta_m / beta_n, sigma alpha in
+        degrees, eta 1.55 for keratin)."""
+        m.type = ir.MAT_HAIR
+        bm = ps.find_one_float("beta_m", 0.3)
+        bn = ps.find_one_float("beta_n", 0.3)
+        sig = np.asarray(ps.find_one_spectrum("sigma_a", -1.0),
+                         np.float32).reshape(-1)
+        col = np.asarray(ps.find_one_spectrum("color", -1.0),
+                         np.float32).reshape(-1)
+        if (sig >= 0).all():
+            sigma_a = sig
+        elif (col >= 0).all():
+            c = np.clip(col, 1e-4, 1.0)
+            denom = (5.969 - 0.215 * bn + 2.532 * bn ** 2
+                     - 10.73 * bn ** 3 + 5.574 * bn ** 4
+                     + 0.245 * bn ** 5)
+            sigma_a = (np.log(c) / denom) ** 2
+        else:
+            ce = ps.find_one_float("eumelanin", 1.3)
+            cp = ps.find_one_float("pheomelanin", 0.0)
+            rgb = (ce * np.array([0.419, 0.697, 1.37])
+                   + cp * np.array([0.187, 0.4, 1.05]))
+            s_max = max(float(rgb.max()), 1e-6)
+            sigma_a = np.asarray(spec.from_rgb_np(rgb / s_max, "reflectance"),
+                                 np.float32) * s_max
+        m.kd = sigma_a
+        m.rough_u, m.rough_v = bm, bn
+        m.remap_roughness = False
+        m.sigma = ps.find_one_float("alpha", 2.0)
+        m.eta = ps.find_one_float("eta", 1.55)
+
+    def _subsurface(self, m, mname, ps):
+        """materials/subsurface.cpp:60-88 and kdsubsurface.cpp: the
+        beam-diffusion profile table (shared by (g, eta)) and the
+        per-channel medium ride the material record; the path integrator
+        relocates transmitted lanes with probe rays.  kd keeps the table's
+        effective albedo, which integrators without the probe pass
+        (whitted, ao) render as the diffusion limit."""
+        def mag_spectrum(rgb):
+            rgb = np.asarray(rgb, np.float64)
+            sc = max(float(rgb.max()), 1e-9)
+            return np.asarray(spec.from_rgb_np(rgb / sc, "reflectance"),
+                              np.float32) * sc
+
+        g = ps.find_one_float("g", 0.0)
+        eta = ps.find_one_float("eta", 1.33)
+        scale = ps.find_one_float("scale", 1.0)
+        table = bssrdfmod.compute_beam_diffusion_bssrdf(g, eta)
+        if mname == "subsurface":
+            default_a = mag_spectrum([0.0011, 0.0024, 0.014])
+            default_s = mag_spectrum([2.55, 3.21, 3.77])
+            pname = ps.find_one_string("name", "")
+            if pname:
+                got = get_medium_scattering_properties(pname)
+                if got is not None:
+                    default_a, default_s = got
+                    g = 0.0  # the database stores reduced coefficients
+            sig_a = ps.find_one_spectrum("sigma_a", default_a) * scale
+            sig_s = ps.find_one_spectrum("sigma_s", default_s) * scale
+        else:
+            kd_t = ps.find_one_spectrum("Kd", 0.5)
+            mfp = ps.find_one_spectrum("mfp", 1.0) * scale
+            sig_a, sig_s = bssrdfmod.subsurface_from_diffuse(
+                table, np.asarray(kd_t, np.float64),
+                np.asarray(mfp, np.float64))
+        sigp_s = sig_s * (1.0 - g)
+        sigp_t = np.maximum(sig_a + sigp_s, 1e-9)
+        rho_eff = np.interp(sigp_s / sigp_t, table["rho"], table["rho_eff"])
+        m.type = ir.MAT_SUBSURFACE
+        m.bssrdf_id = self.builder.add_bssrdf_table(table)
+        sigma_t = np.maximum(np.asarray(sig_a + sig_s, np.float64), 0.0)
+        m.sss_sigma_t = sigma_t.astype(np.float32)
+        m.sss_rho = (np.asarray(sig_s, np.float64)
+                     / np.maximum(sigma_t, 1e-12)).astype(np.float32)
+        m.kd = np.clip(rho_eff, 0.0, 1.0).astype(np.float32)
+        m.ks = (np.asarray(self._spectrum_or_texture(ps, "Kr", 1.0)[0],
+                           np.float32) * np.float32(0.05))
+        m.eta = eta
+        # the reference's default is a smooth FresnelSpecular interface
+        # (subsurface.cpp:127-129: uroughness / vroughness default 0)
+        m.rough_u = ps.find_one_float("uroughness", 0.0)
+        m.rough_v = ps.find_one_float("vroughness", m.rough_u)
+        m.remap_roughness = ps.find_one_bool("remaproughness", True)
 
     # ------------------------------------------------------------- lights
     def _d_LightSource(self, s):

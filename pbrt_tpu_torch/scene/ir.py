@@ -3,8 +3,8 @@
 `SceneBuilder` assembles triangle meshes, the quadrics (sphere, cylinder,
 disk, cone, paraboloid), the lights (point,
 spot, distant, goniometric, projection, area lights on meshes and
-spheres, infinite lights with or without an env map), the surface
-materials of PORTED_MATERIALS and the texture table on the host,
+spheres, infinite lights with or without an env map), every material of
+the JAX package and the texture table on the host,
 orders the primitives by the BVH, and returns a `SceneData`: a dataclass
 of tensors with only the columns the path tracer reads, and the static
 flags (material families, texture kinds, bump, mix, Beckmann, Disney)
@@ -16,8 +16,14 @@ one-gather packings (`shade_all`, `mat_packed`) are not carried over.
 The media that MediumInterface binds (homogeneous and density grids) go
 into a per-medium table, each primitive carrying its inside and outside
 medium and the scene its camera's (the JAX package's tables and
-primitive order).  Hair, fourier, the subsurface materials and ptex
-textures are not ported: the builder raises naming them.
+primitive order).  The subsurface materials carry a beam-diffusion
+profile table each (deduplicated by (g, eta), `add_bssrdf_table`) and
+their per-channel medium; fourier materials a baked lattice and its
+sampling marginals (`add_fourier_grid`); hair reuses the material
+record's slots (kd: sigma_a, rough_u / rough_v: beta_m / beta_n, sigma:
+alpha in degrees); each primitive carries its per-mesh face index for
+ptex.  has_sss, has_hair, has_fourier and has_ptex are static, as in
+the JAX package: a scene without them launches nothing for them.
 
 The hit search takes one of three routes, as pbrt_tpu's does
 (pbrt_tpu/scene/ir.py:900, ops/intersect.py:450-459): the dense kernels
@@ -94,12 +100,6 @@ MAT_ROUGHGLASS = 13    # glass with nonzero roughness
 MAT_SUBSURFACE = 14
 MAT_KDSUBSURFACE = 15
 MAT_SSW = 16           # the BSSRDF exit lobe (a lane tag, never a material)
-PORTED_MATERIALS = (MAT_NONE, MAT_MATTE, MAT_PLASTIC, MAT_MIRROR, MAT_GLASS,
-                    MAT_METAL, MAT_UBER, MAT_SUBSTRATE, MAT_TRANSLUCENT,
-                    MAT_RETRO, MAT_DISNEY, MAT_MIX, MAT_ROUGHGLASS)
-UNPORTED_MATERIALS = {MAT_HAIR: "hair", MAT_FOURIER: "fourier",
-                      MAT_SUBSURFACE: "subsurface",
-                      MAT_KDSUBSURFACE: "kdsubsurface", MAT_SSW: "ssw"}
 
 # scenes beyond these many primitives (animated meshes: the lower cap)
 # leave the dense kernels for the BVH or kd-tree walks
@@ -116,7 +116,9 @@ QUAD_COLUMNS = ("quad_w2o", "quad_params", "quad_type", "quad_prim",
 MAT_COLUMNS = ("mat_type", "mat_kd", "mat_ks", "mat_kr", "mat_kt",
                "mat_rough_u", "mat_rough_v", "mat_eta", "mat_sigma",
                "mat_remap_rough", "mat_kd_tex", "mat_ks_tex", "mat_bump_tex",
-               "mat_mix_a", "mat_mix_b", "mat_mix_amt", "mat_disney")
+               "mat_mix_a", "mat_mix_b", "mat_mix_amt", "mat_disney",
+               "fourier_grid", "fourier_a0", "fourier_lum", "bssrdf_profile",
+               "bssrdf_cdf", "bssrdf_rho", "bssrdf_radius")
 TEX_COLUMNS = ("tex_images", "tex_type", "tex_params", "tex_c1", "tex_c2",
                "world_radius")
 LIGHT_COLUMNS = ("light_type", "light_L", "light_pos", "light_dir",
@@ -135,18 +137,25 @@ MEDIA_COLUMNS = ("prim_medium_in", "prim_medium_out", "med_sigma_a",
 JAX_COLUMNS = (PRIM_COLUMNS + QUAD_COLUMNS + MAT_COLUMNS + LIGHT_COLUMNS
                + TEX_COLUMNS + MEDIA_COLUMNS)
 # what scene_from_jax reads from pbrt_tpu's packed material table, which
-# alone holds the Beckmann flag: its rows are [bf16-hi; f32 residual], and
-# hi + residual is the f32 value exactly
+# alone holds the Beckmann flag and is what pbrt_tpu's shading reads: its
+# rows are [bf16-hi; f32 residual], and hi + residual is the f32 value
+# exactly
 PACKED_COLUMNS = ("mat_eta_spec", "mat_k_spec", "mat_opacity",
-                  "mat_beckmann")
+                  "mat_beckmann", "mat_fourier_id", "mat_bssrdf_id",
+                  "mat_sss_sigma_t", "mat_sss_rho")
+# ... and from its one-gather shading rows (shade_all, int32 columns
+# bitcast to f32 from column 24): the per-mesh face index
+SHADE_COLUMNS = ("prim_face",)
 # the walks' trees (accel/bvh.py, accel/kdtree.py); pbrt_tpu leaves the
 # kd arrays None without `Accelerator "kdtree"`
 BVH_COLUMNS = ("bvh_packed", "bvh_hit", "bvh_miss")
 KD_COLUMNS = ("kd_packed", "kd_prim_idx", "kd_bounds")
-JAX_ARRAYS = JAX_COLUMNS + ("mat_packed",) + BVH_COLUMNS + KD_COLUMNS
+JAX_ARRAYS = (JAX_COLUMNS + ("mat_packed", "shade_all") + BVH_COLUMNS
+              + KD_COLUMNS)
 JAX_STATICS = ("n_lights", "n_quadrics", "clip_quadrics", "dense_chunk",
                "has_animated_mesh", "has_animated_quads", "dense_motion",
                "has_disney", "has_mix", "has_beckmann", "has_bump",
+               "has_hair", "has_fourier", "has_sss", "has_ptex",
                "mat_families", "tex_kinds", "light_kinds", "has_mesh_lights",
                "has_sphere_lights", "has_infinite", "inf_light_idx",
                "has_prim_media", "has_grid_media", "camera_medium",
@@ -154,7 +163,11 @@ JAX_STATICS = ("n_lights", "n_quadrics", "clip_quadrics", "dense_chunk",
 # pbrt_tpu/scene/ir.py's MPK_* offsets into a mat_packed row
 _NS = spec.N_SPECTRAL_SAMPLES
 _MPK_ETA_SPEC, _MPK_K_SPEC, _MPK_OPACITY = 4 * _NS, 5 * _NS, 6 * _NS
-_MPK_BECKMANN = 7 * _NS + 19 + 2 * _NS
+_MPK_FOURIER, _MPK_BSSRDF = 7 * _NS + 17, 7 * _NS + 18
+_MPK_SSS_SIGT = 7 * _NS + 19
+_MPK_SSS_RHO = _MPK_SSS_SIGT + _NS
+_MPK_BECKMANN = _MPK_SSS_RHO + _NS
+_SHADE_FACE = 24 + 6
 
 
 @dataclass
@@ -173,6 +186,7 @@ class SceneData:
     prim_light: torch.Tensor       # [P] area-light index or -1
     prim_instance: torch.Tensor    # [P] id of the Shape (sidecar names)
     prim_flip_normal: torch.Tensor  # [P] bool
+    prim_face: torch.Tensor        # [P] face index within its Shape (ptex)
     # --- quadrics (the z / phi clip runs when clip_quadrics) ---
     quad_w2o: torch.Tensor         # [Q,4,4]
     # [Q,4] radius, zmin, zmax, phimax; a disk (radius, height,
@@ -207,6 +221,23 @@ class SceneData:
     mat_k_spec: torch.Tensor       # [M,31] conductor k (metal)
     mat_opacity: torch.Tensor      # [M,31] (uber; 1 elsewhere)
     mat_beckmann: torch.Tensor     # [M] bool: Beckmann, not GGX
+    # fourier: the baked (muI, muO, dphi) lattices of the scene's BSDF
+    # files (materials/fourier.py bake_grid) and their sampling
+    # marginals (bake_cr_tables); one zero placeholder without any
+    mat_fourier_id: torch.Tensor   # [M] lattice index, -1
+    fourier_grid: torch.Tensor     # [F,NM,NM,NP,3]
+    fourier_a0: torch.Tensor       # [F,NMi,NMo] phi-mean luminance |muI|
+    fourier_lum: torch.Tensor      # [F,NMi,NMo,NP] luminance lattice
+    # subsurface: one beam-diffusion profile table per distinct (g, eta)
+    # (materials/bssrdf.py), over shared rho / optical-radius grids, and
+    # each material's medium
+    mat_bssrdf_id: torch.Tensor    # [M] table index, -1
+    mat_sss_sigma_t: torch.Tensor  # [M,31] extinction (world units)
+    mat_sss_rho: torch.Tensor      # [M,31] single-scattering albedo
+    bssrdf_profile: torch.Tensor   # [T,NR,NK] profile with 2 pi r
+    bssrdf_cdf: torch.Tensor       # [T,NR,NK] each rho row's radius cdf
+    bssrdf_rho: torch.Tensor       # [NR]
+    bssrdf_radius: torch.Tensor    # [NK]
     # --- lights (a scene without lights holds one black point light) ---
     light_type: torch.Tensor       # [L] LIGHT_*
     light_L: torch.Tensor          # [L,31] radiance / intensity
@@ -305,6 +336,10 @@ class SceneData:
     has_mix: bool = False
     has_beckmann: bool = False
     has_bump: bool = False
+    has_hair: bool = False
+    has_fourier: bool = False      # a fourier lattice was registered
+    has_sss: bool = False          # a BSSRDF table was registered
+    has_ptex: bool = False
     # the light kinds present (LIGHT_*, sorted): sample_li launches only
     # these; area lights on meshes and on spheres separately
     light_kinds: tuple = ()
@@ -357,6 +392,11 @@ class MaterialSpec:
     mix_b: int = -1
     mix_amt: float = 0.5
     disney: tuple = (0.0,) * 8
+    fourier_id: int = -1           # the scene's fourier lattice
+    # subsurface: the profile table and the per-channel medium
+    bssrdf_id: int = -1
+    sss_sigma_t: np.ndarray = None  # [31] (default 1)
+    sss_rho: np.ndarray = None      # [31] (default 0)
     # microfacet NDF: "ggx" (TrowbridgeReitz) or "beckmann" (microfacet.h:80)
     distribution: str = "ggx"
     name: str = ""
@@ -364,7 +404,8 @@ class MaterialSpec:
     def spectrum(self, key):
         v = getattr(self, key)
         if v is None:
-            fill = 1.0 if key in ("eta_spec", "opacity") else 0.0
+            fill = 1.0 if key in ("eta_spec", "opacity",
+                                  "sss_sigma_t") else 0.0
             return np.full(spec.N_SPECTRAL_SAMPLES, fill, np.float32)
         return np.asarray(v, np.float32)
 
@@ -384,6 +425,8 @@ class SceneBuilder:
     media_table: list = field(default_factory=list)
     current_medium: tuple = (-1, -1)
     camera_medium: int = -1
+    fourier_grids: list = field(default_factory=list)   # [NM,NM,NP,3]
+    bssrdf_tables: list = field(default_factory=list)   # [(key, table)]
     _chunks: list = field(default_factory=list)
     _mesh_light_tris: dict = field(default_factory=dict)
     _n_prims: int = 0
@@ -402,11 +445,25 @@ class SceneBuilder:
             else np.asarray(world_to_medium, np.float32)))
         return len(self.media_table) - 1
 
+    def add_fourier_grid(self, grid) -> int:
+        """A baked fourier lattice (materials/fourier.py bake_grid);
+        returns its index."""
+        self.fourier_grids.append(np.asarray(grid, np.float32))
+        return len(self.fourier_grids) - 1
+
+    def add_bssrdf_table(self, table) -> int:
+        """A beam-diffusion profile table (materials/bssrdf.py
+        compute_beam_diffusion_bssrdf); returns its index.  Tables are
+        deduplicated by (g, eta): their rho and radius grids are the same
+        by construction."""
+        key = (round(float(table["g"]), 6), round(float(table["eta"]), 6))
+        for i, (k, _) in enumerate(self.bssrdf_tables):
+            if k == key:
+                return i
+        self.bssrdf_tables.append((key, table))
+        return len(self.bssrdf_tables) - 1
+
     def add_material(self, mspec: MaterialSpec) -> int:
-        if mspec.type not in PORTED_MATERIALS:
-            raise NotImplementedError(
-                f"material {UNPORTED_MATERIALS.get(mspec.type, mspec.type)}"
-                " is not ported yet")
         self.materials.append(mspec)
         mid = len(self.materials) - 1
         if mspec.name:
@@ -469,6 +526,8 @@ class SceneBuilder:
             prim_light=np.full(F, light_id, np.int32),
             prim_instance=np.full(F, instance_id, np.int32),
             prim_flip=np.full(F, flip, bool),
+            # the face index within the Shape (ptex's faceIndex)
+            prim_face=np.arange(F, dtype=np.int32),
             prim_medium_in=np.full(F, self.current_medium[0], np.int32),
             prim_medium_out=np.full(F, self.current_medium[1], np.int32)))
         first = self._n_prims
@@ -553,7 +612,8 @@ class SceneBuilder:
     def _concat(self):
         keys = ("tri_v", "tri_ns", "tri_uv", "tri_dv", "prim_type",
                 "quad_refs", "prim_material", "prim_light", "prim_instance",
-                "prim_flip", "prim_medium_in", "prim_medium_out")
+                "prim_flip", "prim_face", "prim_medium_in",
+                "prim_medium_out")
         return {k: np.concatenate([c[k] for c in self._chunks], 0)
                 for k in keys}
 
@@ -633,8 +693,6 @@ class SceneBuilder:
             return np.asarray([getattr(m, key) for m in mats], dtype)
 
         tex_imgs, tex_t, tex_p, tex_a, tex_b = self.textures.arrays()
-        if np.any(tex_t == TEX_PTEX):
-            raise NotImplementedError("ptex textures are not ported yet")
         lo_w, hi_w = lo.min(0), hi.max(0)
         radius = 0.5 * float(np.linalg.norm(hi_w - lo_w)) + 1e-3
         world_radius = np.float32(radius)
@@ -651,6 +709,7 @@ class SceneBuilder:
             prim_light=reorder("prim_light", np.int32),
             prim_instance=reorder("prim_instance", np.int32),
             prim_flip_normal=reorder("prim_flip", bool),
+            prim_face=reorder("prim_face", np.int32),
             quad_w2o=q_w2o, quad_params=q_par, quad_type=q_type,
             quad_prim=q_prim,
             quad_anim_t=q_at, quad_anim_q=q_aq, quad_anim_s=q_as,
@@ -674,6 +733,10 @@ class SceneBuilder:
             mat_opacity=mcol("opacity"),
             mat_beckmann=np.asarray([m.distribution == "beckmann"
                                      for m in mats], bool),
+            mat_fourier_id=mlist("fourier_id", np.int32),
+            mat_bssrdf_id=mlist("bssrdf_id", np.int32),
+            mat_sss_sigma_t=mcol("sss_sigma_t"), mat_sss_rho=mcol("sss_rho"),
+            **self._fourier_arrays(), **self._bssrdf_arrays(),
             tex_images=tex_imgs, tex_type=tex_t, tex_params=tex_p,
             tex_c1=tex_a, tex_c2=tex_b, world_radius=world_radius,
             prim_medium_in=reorder("prim_medium_in", np.int32),
@@ -694,11 +757,41 @@ class SceneBuilder:
                        has_grid_media=any(m[3] is not None
                                           for m in self.media_table),
                        camera_medium=int(self.camera_medium),
+                       has_fourier=bool(self.fourier_grids),
+                       has_sss=bool(self.bssrdf_tables),
                        **light_statics,
                        **material_statics(arrays["mat_type"],
                                           arrays["mat_beckmann"],
                                           arrays["mat_bump_tex"], tex_t))
         return _scene_from_arrays(arrays, statics, device)
+
+    def _fourier_arrays(self):
+        """The fourier lattices and their sampling marginals, as the JAX
+        package stacks them (pbrt_tpu/scene/ir.py:828-835), with zero
+        placeholders in a scene without any."""
+        from pbrt_tpu_torch.materials.fourier import bake_cr_tables
+        if not self.fourier_grids:
+            return dict(fourier_grid=np.zeros((1, 2, 2, 2, 3), np.float32),
+                        fourier_a0=np.zeros((1, 2, 2), np.float32),
+                        fourier_lum=np.zeros((1, 2, 2, 2), np.float32))
+        crs = [bake_cr_tables(g) for g in self.fourier_grids]
+        return dict(fourier_grid=np.stack(self.fourier_grids),
+                    fourier_a0=np.stack([c[0] for c in crs]),
+                    fourier_lum=np.stack([c[1] for c in crs]))
+
+    def _bssrdf_arrays(self):
+        """The profile tables stacked (pbrt_tpu/scene/ir.py:998-1022),
+        with zero placeholders in a scene without any."""
+        t = [tab for _, tab in self.bssrdf_tables]
+        if not t:
+            return dict(bssrdf_profile=np.zeros((1, 2, 2), np.float32),
+                        bssrdf_cdf=np.zeros((1, 2, 2), np.float32),
+                        bssrdf_rho=np.array([0.0, 1.0], np.float32),
+                        bssrdf_radius=np.array([0.0, 1.0], np.float32))
+        return dict(bssrdf_profile=np.stack([x["profile"] for x in t]),
+                    bssrdf_cdf=np.stack([x["cdf"] for x in t]),
+                    bssrdf_rho=np.asarray(t[0]["rho"], np.float32),
+                    bssrdf_radius=np.asarray(t[0]["radius"], np.float32))
 
     def _media_arrays(self):
         """The media table as the JAX package's builder makes it
@@ -891,15 +984,23 @@ def _kd_arrays(kd):
 
 def material_statics(mat_type, beckmann, bump_tex, tex_type):
     """The static flags of a material and texture table (as the JAX
-    package's builder sets them)."""
+    package's builder sets them).  A subsurface material's lanes turn
+    into mirror (the smooth interface's reflection), rough glass (the
+    rough interface's) and the Sw exit lobe at run time, so those
+    families are present with it (pbrt_tpu/scene/ir.py:984-990)."""
     mat_type = np.asarray(mat_type)
+    fams = {int(t) for t in set(mat_type.tolist())}
+    if fams & {MAT_SUBSURFACE, MAT_KDSUBSURFACE}:
+        fams |= {MAT_MIRROR, MAT_ROUGHGLASS, MAT_SSW}
     return dict(
-        mat_families=tuple(sorted(int(t) for t in set(mat_type.tolist()))),
+        mat_families=tuple(sorted(fams)),
         tex_kinds=tuple(sorted({int(t) for t in np.asarray(tex_type)[1:]})),
         has_disney=bool(np.any(mat_type == MAT_DISNEY)),
         has_mix=bool(np.any(mat_type == MAT_MIX)),
         has_beckmann=bool(np.any(beckmann)),
-        has_bump=bool(np.any(np.asarray(bump_tex) >= 0)))
+        has_bump=bool(np.any(np.asarray(bump_tex) >= 0)),
+        has_hair=bool(np.any(mat_type == MAT_HAIR)),
+        has_ptex=bool(np.any(np.asarray(tex_type) == TEX_PTEX)))
 
 
 def _scene_from_arrays(arrays, statics, device):
@@ -923,7 +1024,8 @@ def _scene_from_arrays(arrays, statics, device):
                                  np.asarray(arrays["tri_e2"], np.float32),
                                  np.zeros_like(v0)], 1)
     cols = {k: torch.as_tensor(np.array(arrays[k]), device=device)
-            for k in JAX_COLUMNS + PACKED_COLUMNS + BVH_COLUMNS
+            for k in JAX_COLUMNS + PACKED_COLUMNS + SHADE_COLUMNS
+            + BVH_COLUMNS
             + (KD_COLUMNS if statics["use_kd"] else ())}
     cols.update((k, torch.as_tensor(np.array(v), device=device))
                 for k, v in dense.items())
@@ -949,6 +1051,10 @@ def _scene_from_arrays(arrays, statics, device):
         has_mix=bool(statics["has_mix"]),
         has_beckmann=bool(statics["has_beckmann"]),
         has_bump=bool(statics["has_bump"]),
+        has_hair=bool(statics["has_hair"]),
+        has_fourier=bool(statics["has_fourier"]),
+        has_sss=bool(statics["has_sss"]),
+        has_ptex=bool(statics["has_ptex"]),
         light_kinds=tuple(int(k) for k in statics["light_kinds"]),
         has_mesh_lights=bool(statics["has_mesh_lights"]),
         has_sphere_lights=bool(statics["has_sphere_lights"]),
@@ -967,8 +1073,10 @@ def scene_from_jax(arrays: dict, statics: dict, device) -> SceneData:
 
     arrays: {name: np.asarray(getattr(jax_scene, name))} for every name in
     JAX_ARRAYS; statics: the static fields named in JAX_STATICS.  The
-    conductor spectra, the opacity and the Beckmann flag come from the
-    packed material table (PACKED_COLUMNS).  The BVH, the kd-tree (when
+    conductor spectra, the opacity, the Beckmann flag, the fourier and
+    BSSRDF ids and the subsurface medium come from the packed material
+    table (PACKED_COLUMNS), the face index from the shading rows
+    (SHADE_COLUMNS).  The BVH, the kd-tree (when
     `use_kd`) and the route's flags come across unchanged.  The dense
     tables (static, or motion when `dense_motion`) are recomputed from
     tri_v0/e1/e2 and tri_motion when `use_dense`, since the JAX scene's
@@ -976,20 +1084,21 @@ def scene_from_jax(arrays: dict, statics: dict, device) -> SceneData:
     for k in JAX_ARRAYS:
         if k not in arrays:
             raise KeyError(f"scene_from_jax needs array {k!r}")
-    types = set(np.asarray(arrays["mat_type"]).tolist())
-    bad = sorted(types - set(PORTED_MATERIALS))
-    if bad:
-        raise NotImplementedError(
-            "materials " + ", ".join(UNPORTED_MATERIALS.get(t, str(t))
-                                     for t in bad) + " are not ported yet")
-    if np.any(np.asarray(arrays["tex_type"]) == TEX_PTEX):
-        raise NotImplementedError("ptex textures are not ported yet")
     packed = np.asarray(arrays["mat_packed"], np.float32)
     M = packed.shape[0] // 2
     row = packed[:M] + packed[M:]          # bf16 hi + residual: exact f32
+    shade = np.asarray(arrays["shade_all"], np.float32)
     arrays = dict(arrays,
                   mat_eta_spec=row[:, _MPK_ETA_SPEC:_MPK_ETA_SPEC + _NS],
                   mat_k_spec=row[:, _MPK_K_SPEC:_MPK_K_SPEC + _NS],
                   mat_opacity=row[:, _MPK_OPACITY:_MPK_OPACITY + _NS],
-                  mat_beckmann=row[:, _MPK_BECKMANN] > 0.5)
+                  mat_beckmann=row[:, _MPK_BECKMANN] > 0.5,
+                  mat_fourier_id=np.round(row[:, _MPK_FOURIER]).astype(
+                      np.int32),
+                  mat_bssrdf_id=np.round(row[:, _MPK_BSSRDF]).astype(
+                      np.int32),
+                  mat_sss_sigma_t=row[:, _MPK_SSS_SIGT:_MPK_SSS_SIGT + _NS],
+                  mat_sss_rho=row[:, _MPK_SSS_RHO:_MPK_SSS_RHO + _NS],
+                  prim_face=np.ascontiguousarray(
+                      shade[:, _SHADE_FACE]).view(np.int32))
     return _scene_from_arrays(arrays, statics, devmod.resolve(device))

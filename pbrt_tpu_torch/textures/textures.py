@@ -1,6 +1,5 @@
-"""Texture evaluation (port of pbrt_tpu.textures.textures without the
-ptex family; reference: src/core/texture.{h,cpp}, src/core/mipmap.h,
-src/textures/*).
+"""Texture evaluation (port of pbrt_tpu.textures.textures; reference:
+src/core/texture.{h,cpp}, src/core/mipmap.h, src/textures/*).
 
 Device representation: one RGB mip canvas a texture, stacked into
 `tex_images` [T, 2*RES, RES, 3] (level 0 in rows [0, RES); level l >= 1,
@@ -14,7 +13,9 @@ the two levels a ray-cone footprint selects (`uv_width`); and, with
 first-hit ray differentials (`duv`), an EWA-style anisotropic filter of
 EWA_TAPS trilinear taps along the footprint's major axis at the level of
 its minor axis, falling back per lane to the cone where a lane has no
-differentials.  Texels are fetched by plain indexing (the JAX package's
+differentials.  A ptex texture is a per-face atlas (textures/ptex.py
+bake_atlas): the hit's face index picks the tile, its uv the texel.
+Texels are fetched by plain indexing (the JAX package's
 one-hot fetch was the TPU's workaround for serial gathers).
 
 Perlin noise hashes its lattice corners with pbrt_tpu's table-free
@@ -37,7 +38,7 @@ TEX_FBM = 4
 TEX_MARBLE = 5
 TEX_WINDY = 6
 TEX_WRINKLED = 7
-TEX_PTEX = 8       # per-face atlas: not ported (the builder rejects it)
+TEX_PTEX = 8       # per-face atlas (textures/ptex.py bake_atlas)
 
 RES = 256
 MAX_LEVEL = 8                  # RES >> 8 == 1x1 top of the pyramid
@@ -45,7 +46,7 @@ MAX_ANISO = 8.0                # mipmap.h maxAnisotropy default
 EWA_TAPS = 4                   # taps along the footprint's major axis
 
 _ALL_TEX = (TEX_IMAGE, TEX_CHECKER, TEX_UV, TEX_DOTS, TEX_FBM,
-            TEX_MARBLE, TEX_WINDY, TEX_WRINKLED)
+            TEX_MARBLE, TEX_WINDY, TEX_WRINKLED, TEX_PTEX)
 
 
 # ---------------------------------------------------------------------------
@@ -153,7 +154,8 @@ def _cone_level(uv_width, us, vs):
 
 
 def eval_texture(tex_images, tex_type, tex_params, tex_c1, tex_c2,
-                 tex_idx, uv, p_world, uv_width=None, kinds=None, duv=None):
+                 tex_idx, uv, p_world, uv_width=None, kinds=None, duv=None,
+                 face=None):
     """Texture tex_idx [B] at uv [B,2] / world point [B,3] -> RGB [B,3]
     (1 where tex_idx < 0: the caller keeps its constant).
 
@@ -216,6 +218,28 @@ def eval_texture(tex_images, tex_type, tex_params, tex_c1, tex_c2,
             c_img = _trilinear(tex_images, ti, u, v,
                                _cone_level(uv_width, us, vs))
         cases.append((tt == TEX_IMAGE, c_img))
+
+    if TEX_PTEX in present and face is not None:
+        # the face's tile of the atlas (params[5]: tiles a row, params[6]:
+        # the tile's size), bilinear at the intra-face uv on level 0
+        tpr = torch.clamp(pr[:, 5].to(torch.int64), min=1)
+        tile = torch.clamp(pr[:, 6].to(torch.int64), min=1)
+        fidx = torch.minimum(torch.clamp(face.long(), min=0), tpr * tpr - 1)
+        br = (fidx // tpr) * tile
+        bc = (fidx % tpr) * tile
+        pu = torch.clamp(uv[:, 0], 0.0, 1.0) * (tile - 1)
+        pv = torch.clamp(uv[:, 1], 0.0, 1.0) * (tile - 1)
+        pu0 = pu.to(torch.int64)
+        pv0 = pv.to(torch.int64)
+        pu1 = torch.minimum(pu0 + 1, tile - 1)
+        pv1 = torch.minimum(pv0 + 1, tile - 1)
+        pdu = (pu - pu0)[:, None]
+        pdv = (pv - pv0)[:, None]
+        cases.append((tt == TEX_PTEX, (
+            (tex_images[ti, br + pv0, bc + pu0] * (1 - pdu)
+             + tex_images[ti, br + pv0, bc + pu1] * pdu) * (1 - pdv)
+            + (tex_images[ti, br + pv1, bc + pu0] * (1 - pdu)
+               + tex_images[ti, br + pv1, bc + pu1] * pdu) * pdv)))
 
     if TEX_CHECKER in present:
         # checkerboard (textures/checkerboard.cpp, closed form, no AA)

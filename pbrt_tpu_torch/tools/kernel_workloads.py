@@ -402,6 +402,12 @@ def main_path_batches(scene, camera, cfg, width, height, rays, depth,
     call 0 is the camera batch, call 1 the first trace_pair (bounce-1
     rays + bounce-0 shadow rays).  time is None for static scenes.
     Returns {"camera": ..., "bounce1": ...}."""
+    return _recorded_batches(_one_pass(scene, camera, cfg, width, height,
+                                       rays, depth, trace_kw), depth)
+
+
+def _one_pass(scene, camera, cfg, width, height, rays, depth, trace_kw):
+    """run(): trace_paths over sample 0 of the first `rays` pixels."""
     from pbrt_tpu_torch.integrators import path
 
     def run():
@@ -410,8 +416,62 @@ def main_path_batches(scene, camera, cfg, width, height, rays, depth,
             camera, width, height, cfg, ids, 0)
         path.trace_paths(scene, ray, pid, sidx, cfg, max_depth=depth,
                          **trace_kw)
+    return run
 
-    return _recorded_batches(run, depth)
+
+def sss_probe_batches(scene, camera, cfg, width, height, rays, depth,
+                      bounces=(0, 1), passes=None, **trace_kw):
+    """The BSSRDF probe passes' batches (integrators/path.py _sss_event)
+    of one main-path pass of a scene with subsurface materials: call 0 is
+    the camera's, then each bounce below `depth` makes SSS_PROBE_PASSES
+    probe calls and its trace_pair.  passes: which probe passes (default
+    the first and the last).  Returns {"b{bounce}_p{pass}": (r16, tmax,
+    time)}."""
+    from pbrt_tpu_torch.integrators import path
+    P = path.SSS_PROBE_PASSES
+    passes = (0, P - 1) if passes is None else passes
+    batches = _record(_one_pass(scene, camera, cfg, width, height, rays,
+                                depth, trace_kw), 1 + depth * (P + 1))
+    return {f"b{b}_p{k}": batches[1 + b * (P + 1) + k]
+            for b in bounces for k in passes}
+
+
+def probe_repeats(scene, camera, cfg, width, height, rays, depth,
+                  **trace_kw):
+    """The probe march's re-hits in one main-path pass: for each bounce,
+    (probe lanes whose pass k+1 returned the same triangle as pass k,
+    live lanes of passes 1 .. P-1), summed over k.  The march steps
+    t (1 + 2e-4) + eps past a hit (sized for the TPU kernel's bf16x2 t);
+    a lane that finds its own triangle again has re-hit it."""
+    from pbrt_tpu_torch.integrators import path
+    from pbrt_tpu_torch.ops import intersect as isect
+    P = path.SSS_PROBE_PASSES
+    out = []
+    inner = isect.intersect
+
+    def record(sc, ray, *a, **k):
+        t, prim, found = inner(sc, ray, *a, **k)
+        out.append((ray.tmax > 0, prim.clone(), found.clone()))
+        return t, prim, found
+
+    isect.intersect = record
+    try:
+        _one_pass(scene, camera, cfg, width, height, rays, depth,
+                  trace_kw)()
+    finally:
+        isect.intersect = inner
+    if len(out) != 1 + depth * (P + 1):
+        raise AssertionError(f"expected {1 + depth * (P + 1)} intersect "
+                             f"calls, got {len(out)}")
+    rep = {}
+    for b in range(depth):
+        calls = out[1 + b * (P + 1):1 + b * (P + 1) + P]
+        same = live = 0
+        for (_, p0, f0), (l1, p1, f1) in zip(calls, calls[1:]):
+            same += int((l1 & f0 & f1 & (p0 == p1)).sum())
+            live += int(l1.sum())
+        rep[b] = (same, live)
+    return rep
 
 
 # the walks' per-ray arguments (the rest are the scene's tables)

@@ -44,7 +44,8 @@ stages), are held to the plain versions by the contract above.  So are
 the shapes cell's batches (319 chunks of 512 triangles; K1's bitonic
 sort), with ties at shared edges allowed as on the matched-RNG batches
 and one lane a batch of another triangle where rounding explains it
-(dense.loop_prim_skipped).
+(dense.loop_prim_skipped), and the BSSRDF probe passes' batches of the
+skin scene (mostly dead lanes, finite tmax), with two such lanes.
 """
 import numpy as np
 import pytest
@@ -601,6 +602,31 @@ def test_k1_k2_on_the_shapes_cell(device, tmp_path, batch):
     if batch == "bitonic":
         assert (na > dense.QUEUE_RANK_MAX).any()
     assert skipped == ([(39696, True)] if batch == "bounce1" else [])
+
+
+@pytest.mark.parametrize("batch", ["b0_p0", "b0_p3", "b1_p0", "b1_p3"])
+def test_k1_k2_on_the_bssrdf_probe_batches(device, tmp_path, batch):
+    """K1 and the static K2 on the BSSRDF probe passes of the skin scene
+    (tools/skin_scene.py at its defaults, 256x256, Sobol 4 spp, depth 5):
+    the first and last of a bounce's 4 passes at bounces 0 and 1, short
+    chords of finite tmax from off the surface with most lanes dead
+    (tmax -1).  The shapes cell's contract, with two closest-hit lanes a
+    batch allowed another triangle where rounding explains it (a fiber's
+    or a block's shared edge)."""
+    from pbrt_tpu_torch.parser.api import parse_scene
+    from pbrt_tpu_torch.samplers.samplers import SamplerConfig
+    from pbrt_tpu_torch.tools import pbrt as cli
+    from pbrt_tpu_torch.tools import skin_scene
+    job = parse_scene(skin_scene.write_skin_scene(str(tmp_path)),
+                      device=device)
+    scene = job.scene
+    assert scene.has_sss and scene.use_dense
+    r16, tmax, _ = kernel_workloads.sss_probe_batches(
+        scene, cli.build_camera(job, 256, 256, device),
+        SamplerConfig("sobol", 0, 4), 256, 256, 65536, 5,
+        light_strategy="spatial")[batch]
+    assert (tmax < 0).float().mean() > 0.5       # most probe lanes dead
+    _seam_contract(scene, r16, tmax, skips=2)
 
 
 def test_trace_ref_on_the_card_matches_the_cpu(device):

@@ -166,12 +166,6 @@ def test_camera_keyframes_parse_like_jax():
 
 
 @pytest.mark.parametrize("snippet,name", [
-    ('Material "hair"', "hair"),
-    ('Texture "t" "spectrum" "ptex" "string filename" "x.ptx"', "ptex"),
-    ('MakeNamedMaterial "m" "string type" "hair"', "hair"),
-    ('Material "fourier"', "fourier"),
-    ('Material "subsurface"', "subsurface"),
-    ('Material "kdsubsurface"', "kdsubsurface"),
     ('AreaLightSource "goniometric"\nShape "disk"', "goniometric"),
     ('AreaLightSource "goniometric"', "goniometric"),
 ])
@@ -179,6 +173,28 @@ def test_unported_world_directives_raise(snippet, name):
     text = f"WorldBegin\n{snippet}\nWorldEnd\n"
     with pytest.raises(NotImplementedError, match=name):
         TAPI(DEV).parse_string(text)
+
+
+@pytest.mark.parametrize("snippet", [
+    'Material "hair"',
+    'Texture "t" "spectrum" "ptex" "string filename" "x.ptx"\n'
+    'Material "matte" "texture Kd" "t"',
+    'MakeNamedMaterial "m" "string type" "hair"\nNamedMaterial "m"',
+    'Material "fourier"',
+    'Material "subsurface"',
+    'Material "kdsubsurface"',
+    'Material "nosuchmaterial"',
+], ids=["hair", "ptex", "named-hair", "fourier", "subsurface",
+        "kdsubsurface", "unknown"])
+def test_material_directives_parse_like_jax(snippet):
+    """The materials and texture the port once rejected parse as pbrt_tpu
+    parses them: a ptex or fourier file that cannot be read falls back
+    (0.5, matte) and an unknown material is matte, with a warning."""
+    text = (f"WorldBegin\n{snippet}\nShape \"sphere\" \"float radius\" "
+            "[1]\nWorldEnd\n")
+    jj, tj = JAPI().parse_string(text), TAPI(DEV).parse_string(text)
+    assert_scene_equal(tj.scene, tir.scene_from_jax(*jax_arrays(jj.scene),
+                                                    DEV))
 
 
 @pytest.mark.parametrize("snippet,name", [

@@ -139,17 +139,46 @@ def test_camera_from_jax(scenes):
         assert getattr(cc, k) == getattr(tc, k), k
 
 
-def test_unported_features_raise(scenes):
-    b = tir.SceneBuilder()
-    for t, name in ((10, "hair"), (11, "fourier"), (14, "subsurface"),
-                    (15, "kdsubsurface")):
-        with pytest.raises(NotImplementedError, match=name):
-            b.add_material(tir.MaterialSpec(type=t))
-    js = scenes[0]
-    arrays, statics = jax_arrays(js)
-    arrays["mat_type"] = np.append(arrays["mat_type"], 10)  # hair
-    with pytest.raises(NotImplementedError, match="hair"):
-        tir.scene_from_jax(arrays, statics, "cpu")
+def test_every_material_family_builds():
+    """SceneBuilder takes every material family of the JAX package (hair,
+    fourier with its lattice, subsurface with its profile table): the
+    same scene as scene_from_jax of pbrt_tpu's builder, with the static
+    flags that gate them."""
+    from pbrt_tpu.materials import bssrdf as jb
+    from pbrt_tpu.materials import fourier as jfour
+    table = jb.compute_beam_diffusion_bssrdf(0.0, 1.33, n_rho=16,
+                                             n_radius=24)
+    mu = np.linspace(-1.0, 1.0, 6)
+    grid = jfour.bake_grid(dict(
+        mu=mu, cdf=None, a_offset=np.zeros((6, 6), np.int64),
+        m=np.zeros((6, 6), np.int64), a=np.zeros(0), m_max=1,
+        n_channels=1, eta=1.0), n_mu=8, n_phi=8)
+    grid[:, :, :, 1] = 0.25
+    built = []
+    for irmod in (tir, jir):
+        b = irmod.SceneBuilder()
+        mats = [irmod.MaterialSpec(type=irmod.MAT_HAIR, kd=np.full(
+                    31, 0.4, np.float32), rough_u=0.3, rough_v=0.3,
+                    sigma=2.0, eta=1.55, remap_roughness=False),
+                irmod.MaterialSpec(type=irmod.MAT_FOURIER,
+                                   fourier_id=b.add_fourier_grid(grid)),
+                irmod.MaterialSpec(type=irmod.MAT_SUBSURFACE,
+                                   bssrdf_id=b.add_bssrdf_table(table),
+                                   sss_sigma_t=np.full(31, 5.0, np.float32),
+                                   sss_rho=np.full(31, 0.9, np.float32),
+                                   kd=np.full(31, 0.6, np.float32))]
+        for k, m in enumerate(mats):
+            mid = b.add_material(m)
+            b.add_triangle_mesh(np.float32([[0, 0, k], [1, 0, k],
+                                            [1, 1, k]]), [[0, 1, 2]], mid)
+        built.append(b.build(**({"device": "cpu"} if irmod is tir
+                                else {})))
+    ts, js = built
+    assert ts.has_hair and ts.has_fourier and ts.has_sss and not ts.has_ptex
+    assert ts.mat_families == (tir.MAT_MIRROR, tir.MAT_HAIR,
+                               tir.MAT_FOURIER, tir.MAT_ROUGHGLASS,
+                               tir.MAT_SUBSURFACE, tir.MAT_SSW)
+    _assert_scene_equal(ts, tir.scene_from_jax(*jax_arrays(js), "cpu"))
 
 
 def test_dataclasses_move_between_devices(scenes):
