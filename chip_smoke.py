@@ -255,6 +255,31 @@ within 0.5-2, and the three-slab chain (2 probe passes find at most 2
 hits, 4 at least 3, 8 at most 6), with the slabs rendered at 2 probe
 passes, counted.
 
+Phase 27 drives the light-side integrators on scenes/cornell_bench.pbrt
+at 256x256, depth 5, through the CLI's `run_job` with the job's
+integrator set to each, counted as phase 5 is (K1 and the static K2 once
+an intersect call): lighttracer at 4 spp (4 passes of 65,536 photons, 10
+calls a pass), bdpt at 4 spp (8 passes of 32,768 camera rays, 31 calls a
+pass: 6 camera and 5 light subpath calls, 5 s=1, 10 s>=2 and 5 t=1
+connections), sppm at 4 iterations of 65,536 photons (16 calls an
+iteration) and mlt at its defaults (4,096 chains, 65,536 bootstrap paths,
+64 mutations a chain: 66 path evaluations of 6 calls).  (a) each image
+finite, non-negative and non-black, its wall time over its units
+(passes, iterations or, with the bootstrap, mutation steps), one unit
+timed alone and profiled: its ms, launches, device ms and idle share,
+and peak device memory; (b) image means against `path` through
+`run_job` at the same spp: bdpt within BDPT_GAP, mlt within MLT_GAP;
+lighttracer's and sppm's ratios printed (neither sees the emitter or the
+mirror through its camera connection, and sppm's visible point keeps
+plastic's diffuse part only); (c) K1 and K2 against their plain versions
+on kernel_workloads.bdpt_batches (rays leaving the light, the (2,2) and
+(2,1) connections) and photon_batch (an iteration's first photons),
+through compare_kernels with seams (LIGHT_SKIPS lanes a batch); (d) the
+card against the CPU at 32x32 2 spp for lighttracer, bdpt and sppm
+(phase 8's limits), and for mlt (MLT_32: 256 chains, 1,024 bootstrap
+paths, 16 mutations a chain) the image mean within MLT_CPU_GAP: an
+acceptance that flips on rounding sends a chain elsewhere.
+
 Every lens render is finite, non-negative and non-black.  Mitchell's
 and sinc's negative lobes make some developed pixels negative where the
 image has a sharp edge (the reference clamps them when it writes the
@@ -306,8 +331,10 @@ from pbrt_tpu_torch.core import spectrum  # noqa: E402
 from pbrt_tpu_torch.core import transform as tfm  # noqa: E402
 from pbrt_tpu_torch.film import film as filmmod  # noqa: E402
 from pbrt_tpu_torch.film import io as filmio  # noqa: E402
+from pbrt_tpu_torch.integrators import bdpt  # noqa: E402
 from pbrt_tpu_torch.integrators import diff  # noqa: E402
 from pbrt_tpu_torch.integrators import dispatch  # noqa: E402
+from pbrt_tpu_torch.integrators import mlt  # noqa: E402
 from pbrt_tpu_torch.integrators import path  # noqa: E402
 from pbrt_tpu_torch.integrators import refpath  # noqa: E402
 from pbrt_tpu_torch.integrators import spectralpath  # noqa: E402
@@ -331,6 +358,7 @@ from pbrt_tpu_torch.tools import ablate_k2  # noqa: E402
 from pbrt_tpu_torch.tools import dissect_intersect  # noqa: E402
 from pbrt_tpu_torch.tools import dump_tile  # noqa: E402
 from pbrt_tpu_torch.tools import kernel_workloads as kw  # noqa: E402
+from pbrt_tpu_torch.tools import launch_components  # noqa: E402
 from pbrt_tpu_torch.tools import lenstool  # noqa: E402
 from pbrt_tpu_torch.tools import profile_pass  # noqa: E402
 from pbrt_tpu_torch.tools import pbrt as cli  # noqa: E402
@@ -820,8 +848,8 @@ def pass_profile(scene, camera, cfg, trace=None, depth=DEPTH):
     ids = torch.arange(RAYS_PER_PASS, device=scene.device)
     trace = trace or path.trace_paths
     opts, use_rd = path.trace_options(scene, camera, trace)
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+
+    def one_pass():
         ray, _, _, pid, sidx = path.camera_rays_for_pixels(
             camera, W, H, cfg, ids, 0)
         if use_rd:
@@ -829,6 +857,15 @@ def pass_profile(scene, camera, cfg, trace=None, depth=DEPTH):
                 camera, W, H, cfg, pid, sidx, path.generate_fn(camera),
                 cfg.spp)
         trace(scene, ray, pid, sidx, cfg, max_depth=depth, **opts)
+    return unit_profile(one_pass)
+
+
+def unit_profile(fn):
+    """(device ms, kernel launches) of fn() under torch.profiler, or None
+    if the trace held no device time."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
         torch.cuda.synchronize()
     ev = [e for e in prof.key_averages()
           if e.device_type == DeviceType.CUDA and kw.device_us(e) > 0]
@@ -2938,6 +2975,148 @@ def phase26(run_path, card, device, res):
           f", bssrdf gates {time.perf_counter() - t0:.1f}")
 
 
+# phase 27: the light-side integrators (PERF.md section 4); the closure
+# gates' limits (tests/test_bdpt.py's, tests/test_lighttracer.py's
+# test_mlt_matches_forward) and MLT's card against CPU limit (c, d)
+BDPT_GAP = 0.06
+MLT_GAP = 0.10
+MLT_CPU_GAP = 0.05
+MLT_32 = (256, 1024, 16)
+LIGHT_SKIPS = 2
+LIGHT_SIDE_SPP = 4
+
+
+def light_side_units(kind, spp, depth, res):
+    """(units, K1 / K2 calls) of a light-side render of cornell_bench at
+    res x res: passes (lighttracer, bdpt), iterations (sppm) or path
+    evaluations (mlt: the bootstrap, the seeds, a mutation step each)."""
+    if kind == "lighttracer":
+        return spp, spp * 2 * depth
+    if kind == "bdpt":
+        n = spp * -(-res * res // bdpt.RAYS_PER_PASS)
+        return n, n * ((depth + 1) + depth + len(bdpt.strategies(
+            depth + 2, depth + 1, depth + 2, 1)))
+    if kind == "sppm":
+        n = max(spp, 4)
+        return n, n * (3 * depth + 1)
+    n = 2 + max(spp, 8) * 8
+    return n - 2, n * (depth + 1)
+
+
+def _light_32(kind, dev):
+    job = _bench_as(kind, {}, dev, 32)
+    return cli.run_job(job, spp=2, max_depth=DEPTH)[0]
+
+
+def mlt_32(dev):
+    """mlt.render_mlt of cornell_bench at 32x32 with MLT_32's (chains,
+    bootstrap paths, mutations a chain): the host's launches bind both
+    devices, so fewer than run_job's 64 mutations."""
+    job = _bench_as("mlt", {}, dev, 32)
+    chains, boot, mutations = MLT_32
+    return mlt.render_mlt(job.scene, cli.build_camera(job, 32, 32, dev), 32,
+                          32, n_chains=chains, mutations_per_chain=mutations,
+                          n_bootstrap=boot, max_depth=DEPTH)[0]
+
+
+def phase27(run_path, card, device, res):
+    """The light-side integrators (module docstring): (a) the renders,
+    (b) the closure gates, (c) the kernels on their batches, (d) the card
+    against the CPU."""
+    t0 = time.perf_counter()
+    pjob = _bench_as("path", {}, device, W)
+    ppasses = LIGHT_SIDE_SPP * -(-W * H // (1 << 18))
+    (pfilm, _), _ = run_path(
+        "light-side reference path", lambda: cli.run_job(
+            pjob, spp=LIGHT_SIDE_SPP, max_depth=DEPTH),
+        {"dense_queue": (DEPTH + 1) * ppasses, "dense_queue_cull": 0,
+         "dense_loop": (DEPTH + 1) * ppasses, "dense_loop_motion": 0},
+        pjob.scene)
+    p_mean = filmmod.develop_spectral(pfilm).mean().item()
+    cam = cli.build_camera(pjob, W, H, device)
+    cfg = SamplerConfig("sobol", 0, LIGHT_SIDE_SPP)
+    means = {}
+    for kind in dispatch.LIGHT_SIDE:
+        job = _bench_as(kind, {}, device, W)
+        units, calls = light_side_units(kind, LIGHT_SIDE_SPP, DEPTH, W)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        (film, _), counts = run_path(
+            f"{kind} render", lambda: cli.run_job(job, spp=LIGHT_SIDE_SPP,
+                                                  max_depth=DEPTH),
+            {"dense_queue": calls, "dense_queue_cull": 0,
+             "dense_loop": calls, "dense_loop_motion": 0}, job.scene)
+        wall = time.perf_counter() - t1
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        img = filmmod.develop_spectral(film)
+        check_image(img, f"{kind} render")
+        means[kind] = img.mean().item()
+        ms = wall * 1e3 / units
+        rays = bdpt.RAYS_PER_PASS if kind == "bdpt" else (
+            4096 if kind == "mlt" else W * H)
+        # one unit alone (mlt's bootstrap runs outside it), profiled, then
+        # timed on the host's clock; the idle share is read against it
+        one = launch_components.light_side_unit(kind, job.scene, cam, cfg,
+                                                W, H, DEPTH, rays)
+        prof = unit_profile(one)
+        t1 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        one_ms = (time.perf_counter() - t1) * 1e3
+        idle = ("not measured" if prof is None
+                else f"{1 - prof[0] / one_ms:.3f}")
+        unit = {"lighttracer": "photon pass", "bdpt": "pass",
+                "sppm": "iteration", "mlt": "mutation step"}[kind]
+        print(f"phase 27a {kind} cornell_bench.pbrt {W}x{H} depth {DEPTH}: "
+              f"wall {wall:.2f} s, render wall / ({units} x {unit}) "
+              f"{ms:.2f} ms{' (bootstrap included)' if kind == 'mlt' else ''}"
+              f", one {unit} alone {one_ms:.2f} ms, "
+              f"{_prof(prof).replace('a pass', 'a ' + unit)}, idle share "
+              f"{idle} (of the one alone), peak memory {peak:.3f} GiB, "
+              f"image mean "
+              f"{means[kind]:.6f} (path {p_mean:.6f}: ratio "
+              f"{means[kind] / p_mean:.4f}), launches {counts} on {card}")
+    gaps = {k: abs(means[k] / p_mean - 1.0) for k in means}
+    print(f"phase 27b image means against path's {p_mean:.6f} at "
+          f"{LIGHT_SIDE_SPP} spp: " + ", ".join(
+              f"{k} {means[k] / p_mean:.4f}" for k in means)
+          + f" (bdpt within {BDPT_GAP}, mlt within {MLT_GAP}; lighttracer "
+          "and sppm not gated)")
+    check(gaps["bdpt"] < BDPT_GAP, f"bdpt: image mean off path's by "
+          f"{gaps['bdpt']}")
+    check(gaps["mlt"] < MLT_GAP, f"mlt: image mean off path's by "
+          f"{gaps['mlt']}")
+    t_render = time.perf_counter() - t0
+
+    # (c) K1 and K2 on the light-side batches
+    t0 = time.perf_counter()
+    sc = pjob.scene
+    batches = {f"bdpt_{k}": v for k, v in kw.bdpt_batches(
+        sc, cam, cfg, W, H, bdpt.RAYS_PER_PASS, DEPTH).items()}
+    batches["sppm_photon"] = kw.photon_batch(sc, cfg, W * H, DEPTH)
+    for k, (r16, tmax, _) in batches.items():
+        print(f"phase 27c batch {k}: {int((tmax > 0).sum())} live lanes of "
+              f"{tmax.shape[0]}, {int((r16[:, 12] > 0.5).sum())} any-hit")
+    for k, v in compare_kernels(sc, batches, card, "dense_loop", seams=True,
+                                skips=LIGHT_SKIPS).items():
+        res[k].update(v)
+    t_kernels = time.perf_counter() - t0
+
+    # (d) the card against the CPU
+    t0 = time.perf_counter()
+    compare_cpu([(k, functools.partial(_light_32, k))
+                 for k in ("lighttracer", "bdpt", "sppm")])
+    g, c = (mlt_32(dev).mean().item() for dev in ("cuda", "cpu"))
+    print(f"GPU vs CPU mlt 32x32 ({MLT_32[0]} chains, {MLT_32[1]} bootstrap "
+          f"paths, {MLT_32[2]} mutations): mean {g:.6f} vs {c:.6f} (rel "
+          f"{abs(g / c - 1):.3e}, limit {MLT_CPU_GAP})")
+    check(abs(g / c - 1) < MLT_CPU_GAP, f"mlt: GPU/CPU mean {g} vs {c}")
+    print(f"phase 27 light-side integrators pass; wall s renders + gates "
+          f"{t_render:.1f}, kernels {t_kernels:.1f}, GPU vs CPU "
+          f"{time.perf_counter() - t0:.1f}")
+
+
 def walk_rows(res, launches):
     """The walk kernels' rows of the kernels line (WALK_ROWS), each with
     its kernel's launches on phase 25's render paths."""
@@ -3274,6 +3453,12 @@ def main():
     phase26(run_path, card, device, res)
     print(f"phase 26 materials; wall s {time.perf_counter() - t0:.1f}")
 
+    # --- phase 27: lighttracer, bdpt, sppm and mlt ---
+    t0 = time.perf_counter()
+    phase27(run_path, card, device, res)
+    print(f"phase 27 light-side integrators; wall s "
+          f"{time.perf_counter() - t0:.1f}")
+
     rows = []
     for k, (src, rep) in KERNELS.items():
         r = res[k]
@@ -3319,7 +3504,8 @@ def main():
                   "volpath_shells_walk5", "volpath_shells_walk8",
                   "shapes_camera", "shapes_bounce1", "shapes_bitonic",
                   "skin_probe_b0_p0", "skin_probe_b0_p3",
-                  "skin_probe_b1_p0", "skin_probe_b1_p3"):
+                  "skin_probe_b1_p0", "skin_probe_b1_p3",
+                  "bdpt_light", "bdpt_s2t2", "bdpt_t1", "sppm_photon"):
             if b in r:
                 row.update({f"ms_{b}": r[b]["ms"],
                             f"device_ms_{b}": _ms(r[b]["device"]),

@@ -1,5 +1,6 @@
-"""Monte-Carlo warps and MIS weights (port of the parts of
-pbrt_tpu.core.sampling that the path tracer and its lights reach)."""
+"""Monte-Carlo warps, MIS weights and the discrete 1D distribution (port
+of the parts of pbrt_tpu.core.sampling that the integrators and their
+lights reach)."""
 
 from __future__ import annotations
 
@@ -64,3 +65,28 @@ def power_heuristic(nf, f_pdf, ng, g_pdf):
     f = nf * f_pdf
     g = ng * g_pdf
     return (f * f) / torch.clamp(f * f + g * g, min=1e-20)
+
+
+def build_distribution_1d(f):
+    """Distribution1D (sampling.h:55-120) of nonnegative values f [..., n]:
+    (cdf [..., n+1], func_int [...]).  cdf[..., i] = P(X < i/n); func_int
+    is the mean of f (the reference's funcInt); where it is 0 the cdf is
+    uniform."""
+    n = f.shape[-1]
+    c = torch.cumsum(f, -1) / n
+    func_int = c[..., -1]
+    pos = func_int[..., None] > 0
+    cdf = torch.cat([torch.zeros_like(c[..., :1]),
+                     c / torch.where(pos, func_int[..., None], 1.0)], -1)
+    uniform = torch.linspace(0.0, 1.0, n + 1, dtype=f.dtype,
+                             device=f.device)
+    return torch.where(pos, cdf, uniform), func_int
+
+
+def sample_distribution_1d_discrete(cdf, func_int, func, u):
+    """An index ~ func [n] for each u (Distribution1D::SampleDiscrete):
+    (idx, pmf)."""
+    n = func.shape[-1]
+    idx = torch.clamp(torch.searchsorted(cdf, u, right=True) - 1, 0, n - 1)
+    pmf = func[idx] / torch.clamp(func_int * n, min=1e-20)
+    return idx, pmf

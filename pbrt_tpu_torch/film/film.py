@@ -6,7 +6,9 @@ The filter is discretized into the reference's 16x16 quadrant table
 `index_put_(accumulate=True)`.  On CUDA the accumulation order varies
 from run to run, so sums agree to rounding, not bit for bit.  The JAX
 package's aligned dynamic-slice splat is a TPU workaround and is not
-ported.
+ported.  The light-side integrators' splats (AddSplat) go to their own
+unweighted [H,W,31] buffer, which develop adds times a splat scale; the
+.dat holds `raw` alone, as the JAX package writes it.
 """
 
 from __future__ import annotations
@@ -79,6 +81,8 @@ class Film:
     weighted: torch.Tensor      # [H,W,31] sum of filter-weighted radiance
     weight: torch.Tensor        # [H,W] sum of filter weights
     raw: torch.Tensor           # [H,W,31] unweighted per-pixel sums (.dat)
+    splat: torch.Tensor         # [H,W,31] unweighted splats (lighttracer,
+    #                             bdpt's t=1 strategies; add_splats)
     filter_table: torch.Tensor  # [16,16] quadrant table
     radius: tuple               # (rx, ry)
     footprint: int              # pixels per axis a sample can reach
@@ -101,6 +105,7 @@ class Film:
         return dataclasses.replace(
             self, weighted=self.weighted.to(device),
             weight=self.weight.to(device), raw=self.raw.to(device),
+            splat=self.splat.to(device),
             filter_table=self.filter_table.to(device))
 
 
@@ -127,6 +132,7 @@ def make_film(width, height, filter_name="box", radius=None, device=None,
         weighted=torch.zeros((height, width, NS), device=device),
         weight=torch.zeros((height, width), device=device),
         raw=torch.zeros((height, width, NS), device=device),
+        splat=torch.zeros((height, width, NS), device=device),
         filter_table=torch.as_tensor(table, dtype=torch.float32,
                                      device=device),
         radius=(float(rx), float(ry)),
@@ -178,9 +184,26 @@ def add_samples(film: Film, pfilm, L, ray_weight=None) -> Film:
     return film
 
 
+def add_splats(film: Film, pfilm, L) -> Film:
+    """Film::AddSplat (film.cpp:154), in place; returns the film.  Each
+    sample's L [B,31] adds, unweighted by any filter, to the pixel that
+    floor(pfilm [B,2]) names; samples outside the film are dropped."""
+    W, H = film.width, film.height
+    px = torch.clamp(torch.floor(pfilm[:, 0]).to(torch.int64), 0, W - 1)
+    py = torch.clamp(torch.floor(pfilm[:, 1]).to(torch.int64), 0, H - 1)
+    inb = ((pfilm[:, 0] >= 0) & (pfilm[:, 0] < W)
+           & (pfilm[:, 1] >= 0) & (pfilm[:, 1] < H))
+    film.splat.index_put_((py, px), torch.where(inb[:, None], L, 0.0),
+                          accumulate=True)
+    return film
+
+
 def develop_spectral(film: Film):
-    """Final per-pixel spectra [H,W,31] (reference: film.cpp WriteImage)."""
-    return film.weighted / torch.clamp(film.weight, min=1e-12)[..., None]
+    """Final per-pixel spectra [H,W,31] (reference: film.cpp WriteImage):
+    the filtered samples plus the splats, which the light-side integrators
+    have already scaled (integrators/dispatch.py)."""
+    return (film.weighted / torch.clamp(film.weight, min=1e-12)[..., None]
+            + film.splat)
 
 
 def develop_rgb(film: Film):

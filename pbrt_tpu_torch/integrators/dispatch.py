@@ -15,10 +15,23 @@ Ported:
 - "spectralpath" (parameter numCABands; it samples lights uniformly, as
   the JAX package's does) and "metadata" (parameter strategy).
 
-The JAX package's other integrators ("lighttracer", "bdpt", "sppm",
-"mlt") raise NotImplementedError naming themselves; a name neither
-package knows renders path with a warning and the uniform strategy, as
-in the JAX package.
+The light-side integrators (LIGHT_SIDE) render through their own
+drivers, as the JAX package routes them:
+- "lighttracer" (integrators/lighttracer.py) and "bdpt" (bdpt.py) fold
+  their splat scale into film.splat, which develop adds (the .dat holds
+  `raw` alone: a lighttracer .dat is all zeros, a bdpt .dat lacks its
+  t=1 strategies, as pbrt_tpu writes them; ROADMAP);
+- "sppm" (sppm.py; parameter radius, default the world radius times
+  0.01) and "mlt" (mlt.py; parameters chains, bootstrapsamples, sigma,
+  largestepprobability) resolve the film: weighted = raw = L, weight 1.
+  As in the JAX package MLT runs max(spp, 8) * 8 mutations a chain and
+  SPPM max(spp, 4) iterations; the parsed mutationsperpixel and
+  iterations reach neither, and the port warns naming the ignored value.
+They count no rays, and take neither the crop window nor
+maxsampleluminance, as in the JAX package.
+
+A name neither package knows renders path with a warning and the
+uniform strategy, as in the JAX package.
 
 The Film's crop window and maxsampleluminance go to `render`, as the
 JAX package passes them.  An integrator's rrthreshold is read by the
@@ -33,9 +46,13 @@ import logging
 
 from pbrt_tpu_torch.film.film import INF_LUMINANCE
 from pbrt_tpu_torch.integrators import ao
+from pbrt_tpu_torch.integrators import bdpt
+from pbrt_tpu_torch.integrators import lighttracer
 from pbrt_tpu_torch.integrators import metadata
+from pbrt_tpu_torch.integrators import mlt
 from pbrt_tpu_torch.integrators import path as pathmod
 from pbrt_tpu_torch.integrators import spectralpath
+from pbrt_tpu_torch.integrators import sppm
 from pbrt_tpu_torch.integrators import volpath
 from pbrt_tpu_torch.integrators import whitted
 
@@ -43,8 +60,8 @@ log = logging.getLogger("pbrt_tpu_torch")
 
 INTEGRATORS = ("path", "volpath", "whitted", "directlighting",
                "ambientocclusion", "ao", "spectralpath", "metadata")
-# the JAX package's integrators that are not ported yet
-UNPORTED = ("lighttracer", "bdpt", "sppm", "mlt")
+# the integrators with drivers of their own (not trace_paths passes)
+LIGHT_SIDE = ("lighttracer", "bdpt", "sppm", "mlt")
 LIGHT_STRATEGIES = ("uniform", "power", "spatial")
 
 
@@ -58,11 +75,11 @@ def light_strategy(integrator_params):
 def integrator_trace(job, camera, width, height, max_depth):
     """(trace_fn or None for trace_paths, its keywords beyond its own,
     max_depth) of the job's integrator, as render_with_integrator renders
-    it."""
+    it; the LIGHT_SIDE integrators have none and raise ValueError."""
     kind = job.integrator_kind
-    if kind in UNPORTED:
-        raise NotImplementedError(
-            f'Integrator "{kind}" is not ported to pbrt_tpu_torch')
+    if kind in LIGHT_SIDE:
+        raise ValueError(f'Integrator "{kind}" renders through its own '
+                         "driver, not trace_paths passes")
     ip = job.integrator_params
     trace_fn = None
     trace_kwargs = {}
@@ -99,13 +116,16 @@ def render_with_integrator(job, camera, film, cfg, spp, max_depth,
     the film, or (film, rays traced or None) with count_rays: only the
     integrators that run trace_paths count their rays."""
     ip = job.integrator_params
-    trace_fn, trace_kwargs, max_depth = integrator_trace(
-        job, camera, film.width, film.height, max_depth)
     rr = ip.get("rrthreshold", pathmod.RR_THRESHOLD)
     if rr != pathmod.RR_THRESHOLD:
         log.warning("rrthreshold %g is ignored: Russian roulette starts "
                     "below a throughput of %g, as in the JAX package", rr,
                     pathmod.RR_THRESHOLD)
+    if job.integrator_kind in LIGHT_SIDE:
+        film = render_light_side(job, camera, film, cfg, spp, max_depth)
+        return (film, None) if count_rays else film
+    trace_fn, trace_kwargs, max_depth = integrator_trace(
+        job, camera, film.width, film.height, max_depth)
     msl = job.max_sample_luminance
     return pathmod.render(job.scene, camera, film, cfg, spp,
                           max_depth=max_depth,
@@ -116,3 +136,52 @@ def render_with_integrator(job, camera, film, cfg, spp, max_depth,
                           crop_window=job.crop_window,
                           max_sample_luminance=(None if msl >= INF_LUMINANCE
                                                 else msl))
+
+
+def render_light_side(job, camera, film, cfg, spp, max_depth):
+    """Render a LIGHT_SIDE integrator into `film` (module docstring);
+    returns the film."""
+    kind = job.integrator_kind
+    ip = job.integrator_params
+    scene = job.scene
+    gen = pathmod.generate_fn(camera)
+    if kind == "lighttracer":
+        film, scale = lighttracer.render_lighttracer(
+            scene, camera, film, cfg, spp, max_depth=max_depth)
+        film.splat.mul_(scale)
+        return film
+    if kind == "bdpt":
+        film, scale = bdpt.render_bdpt(scene, camera, film, cfg, spp,
+                                       max_depth=max_depth,
+                                       generate_rays=gen)
+        film.splat.mul_(scale)
+        return film
+    if kind == "sppm":
+        n_it = max(spp, 4)
+        if ip.get("iterations", n_it) != n_it:
+            log.warning("iterations %d is ignored: SPPM runs max(spp, 4) = "
+                        "%d iterations, as in the JAX package",
+                        ip["iterations"], n_it)
+        L = sppm.render_sppm(scene, camera, film.width, film.height, cfg,
+                             n_iterations=n_it,
+                             initial_radius=ip.get("radius", None),
+                             max_depth=max_depth, generate_rays=gen)
+    else:
+        n_mut = max(spp, 8) * 8
+        if ip.get("mutationsperpixel", n_mut) != n_mut:
+            log.warning("mutationsperpixel %d is ignored: each chain runs "
+                        "max(spp, 8) * 8 = %d mutations, as in the JAX "
+                        "package", ip["mutationsperpixel"], n_mut)
+        L, _ = mlt.render_mlt(
+            scene, camera, film.width, film.height,
+            n_chains=ip.get("chains", 4096) or 4096,
+            mutations_per_chain=n_mut,
+            n_bootstrap=ip.get("bootstrapsamples", 65536) or 65536,
+            sigma=ip.get("sigma", 0.01), max_depth=max_depth,
+            large_step_prob=ip.get("largestepprobability", 0.3),
+            generate_rays=gen)
+    # a resolved film: weight 1, raw = L (the .dat's)
+    film.weighted.copy_(L)
+    film.raw.copy_(L)
+    film.weight.fill_(1.0)
+    return film

@@ -37,7 +37,11 @@ bounce's NEE and sampling then run there with the Sw exit lobe.  Hair
 lanes shade in a frame along the fiber (bsdf.shading_frame) and sample
 with a ninth sampler dimension a bounce.
 
-Not ported: the primary-sample-space `uniforms` hook (MLT's).
+Primary sample space (MLT's hook, integrators/mlt.py): given `uniforms`
+[B, D], every sampler dimension `dim` of the pass, the camera's, the
+bounces' (the mix and hair dimensions included), the BSSRDF probe's and
+the "all" strategy's blocks, reads column dim % D instead of the
+sampler (reference mlt.h MLTSampler:53-105).
 """
 
 from __future__ import annotations
@@ -257,7 +261,7 @@ def _sss_event(scene, hit, mat, beta, alive, ss, ts, sdim, bounce,
 def trace_paths(scene: ir.SceneData, ray: geom.Ray, pixel_id, sample_idx,
                 cfg: SamplerConfig, max_depth=5, count_rays=False,
                 wavelength_mask=None, tex_spread=0.0, ray_diff=None,
-                light_strategy="uniform"):
+                light_strategy="uniform", uniforms=None):
     """Radiance [B,31] for a batch of camera rays.
 
     count_rays: also return the rays traced, counted as the JAX package
@@ -268,11 +272,15 @@ def trace_paths(scene: ir.SceneData, ray: geom.Ray, pixel_id, sample_idx,
     tex_spread: the camera's pixel spread (camera_pixel_spread); 0 keeps
     every texture lookup at the finest level.  ray_diff: the camera rays'
     differentials (camera_ray_differentials) or None.  light_strategy:
-    "uniform", "power" or "spatial" (lights/distrib.py), or "all"."""
+    "uniform", "power" or "spatial" (lights/distrib.py), or "all".
+    uniforms: [B, D] primary samples that stand in for the sampler (the
+    module docstring); cfg, pixel_id and sample_idx are then unused."""
     B = ray.o.shape[0]
     dev = ray.o.device
 
     def sdim(dim):
+        if uniforms is not None:
+            return uniforms[:, dim % uniforms.shape[1]]
         return sample_dim(cfg, pixel_id, sample_idx, dim)
 
     L = torch.zeros((B, spec.N_SPECTRAL_SAMPLES), device=dev)

@@ -1143,7 +1143,18 @@ class PbrtAPI:
                     "lightsamplestrategy", "spatial"),
                 "numCABands": ip.find_one_int("numCABands", 4),
                 "strategy": ip.find_one_string("strategy", "depth"),
-                "cossample": ip.find_one_bool("cossample", True)},
+                "cossample": ip.find_one_bool("cossample", True),
+                "radius": ip.find_one_float("radius", 0.0) or None,
+                "chains": ip.find_one_int("chains", 4096),
+                "bootstrapsamples": ip.find_one_int("bootstrapsamples",
+                                                    65536),
+                "sigma": ip.find_one_float("sigma", 0.01),
+                "largestepprobability": ip.find_one_float(
+                    "largestepprobability", 0.3),
+                "mutationsperpixel": ip.find_one_int("mutationsperpixel",
+                                                     100),
+                "iterations": ip.find_one_int(
+                    "iterations", ip.find_one_int("numiterations", 64))},
             instance_names=self.instance_names,
             material_names=self.builder.material_names,
             media=self.media,

@@ -29,6 +29,10 @@ from the same numpy seeds by the port's own code.
                     each a MediumInterface, over a floor: every shadow
                     ray from the floor crosses a triangle at each of the
                     shadow walk's 8 steps (volpath_walk_batches).
+  bdpt_batches      a bdpt pass's first light-subpath call and its
+                    (2,2) and (2,1) connection calls; photon_batch, an
+                    SPPM iteration's first photon call (the light-side
+                    integrators' kinds of batch).
   accel_batches     the camera and bounce-1 batches of a render over the
                     dense cap, as its BVH or kd walk receives them, and
                     walk_bound, the walks' bound from the plain version's
@@ -434,6 +438,48 @@ def sss_probe_batches(scene, camera, cfg, width, height, rays, depth,
                                 depth, trace_kw), 1 + depth * (P + 1))
     return {f"b{b}_p{k}": batches[1 + b * (P + 1) + k]
             for b in bounces for k in passes}
+
+
+def bdpt_batches(scene, camera, cfg, width, height, rays, depth):
+    """The light-side batches of one bdpt pass (integrators/bdpt.py
+    trace_pass over sample 0 of the first `rays` pixels): depth + 1
+    camera-subpath and depth light-subpath closest-hit calls, then the
+    any-hit connections in bdpt.strategies' order.  Returns {"light": the
+    first light-subpath call (rays leaving the lights), "s2t2": the
+    (s=2, t=2) connections (finite tmax between two surface points, many
+    lanes dead), "t1": the (s=2, t=1) connections to the camera}."""
+    from pbrt_tpu_torch.film import film as filmmod
+    from pbrt_tpu_torch.integrators import bdpt
+    T, S = depth + 2, depth + 1
+    order = bdpt.strategies(T, S, T, scene.n_lights)
+
+    def run():
+        film = filmmod.make_film(width, height, device=scene.device)
+        ids = torch.arange(rays, device=scene.device)
+        bdpt.trace_pass(scene, camera, film, cfg, ids, 0, depth)
+
+    batches = _record(run, (T - 1) + (S - 1) + len(order))
+    n0 = (T - 1) + (S - 1)
+    return {"light": batches[T - 1],
+            "s2t2": batches[n0 + order.index((2, 2))],
+            "t1": batches[n0 + order.index(("t1", 2))]}
+
+
+def photon_batch(scene, cfg, photons, depth):
+    """The first photon call of an SPPM iteration (integrators/sppm.py
+    photon_pass at sample 0: `photons` rays leaving the lights), as the
+    dense kernels receive it; the pass's `depth` calls run against one
+    dead visible point."""
+    from pbrt_tpu_torch.integrators import sppm
+    dev = scene.device
+
+    def run():
+        sppm.photon_pass(scene, cfg, 0, photons, depth,
+                         torch.zeros((1, 3), device=dev),
+                         torch.zeros(1, dtype=torch.bool, device=dev),
+                         torch.ones(1, device=dev))
+
+    return _record(run, depth)[0]
 
 
 def probe_repeats(scene, camera, cfg, width, height, rays, depth,

@@ -15,6 +15,12 @@ caller's component too.  The dense intersector's kernels (K1, K2) are
 ctypes launches, counted by their wrappers' LAUNCHES, and on the CPU
 their plain versions' operations fall under "intersect".
 
+A scene whose integrator is lighttracer, bdpt, sppm or mlt counts one
+unit of its driver instead (light_side_unit): a photon pass of --rays
+photons, a bdpt pass of --rays camera rays, an SPPM iteration (a camera
+pass over the film and --rays photons) or an MLT mutation step of --rays
+chains; the SPPM photon gather is its own component.
+
 With --grad the pass is the forward of a gradient step instead
 (`diff.render_loss` of mat_kd and light_L against a black target), and
 the operations of its backward (`autograd.grad`) are counted as one
@@ -32,7 +38,9 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from pbrt_tpu_torch.core import device as devmod
-from pbrt_tpu_torch.integrators import diff, dispatch, path
+from pbrt_tpu_torch.film import film as filmmod
+from pbrt_tpu_torch.integrators import (bdpt, diff, dispatch, lighttracer,
+                                        mlt, path, sppm)
 from pbrt_tpu_torch.ops import dense_intersect as dense
 from pbrt_tpu_torch.parser.api import parse_scene
 from pbrt_tpu_torch.samplers.samplers import SamplerConfig
@@ -58,6 +66,7 @@ COMPONENTS = {
     ("integrators.path", "_specular_differentials"): "differentials",
     ("cameras.projective", None): "camera",
     ("cameras.lens", None): "camera",
+    ("integrators.sppm", "gather"): "photon gather",
 }
 _VIEWS = {"view", "_unsafe_view", "reshape", "expand", "slice", "select",
           "unsqueeze", "squeeze", "t", "permute", "as_strided", "detach",
@@ -101,12 +110,52 @@ class OpCounter(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
+def light_side_unit(kind, scene, camera, cfg, width, height, depth, rays):
+    """fn() running one unit of a light-side integrator at sample 0 (the
+    module docstring); MLT's bootstrap of `rays` paths runs here, outside
+    the unit."""
+    dev = scene.device
+    ids = torch.arange(rays, device=dev)
+    if kind == "lighttracer":
+        film = filmmod.make_film(width, height, device=dev)
+        trace = lighttracer.make_trace_lighttracer(camera, width, height)
+        return lambda: trace(scene, film, ids, torch.zeros_like(ids), cfg,
+                             depth)
+    if kind == "bdpt":
+        film = filmmod.make_film(width, height, device=dev)
+        return lambda: bdpt.trace_pass(scene, camera, film, cfg, ids, 0,
+                                       depth)
+    if kind == "sppm":
+        radius = torch.full((width * height,),
+                            float(scene.world_radius) * 0.01, device=dev)
+
+        def iteration():
+            _, vp_p, _, vp_ok, _ = sppm.camera_pass(
+                scene, camera, width, height, cfg, 0, depth)
+            sppm.photon_pass(scene, cfg, 0, rays, depth, vp_p, vp_ok, radius)
+        return iteration
+    b, state = mlt.bootstrap(scene, camera, width, height, rays, rays, depth)
+    film = filmmod.make_film(width, height, device=dev)
+    return lambda: mlt.mutate_step(scene, camera, film, state, 1, b, 0.01,
+                                   0.3, depth)
+
+
 def count_pass(job, rays, width, height, device, grad=False):
     """{component: operations} of one pass of `rays` camera rays (with
-    grad: a gradient step's forward and backward), and the dense kernels'
+    grad: a gradient step's forward and backward; a light-side
+    integrator's unit, light_side_unit), and the dense kernels'
     launches."""
     camera = cli.build_camera(job, width, height, device)
     cfg = SamplerConfig(job.sampler_kind, 0, job.spp)
+    if job.integrator_kind in dispatch.LIGHT_SIDE:
+        unit = light_side_unit(job.integrator_kind, job.scene, camera, cfg,
+                               width, height,
+                               job.integrator_params["maxdepth"], rays)
+        dense.reset_launch_counts()
+        counter = OpCounter()
+        with counter:
+            unit()
+        return counter.counts, dict(dense.LAUNCHES)
     trace, kw, depth = dispatch.integrator_trace(
         job, camera, width, height, job.integrator_params["maxdepth"])
     trace = trace or path.trace_paths

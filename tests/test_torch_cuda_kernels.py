@@ -45,7 +45,11 @@ the shapes cell's batches (319 chunks of 512 triangles; K1's bitonic
 sort), with ties at shared edges allowed as on the matched-RNG batches
 and one lane a batch of another triangle where rounding explains it
 (dense.loop_prim_skipped), and the BSSRDF probe passes' batches of the
-skin scene (mostly dead lanes, finite tmax), with two such lanes.
+skin scene (mostly dead lanes, finite tmax), with two such lanes, and
+the light-side integrators' batches on scenes/cornell_bench.pbrt: a bdpt
+pass's rays leaving the light, its (2,2) and (2,1) connections (any-hit
+between surface points and toward the camera, finite tmax, dead lanes)
+and an SPPM iteration's first photons, with two such lanes.
 """
 import numpy as np
 import pytest
@@ -626,6 +630,32 @@ def test_k1_k2_on_the_bssrdf_probe_batches(device, tmp_path, batch):
         SamplerConfig("sobol", 0, 4), 256, 256, 65536, 5,
         light_strategy="spatial")[batch]
     assert (tmax < 0).float().mean() > 0.5       # most probe lanes dead
+    _seam_contract(scene, r16, tmax, skips=2)
+
+
+@pytest.mark.parametrize("batch", ["light", "s2t2", "t1", "photon"])
+def test_k1_k2_on_the_light_side_batches(device, batch):
+    """K1 and the static K2 on kernel_workloads.bdpt_batches (one bdpt
+    pass of 32,768 camera rays at 256x256, Sobol, depth 5) and
+    photon_batch (65,536 photons) of scenes/cornell_bench.pbrt: the
+    shapes cell's contract with two closest-hit lanes a batch allowed
+    another triangle where rounding explains it."""
+    import os
+    from pbrt_tpu_torch.parser.api import parse_scene
+    from pbrt_tpu_torch.samplers.samplers import SamplerConfig
+    from pbrt_tpu_torch.tools import pbrt as cli
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    job = parse_scene(os.path.join(root, "scenes", "cornell_bench.pbrt"),
+                      device=device)
+    scene = job.scene
+    cfg = SamplerConfig("sobol", 0, 4)
+    if batch == "photon":
+        r16, tmax, _ = kernel_workloads.photon_batch(scene, cfg, 65536, 5)
+    else:
+        r16, tmax, _ = kernel_workloads.bdpt_batches(
+            scene, cli.build_camera(job, 256, 256, device), cfg, 256, 256,
+            32768, 5)[batch]
+    assert (r16[:, 12] > 0.5).any() == (batch in ("s2t2", "t1"))
     _seam_contract(scene, r16, tmax, skips=2)
 
 

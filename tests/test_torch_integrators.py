@@ -34,6 +34,7 @@ from pbrt_tpu.integrators import metadata as jmeta
 from pbrt_tpu.integrators import path as jpath
 from pbrt_tpu.integrators import spectralpath as jspec
 from pbrt_tpu.models import flagship as jflag
+from pbrt_tpu.parser.api import PbrtAPI as JAPI
 from pbrt_tpu.parser.api import parse_scene as jparse
 from pbrt_tpu.samplers import samplers as jsamp
 from pbrt_tpu.samplers.samplers import SamplerConfig as JCfg
@@ -53,9 +54,12 @@ from pbrt_tpu_torch.samplers.samplers import SamplerConfig as TCfg
 from pbrt_tpu_torch.scene import ir as tir
 from pbrt_tpu_torch.tools import pbrt as tcli
 from test_torch_core import one_torch_thread  # noqa: F401  (autouse)
+from test_torch_lighttracer import jax_light_render
+from test_torch_volpath import assert_renders_alike
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 META = os.path.join(ROOT, "scenes", "metadata_depth.pbrt")
+BENCH = os.path.join(ROOT, "scenes", "cornell_bench.pbrt")
 REFRNG = os.path.join(ROOT, "scenes", "cornell_refrng.pbrt")
 META_REF = os.path.join(ROOT, "tests", "data", "ref_metadata_depth.npz")
 DEV = "cpu"
@@ -207,6 +211,12 @@ def test_spectralpath_waits_for_lens_cameras(tmp_path):
 
 
 def test_dispatch_routes_the_ported_integrators(meta_jobs, cornell):
+    """metadata, spectralpath and path through render_with_integrator
+    (path alone counts rays), and bdpt on cornell_bench.pbrt (8x8, 1 spp,
+    depth 2) against pbrt_tpu's run_job: image mean within 1e-4, >= 97%
+    of pixels within 1e-3 (test_torch_volpath's tolerance; measured
+    equal to 2.4e-7), its t=1 strategies in the splat buffer and no rays
+    counted."""
     _, tj = meta_jobs
     _, _, ts, tc = cornell
     film, n = tdispatch.render_with_integrator(
@@ -223,11 +233,19 @@ def test_dispatch_routes_the_ported_integrators(meta_jobs, cornell):
             job, tc, tfilm.make_film(SW, SH, device=DEV), TCfg("sobol", 0, 1),
             1, 2, count_rays=True)
         assert (n is not None) == counted and film.weighted.sum() > 0, kind
-    job = type(tj)(**{**tj.__dict__, "integrator_kind": "bdpt"})
-    with pytest.raises(NotImplementedError, match="bdpt"):
-        tdispatch.render_with_integrator(
-            job, tc, tfilm.make_film(SW, SH, device=DEV), TCfg("sobol", 0, 1),
-            1, 2)
+    text = open(BENCH).read()
+    jj = JAPI().parse_string(text, os.path.dirname(BENCH))
+    job = TAPI(DEV).parse_string(text, os.path.dirname(BENCH))
+    for j in (jj, job):
+        j.integrator_kind = "bdpt"
+        j.film_width = j.film_height = 8
+    film, n = tdispatch.render_with_integrator(
+        job, tcli.build_camera(job, 8, 8, DEV),
+        tfilm.make_film(8, 8, job.filter_name, device=DEV),
+        TCfg(job.sampler_kind, 0, 1), 1, 2, count_rays=True)
+    assert n is None and float(film.splat.sum()) > 0
+    assert_renders_alike(tfilm.develop_spectral(film).numpy(),
+                         jax_light_render(jj, 1, 2))
 
 
 # ---------------------------------------------------------------------------

@@ -31,6 +31,7 @@ from pbrt_tpu_torch.samplers.samplers import SamplerConfig as TCfg
 from pbrt_tpu_torch.scene import ir as tir
 from pbrt_tpu_torch.tools import pbrt as tcli
 from test_torch_core import one_torch_thread  # noqa: F401  (autouse)
+from test_torch_lighttracer import jax_light_render
 from test_torch_volpath import assert_renders_alike, jax_render
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -148,8 +149,12 @@ def test_unknown_integrator_warns_and_renders_path(caplog):
     pbrt_tpu's dispatch does: with trace_paths' own light strategy,
     "uniform", not the path integrator's "spatial" default.  Held against
     pbrt_tpu on TWO_AREA_LIGHTS (two sphere lights and a point light)
-    at depth 2, where the spatial strategy gives another image.  The JAX
-    package's unported integrators raise, naming themselves."""
+    at depth 2, where the spatial strategy gives another image.  The
+    light-side integrators, once unported, render the same scene through
+    dispatch (16x16, 1 spp, depth 2; mlt with 64 chains, 256 bootstrap
+    paths): finite, non-negative, lit; lighttracer and sppm against
+    pbrt_tpu's (assert_renders_alike; bdpt and mlt are held to it in
+    test_torch_bdpt.py, test_torch_integrators.py and test_torch_mlt.py)."""
     jj, tj = _jobs(TWO_AREA_LIGHTS, "nosuchintegrator")
     with caplog.at_level(logging.WARNING, logger="pbrt_tpu_torch"):
         ti, ji = _render_pair(jj, tj, 2)
@@ -159,14 +164,18 @@ def test_unknown_integrator_warns_and_renders_path(caplog):
     pf, _ = tcli.run_job(pj, spp=SPP, max_depth=2)
     pi = tfilm.develop_spectral(pf).numpy()
     assert abs(pi.mean() / ji.mean() - 1) > 1e-3
-    job = TAPI("cpu").parse_string(TWO_AREA_LIGHTS)
-    cam = tcli.build_camera(job, 8, 8, "cpu")
-    cfg = TCfg("sobol", 0, 1)
-    for kind in dispatch.UNPORTED:
-        job.integrator_kind = kind
-        with pytest.raises(NotImplementedError, match=kind):
-            dispatch.render_with_integrator(
-                job, cam, tfilm.make_film(8, 8, device="cpu"), cfg, 1, 2)
+    for kind in dispatch.LIGHT_SIDE:
+        jj, job = _jobs(TWO_AREA_LIGHTS, kind, chains=64,
+                        bootstrapsamples=256)
+        film = tfilm.make_film(RES, RES, device="cpu")
+        dispatch.render_with_integrator(
+            job, tcli.build_camera(job, RES, RES, "cpu"), film,
+            TCfg(job.sampler_kind, 0, 1), 1, 2)
+        img = tfilm.develop_spectral(film).numpy()
+        assert np.isfinite(img).all() and (img >= 0).all(), kind
+        assert img.mean() > 0, kind
+        if kind in ("lighttracer", "sppm"):
+            assert_renders_alike(img, jax_light_render(jj, 1, 2))
 
 
 def test_broadcast_albedo_matches_jax():

@@ -28,6 +28,8 @@ from pbrt_tpu_torch.scene import ir as tir
 from pbrt_tpu_torch.tools import pbrt as tcli
 from test_torch_core import one_torch_thread  # noqa: F401  (autouse)
 from test_torch_core import tensors_equal
+from test_torch_lighttracer import jax_light_render
+from test_torch_volpath import assert_renders_alike
 
 DEV = "cpu"
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -210,12 +212,19 @@ def test_unported_options_raise(snippet, name):
 
 
 def test_unported_integrator_raises_at_render():
+    """Integrator "bdpt", once unported, renders the motion scene (8x8,
+    1 spp, depth 1) through run_job as pbrt_tpu's does: image mean within
+    1e-4, >= 97% of pixels within 1e-3 (test_torch_volpath's tolerance)."""
     text = MOTION_TEXT.replace('WorldBegin',
                                'Sampler "sobol"\nIntegrator "bdpt"\n'
                                'WorldBegin')
-    job = TAPI(DEV).parse_string(text)
-    with pytest.raises(NotImplementedError, match="bdpt"):
-        tcli.run_job(job, spp=1, max_depth=1)
+    jj, job = JAPI().parse_string(text), TAPI(DEV).parse_string(text)
+    for j in (jj, job):
+        j.film_width = j.film_height = 8
+    assert job.integrator_kind == "bdpt" and job.scene.dense_motion
+    film, _ = tcli.run_job(job, spp=1, max_depth=1)
+    assert_renders_alike(tfilm.develop_spectral(film).numpy(),
+                         jax_light_render(jj, 1, 1))
 
 
 def test_cli_renders_on_cpu_and_writes_outputs(tmp_path):
