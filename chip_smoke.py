@@ -2400,23 +2400,9 @@ def phase24(run_path, card, device, res):
 # gitignored output directory: (tools/shapes_scene.py arguments, the
 # route, resolution, spp, the walk kernel)
 WALK_DIR = os.path.join(ROOT, "chiprun_out", "walk_cells")
-WALK_CELLS = {
-    "shapes_1m": (dict(level=6, instances=12, field=256), "BVH", 256, 4,
-                  "bvh_walk"),
-    "shapes_motion": (dict(moving_field=True), "BVH", 128, 4,
-                      "bvh_walk_motion"),
-    "shapes_kd": (dict(level=5, instances=13, accel="kdtree"), "kd-tree",
-                  256, 4, "kd_walk"),
-    "shapes_kd_motion": (dict(moving_field=True, accel="kdtree"), "kd-tree",
-                         128, 4, "kd_walk_motion"),
-}
+WALK_CELLS = kw.WALK_CELLS
 # the walk kernels' rows of the kernels line: (row, cell, batch)
-WALK_ROWS = (("bvh_1m_camera", "shapes_1m", "camera"),
-             ("bvh_1m_bounce1", "shapes_1m", "bounce1"),
-             ("bvh_motion_bounce1", "shapes_motion", "bounce1"),
-             ("kd_camera", "shapes_kd", "camera"),
-             ("kd_bounce1", "shapes_kd", "bounce1"),
-             ("kd_motion_bounce1", "shapes_kd_motion", "bounce1"))
+WALK_ROWS = kw.WALK_ROWS
 WALK_SOURCE = "pbrt_tpu_torch/csrc/accel_walk.cu"
 # the XLA loops each walk replaces (no pl.pallas_call)
 WALK_REPLACES = {"bvh_walk": "pbrt_tpu/ops/intersect.py:591",
@@ -2458,6 +2444,30 @@ def compare_walk(sc, name, args, card):
         visits_max=int(counts.visits.max()),
         tests_mean=counts.tests.float().mean().item(),
         nodes=counts.nodes, tris=counts.tris, B=int(p_k.shape[0]))
+    # the batch's 1% of lanes with the most node visits alone, and the
+    # other 99%: does the longest chain set the time?
+    B = rec["B"]
+    top = torch.topk(counts.visits, max(1, B // 100)).indices
+    rest = torch.ones(B, dtype=torch.bool, device=sc.device)
+    rest[top] = False
+    # lanes of the whole batch that differed at a tie
+    tied = torch.zeros(B, dtype=torch.bool, device=sc.device)
+    tied[lanes] = tie
+    for part, idx in (("top1", top), ("rest", torch.nonzero(rest)[:, 0])):
+        sub = {k: (v[idx].contiguous() if k in kw.WALK_RAY_ARGS
+                   and v is not None else v) for k, v in args.items()}
+        run_s = functools.partial(run_k.func, **sub)
+        t_s, p_s = run_s()
+        same_s = (p_s == p_p[idx]) & (t_s.view(torch.int32)
+                                      == t_p[idx].view(torch.int32))
+        check(bool((same_s | tied[idx]).all()), f"walk {name} {part}: "
+              "lanes differ from the plain version without a tie")
+        rec[f"device_{part}"] = kw.device_ms(run_s)
+    dev = rec["device"]
+    rec["us_a_step"] = (None if dev is None
+                        else dev[0] * 1e3 / rec["visits_max"])
+    step = ("not measured" if rec["us_a_step"] is None
+            else f"{rec['us_a_step']:.4f}")
     print(f"phase 25b {name}: B={rec['B']} any-hit lanes={n_any} found="
           f"{found:.4f}; lanes not bit for bit equal to the plain version "
           f"{len(lanes)}, of them ties {int(tie.sum())}; node visits a lane "
@@ -2466,7 +2476,10 @@ def compare_walk(sc, name, args, card):
           f"{counts.nodes} and triangles {counts.tris} read; kernel "
           f"{_dev(rec)} ms device, {rec['ms']:.4f} ms events, plain "
           f"{rec['plain_ms']:.2f} ms, bound {rec['bound'][0]:.5f} ms "
-          f"({rec['bound'][1]}) on {card}")
+          f"({rec['bound'][1]}); the 1% longest lanes alone "
+          f"{_dev({'device': rec['device_top1']})} ms device, the other "
+          f"99% {_dev({'device': rec['device_rest']})}; {step} us a step of "
+          f"the longest chain on {card}")
     check(bool(tie.all()), f"walk {name}: {int((~tie).sum())} lanes differ "
           "from the plain version without a tie")
     check(found > 0.05, f"walk {name}: found share {found}")
@@ -2496,9 +2509,7 @@ def kd_against_bvh(sc, name, args):
     bargs = {k: v for k, v in args.items()
              if k in kw.WALK_RAY_ARGS + ("tri_packed", "tri_motion")
              and k != "tmax"}
-    t_b, p_b = accel_walk.bvh_walk(packed=sc.bvh_packed,
-                                   hit_links=sc.bvh_hit,
-                                   miss_links=sc.bvh_miss,
+    t_b, p_b = accel_walk.bvh_walk(packed=sc.bvh_packed, links=sc.bvh_links,
                                    max_leaf=sc.max_leaf, **bargs)
     anyhit = args.get("anyhit")
     anyhit = (torch.zeros_like(p_kd, dtype=torch.bool) if anyhit is None
@@ -2622,7 +2633,7 @@ def phase25(run_walk, card, device, res, shapes=None):
         t_parse = time.perf_counter() - t1
         sc = job.scene
         n_tri = int((sc.prim_type == 0).sum())
-        walk_mib = nbytes(sc.bvh_packed, sc.bvh_hit, sc.bvh_miss,
+        walk_mib = nbytes(sc.bvh_packed, sc.bvh_links,
                           sc.tri_packed) / 2**20
         if sc.has_animated_mesh:
             walk_mib += nbytes(sc.tri_motion) / 2**20
@@ -2661,6 +2672,9 @@ def phase25(run_walk, card, device, res, shapes=None):
     for row, cell, batch in WALK_ROWS:
         res[row] = compare_walk(jobs[cell].scene, row, batches[cell][batch],
                                 card)
+    for fn_name, v in sorted(cuda_kernels.ptxas_report().items()):
+        if "walk" in fn_name:
+            print(f"phase 25b ptxas {fn_name}: {v}")
     t_kernels = time.perf_counter() - t0
 
     # (c) kd against BVH on the kd cells
@@ -3133,7 +3147,10 @@ def walk_rows(res, launches):
             "batch_rays": r["B"], "node_visits_mean": r["visits_mean"],
             "node_visits_max": r["visits_max"],
             "tri_tests_mean": r["tests_mean"], "nodes_read": r["nodes"],
-            "tris_read": r["tris"]})
+            "tris_read": r["tris"],
+            "device_ms_top1": _ms(r["device_top1"]),
+            "device_ms_rest": _ms(r["device_rest"]),
+            "us_a_step_longest": r["us_a_step"]})
     return rows
 
 

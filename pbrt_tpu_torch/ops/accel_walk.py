@@ -33,10 +33,13 @@ after its first step.
 pbrt_tpu's op for op (each step on the lanes still walking), with the
 port's `ray_triangle`; with counts=True they also return what the walk
 read (`WalkCounts`: per-lane node visits and triangle tests, and the
-distinct node and triangle rows touched), which kernel_workloads.
-walk_bound and the smoke read.  The kernels repeat the same f32
-operations unfused, so (t, prim) agree bit for bit.  Each wrapper takes the plain version only
-for tensors on the CPU; for CUDA tensors it launches the kernel or raises.
+distinct node and triangle rows touched), which
+kernel_workloads.walk_bound, tools/ab_walk.py and the smoke read.  The
+kernels repeat the same f32 operations unfused, so (t, prim) agree bit
+for bit.  The BVH's octant links are one table of (hit, miss) pairs,
+`bvh_links` (scene.bvh_links), so that the kernel reads both in one load.
+Each wrapper takes the plain version only for tensors on the CPU; for
+CUDA tensors it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -110,25 +113,33 @@ def _tests(o, d, pid, valid, t_best, tri_packed, u, tri_motion):
     return upd, t_new, torch.gather(pid, 1, k)[:, 0]
 
 
+def bvh_links(hit_links, miss_links):
+    """The BVH's link table [8,N,2] int32 from FlatBVH's hit_links and
+    miss_links [8,N]: each octant's hit and miss link of a node side by
+    side, so that one 8-byte load reads both (scene.bvh_links, built with
+    the scene)."""
+    return torch.stack((hit_links, miss_links), -1).contiguous()
+
+
 def _motion_time(time, tri_motion):
     if (time is None) != (tri_motion is None):
         raise ValueError("time and tri_motion come together")
     return None if time is None else torch.clamp(time, 0.0, 1.0)
 
 
-def bvh_walk_plain(o, d, t_init, prim_init, packed, hit_links, miss_links,
-                   tri_packed, max_leaf, anyhit=None, time=None,
-                   tri_motion=None, counts=False):
+def bvh_walk_plain(o, d, t_init, prim_init, packed, links, tri_packed,
+                   max_leaf, anyhit=None, time=None, tri_motion=None,
+                   counts=False):
     """The plain version of `bvh_walk` (module docstring): rays o, d [B,3]
-    f32 from (t_init [B] f32, prim_init [B] i32); the BVH's packed [N,8],
-    hit_links / miss_links [8,N] i32; triangle rows tri_packed [P,12].
+    f32 from (t_init [B] f32, prim_init [B] i32); the BVH's packed [N,8]
+    and links [8,N,2] i32 (`bvh_links`); triangle rows tri_packed [P,12].
     Returns (t [B], prim [B] i32), and with counts a WalkCounts too."""
     B, N, P = o.shape[0], packed.shape[0], tri_packed.shape[0]
     dev = o.device
     u = _motion_time(time, tri_motion)
     inv_d = inv_direction(d)
     base = octant(d) * N
-    hit_f, miss_f = hit_links.reshape(-1), miss_links.reshape(-1)
+    hit_f, miss_f = links[..., 0].reshape(-1), links[..., 1].reshape(-1)
     leaf_bits_all = packed[:, 6].contiguous().view(torch.int32)
     t, prim = t_init.clone(), prim_init.clone()
     visits = torch.zeros(B, dtype=torch.int32, device=dev)
@@ -289,30 +300,30 @@ def _aligned(name, x):
         raise ValueError(f"{name}: expected a 16-byte aligned tensor")
 
 
-def bvh_walk(o, d, t_init, prim_init, packed, hit_links, miss_links,
-             tri_packed, max_leaf, anyhit=None, time=None, tri_motion=None):
+def bvh_walk(o, d, t_init, prim_init, packed, links, tri_packed, max_leaf,
+             anyhit=None, time=None, tri_motion=None):
     """Closest hit (first hit for `anyhit` lanes) of each ray through the
     BVH: (t [B] f32, prim [B] i32), csrc/accel_walk.cu's bvh_walk_kernel
     (its motion instantiation given `time` and `tri_motion`).  Arguments
     as bvh_walk_plain's; every tensor contiguous, all on the CPU (the
     plain version) or all on one card."""
     _motion_time(time, tri_motion)
-    xs = [x for x in (o, d, t_init, prim_init, packed, hit_links,
-                      miss_links, tri_packed, anyhit, time, tri_motion)
+    if packed.shape[0] == 0:
+        raise ValueError("bvh_walk: an empty BVH")
+    xs = [x for x in (o, d, t_init, prim_init, packed, links, tri_packed,
+                      anyhit, time, tri_motion)
           if x is not None]
     if dense._on_cpu(*xs):
-        return bvh_walk_plain(o, d, t_init, prim_init, packed, hit_links,
-                              miss_links, tri_packed, max_leaf,
-                              anyhit=anyhit, time=time,
-                              tri_motion=tri_motion)
+        return bvh_walk_plain(o, d, t_init, prim_init, packed, links,
+                              tri_packed, max_leaf, anyhit=anyhit,
+                              time=time, tri_motion=tri_motion)
     B, N, P = o.shape[0], packed.shape[0], tri_packed.shape[0]
     _check_rays(o, d, t_init, prim_init, anyhit, time, tri_motion, P)
     dense._check("packed", packed, torch.float32, (N, 8))
-    dense._check("hit_links", hit_links, torch.int32, (8, N))
-    dense._check("miss_links", miss_links, torch.int32, (8, N))
+    dense._check("links", links, torch.int32, (8, N, 2))
     dense._check("tri_packed", tri_packed, torch.float32, (P, 12))
-    for name, x in (("packed", packed), ("tri_packed", tri_packed),
-                    ("tri_motion", tri_motion)):
+    for name, x in (("packed", packed), ("links", links),
+                    ("tri_packed", tri_packed), ("tri_motion", tri_motion)):
         if x is not None:
             _aligned(name, x)
     if not 0 < max_leaf <= 31:
@@ -324,9 +335,8 @@ def bvh_walk(o, d, t_init, prim_init, packed, hit_links, miss_links,
     err = cuda_kernels.library().pbrt_bvh_walk(
         dense._ptr(o), dense._ptr(d), _opt_ptr(time), dense._ptr(t_init),
         dense._ptr(prim_init), _opt_ptr(anyhit), dense._ptr(packed),
-        dense._ptr(hit_links), dense._ptr(miss_links),
-        dense._ptr(tri_packed), _opt_ptr(tri_motion), B, N, P, max_leaf,
-        dense._ptr(t), dense._ptr(prim), dense._stream())
+        dense._ptr(links), dense._ptr(tri_packed), _opt_ptr(tri_motion), B,
+        N, P, max_leaf, dense._ptr(t), dense._ptr(prim), dense._stream())
     dense._raise_on(err, name)
     LAUNCHES[name] += 1
     return t, prim

@@ -72,7 +72,7 @@ def library():
     lib.pbrt_dense_tile_dump.restype = ctypes.c_int
     lib.pbrt_dense_tile_dump.argtypes = [p] * 4 + [i] * 3 + [p] * 6
     lib.pbrt_bvh_walk.restype = ctypes.c_int
-    lib.pbrt_bvh_walk.argtypes = [p] * 11 + [i] * 4 + [p] * 3
+    lib.pbrt_bvh_walk.argtypes = [p] * 10 + [i] * 4 + [p] * 3
     lib.pbrt_kd_walk.restype = ctypes.c_int
     lib.pbrt_kd_walk.argtypes = [p] * 12 + [i] * 5 + [p] * 3
     return lib

@@ -359,9 +359,9 @@ def _intersect_bvh(scene: SceneData, ray: geom.Ray, anyhit_mask=None):
     """The BVH route (pbrt_tpu's _intersect_bvh): the quadric pre-test,
     then accel_walk.bvh_walk.  Returns (t, prim, found) [B]."""
     t, prim = accel_walk.bvh_walk(
-        packed=scene.bvh_packed, hit_links=scene.bvh_hit,
-        miss_links=scene.bvh_miss, tri_packed=scene.tri_packed,
-        max_leaf=scene.max_leaf, **_walk_args(scene, ray, anyhit_mask))
+        packed=scene.bvh_packed, links=scene.bvh_links,
+        tri_packed=scene.tri_packed, max_leaf=scene.max_leaf,
+        **_walk_args(scene, ray, anyhit_mask))
     return t, prim, prim >= 0
 
 

@@ -59,6 +59,7 @@ from pbrt_tpu_torch.accel.kdtree import build_kdtree
 from pbrt_tpu_torch.core import device as devmod
 from pbrt_tpu_torch.core import spectrum as spec
 from pbrt_tpu_torch.core.transform import Transform, animated_pair
+from pbrt_tpu_torch.ops import accel_walk
 from pbrt_tpu_torch.ops.dense_intersect import (build_dense_tables,
                                                 build_dense_tables_motion)
 from pbrt_tpu_torch.textures.textures import TEX_PTEX, TextureTable
@@ -146,11 +147,15 @@ PACKED_COLUMNS = ("mat_eta_spec", "mat_k_spec", "mat_opacity",
 # ... and from its one-gather shading rows (shade_all, int32 columns
 # bitcast to f32 from column 24): the per-mesh face index
 SHADE_COLUMNS = ("prim_face",)
-# the walks' trees (accel/bvh.py, accel/kdtree.py); pbrt_tpu leaves the
-# kd arrays None without `Accelerator "kdtree"`
-BVH_COLUMNS = ("bvh_packed", "bvh_hit", "bvh_miss")
+# the walks' trees (accel/bvh.py, accel/kdtree.py) as pbrt_tpu and
+# SceneBuilder hold them; pbrt_tpu leaves the kd arrays None without
+# `Accelerator "kdtree"`
+BVH_ARRAYS = ("bvh_packed", "bvh_hit", "bvh_miss")
 KD_COLUMNS = ("kd_packed", "kd_prim_idx", "kd_bounds")
-JAX_ARRAYS = (JAX_COLUMNS + ("mat_packed", "shade_all") + BVH_COLUMNS
+# ... and the BVH as SceneData holds it: both link tables in one
+# (accel_walk.bvh_links)
+BVH_COLUMNS = ("bvh_packed", "bvh_links")
+JAX_ARRAYS = (JAX_COLUMNS + ("mat_packed", "shade_all") + BVH_ARRAYS
               + KD_COLUMNS)
 JAX_STATICS = ("n_lights", "n_quadrics", "clip_quadrics", "dense_chunk",
                "has_animated_mesh", "has_animated_quads", "dense_motion",
@@ -287,8 +292,8 @@ class SceneData:
     # triangle rows ---
     bvh_packed: torch.Tensor       # [N,8] f32 lo, hi, bitcast(leaf_bits),
     #                                axis
-    bvh_hit: torch.Tensor          # [8,N] i32 per-octant enter links
-    bvh_miss: torch.Tensor         # [8,N] i32 per-octant skip links
+    bvh_links: torch.Tensor        # [8,N,2] i32 per-octant (enter, skip)
+    #                                links side by side (accel_walk.bvh_links)
     tri_packed: torch.Tensor       # [P,12] f32 v0|e1|e2|0 (zero rows for
     #                                quadrics: they never hit)
     # --- textures (textures/textures.py); entry 0 is unused ---
@@ -1025,7 +1030,7 @@ def _scene_from_arrays(arrays, statics, device):
                                  np.zeros_like(v0)], 1)
     cols = {k: torch.as_tensor(np.array(arrays[k]), device=device)
             for k in JAX_COLUMNS + PACKED_COLUMNS + SHADE_COLUMNS
-            + BVH_COLUMNS
+            + ("bvh_packed",)
             + (KD_COLUMNS if statics["use_kd"] else ())}
     cols.update((k, torch.as_tensor(np.array(v), device=device))
                 for k, v in dense.items())
@@ -1034,6 +1039,9 @@ def _scene_from_arrays(arrays, statics, device):
         spec.CIE_Y.astype(np.float32)
     return SceneData(
         **cols,
+        bvh_links=accel_walk.bvh_links(
+            *(torch.as_tensor(np.array(arrays[k]), device=device)
+              for k in ("bvh_hit", "bvh_miss"))),
         env_lum=torch.as_tensor(env_lum, device=device),
         tri_packed=torch.as_tensor(tri_packed, device=device),
         n_lights=int(statics["n_lights"]),

@@ -36,7 +36,7 @@ from the same numpy seeds by the port's own code.
   accel_batches     the camera and bounce-1 batches of a render over the
                     dense cap, as its BVH or kd walk receives them, and
                     walk_bound, the walks' bound from the plain version's
-                    counts.
+                    counts; walk_edge_rays, the walks' edge cases.
 
 Each takes a device and a seed; nothing is built at import.  The s3
 script drew its rays with jax.random; here numpy draws them from the same
@@ -522,6 +522,26 @@ def probe_repeats(scene, camera, cfg, width, height, rays, depth,
 
 # the walks' per-ray arguments (the rest are the scene's tables)
 WALK_RAY_ARGS = ("o", "d", "tmax", "t_init", "prim_init", "anyhit", "time")
+# the walk routes' cells over the dense cap (PERF.md section 4; chip_smoke
+# phase 25, tools/ab_walk.py): tools/shapes_scene.py arguments, the route,
+# resolution, spp, the walk kernel
+WALK_CELLS = {
+    "shapes_1m": (dict(level=6, instances=12, field=256), "BVH", 256, 4,
+                  "bvh_walk"),
+    "shapes_motion": (dict(moving_field=True), "BVH", 128, 4,
+                      "bvh_walk_motion"),
+    "shapes_kd": (dict(level=5, instances=13, accel="kdtree"), "kd-tree",
+                  256, 4, "kd_walk"),
+    "shapes_kd_motion": (dict(moving_field=True, accel="kdtree"), "kd-tree",
+                         128, 4, "kd_walk_motion"),
+}
+# the walks' batches measured: (row, cell, batch of accel_batches)
+WALK_ROWS = (("bvh_1m_camera", "shapes_1m", "camera"),
+             ("bvh_1m_bounce1", "shapes_1m", "bounce1"),
+             ("bvh_motion_bounce1", "shapes_motion", "bounce1"),
+             ("kd_camera", "shapes_kd", "camera"),
+             ("kd_bounce1", "shapes_kd", "bounce1"),
+             ("kd_motion_bounce1", "shapes_kd_motion", "bounce1"))
 
 
 def accel_batches(scene, camera, cfg, width, height, rays, depth,
@@ -561,6 +581,81 @@ def accel_batches(scene, camera, cfg, width, height, rays, depth,
         raise AssertionError(f"expected {depth + 1} walk calls, got "
                              f"{len(calls)}")
     return {"camera": calls[0], "bounce1": calls[1]}
+
+
+def walk_edge_rays(scene, seed=0, n_random=256, aim=()):
+    """The walks' edge cases on `scene` (BVH or kd), as (o, d, tmax, time,
+    anyhit) tensors on its device:
+
+      split plane   for each of the first 8 interior kd nodes (with a
+                    kd-tree), rays whose origin lies on the node's split
+                    plane, parallel to it (p_at == split at every t, d_ax
+                    +0.0 or -0.0: the d_ax <= 0 tie rule) or leaving it
+                    below or above;
+      axis          axis-parallel rays and rays with a component of
+                    +-1e-21 (the guarded reciprocal's 2e20 and 0);
+      inside        origins inside the root box, random directions;
+      face          origins on each face of the root box, or 1e-6 past
+                    it, leaving it: the kd walk's cell exit t_cell <= 0;
+      aim           any-hit rays through each point of `aim` (a quadric's
+                    centre gives a pre-hit that ends the walk);
+    with random shutter times in [-0.2, 1.2] and a finite tmax on some."""
+    rs = np.random.RandomState(seed)
+    box = (scene.kd_bounds if scene.use_kd else
+           scene.bvh_packed[0, 0:6].reshape(2, 3)).cpu().numpy()
+    lo, hi = box[0].astype(np.float64), box[1].astype(np.float64)
+    inner = lambda n: rs.uniform(lo + 0.05 * (hi - lo), hi - 0.05 * (hi - lo),
+                                 (n, 3))
+    o, d, any_ = [], [], []
+
+    def add(oo, dd, a=False):
+        o.append(np.asarray(oo, np.float64).reshape(-1, 3))
+        d.append(np.asarray(dd, np.float64).reshape(-1, 3))
+        any_.append(np.full(len(o[-1]), a))
+
+    if scene.use_kd:
+        kp = scene.kd_packed.cpu().numpy()
+        axes = kp[:, 1].view(np.int32)
+        for n in np.nonzero(axes != 3)[0][:8]:
+            a, s = int(axes[n]), float(kp[n, 0])
+            for side in (0.0, -0.0, -1.0, 1.0):
+                oo = inner(2)
+                oo[:, a] = s
+                dd = rs.normal(size=(2, 3))
+                dd[:, a] = side * np.abs(dd[:, a])
+                add(oo, dd)
+    eye = np.eye(3)
+    add(inner(6), np.concatenate([eye, -eye]))
+    tiny = rs.normal(size=(6, 3))
+    tiny[np.arange(6), np.arange(6) % 3] = np.where(
+        np.arange(6) < 3, 1e-21, -1e-21)
+    add(inner(6), tiny)
+    add(inner(n_random), rs.normal(size=(n_random, 3)))
+    for a in range(3):
+        for k, edge in enumerate((lo[a], hi[a])):
+            out = 1.0 if k else -1.0
+            for past in (0.0, 1e-6):
+                oo = inner(2)
+                oo[:, a] = edge + out * past
+                dd = rs.normal(size=(2, 3)) * 0.1
+                dd[:, a] = out
+                add(oo, dd)
+    for c in aim:
+        oo = inner(8)
+        add(oo, np.asarray(c, np.float64)[None] - oo, True)
+    o = np.concatenate(o).astype(np.float32)
+    d = np.concatenate(d)
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    # the split-plane origins exactly on the plane after the f32 cast,
+    # the tiny components kept (the normalisation above keeps them)
+    B = len(o)
+    tmax = np.full(B, np.inf, np.float32)
+    tmax[3::7] = rs.uniform(0.3, 1.0, len(tmax[3::7])) * float(
+        np.linalg.norm(hi - lo))
+    time = rs.uniform(-0.2, 1.2, B).astype(np.float32)
+    dev = scene.tri_packed.device
+    return (*_to(dev, o, d, tmax, time),
+            torch.as_tensor(np.concatenate(any_), device=dev))
 
 
 def bitonic_batch(scene, n_rays=65536, seed=0):

@@ -243,11 +243,10 @@ def test_walk_counts_and_plain_contract():
                 t_init=torch.as_tensor(tmax),
                 prim_init=torch.full((512,), -1, dtype=torch.int32))
     accel_walk.reset_launch_counts()
-    t, p = accel_walk.bvh_walk(packed=s.bvh_packed, hit_links=s.bvh_hit,
-                               miss_links=s.bvh_miss,
+    t, p = accel_walk.bvh_walk(packed=s.bvh_packed, links=s.bvh_links,
                                tri_packed=s.tri_packed, max_leaf=4, **args)
     t2, p2, c = accel_walk.bvh_walk_plain(
-        packed=s.bvh_packed, hit_links=s.bvh_hit, miss_links=s.bvh_miss,
+        packed=s.bvh_packed, links=s.bvh_links,
         tri_packed=s.tri_packed, max_leaf=4, counts=True, **args)
     assert torch.equal(t, t2) and torch.equal(p, p2)
     assert (c.visits >= 1).all() and c.tests.sum() > 0
@@ -267,9 +266,9 @@ def test_walk_counts_and_plain_contract():
     assert (kc.visits[torch.as_tensor(tmax) <= 0] == 0).all()
     assert all(v == 0 for v in accel_walk.LAUNCHES.values())
     with pytest.raises(ValueError, match="together"):
-        accel_walk.bvh_walk(packed=s.bvh_packed, hit_links=s.bvh_hit,
-                            miss_links=s.bvh_miss, tri_packed=s.tri_packed,
-                            max_leaf=4, time=args["t_init"], **args)
+        accel_walk.bvh_walk(packed=s.bvh_packed, links=s.bvh_links,
+                            tri_packed=s.tri_packed, max_leaf=4,
+                            time=args["t_init"], **args)
 
 
 # ---------------------------------------------------------------------------

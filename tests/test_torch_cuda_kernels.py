@@ -712,6 +712,36 @@ def _walk_scene(device, accel, moving, n=3000, seed=5):
     return s
 
 
+def _walk_fns(s, accel, ray, anyhit):
+    """(kernel wrapper, plain version, arguments) of scene s's walk."""
+    from pbrt_tpu_torch.ops import accel_walk
+    from pbrt_tpu_torch.ops import intersect as isect
+    args = isect._walk_args(s, ray, anyhit)
+    if accel == "kdtree":
+        args.update(tmax=ray.tmax.contiguous(), kd_packed=s.kd_packed,
+                    kd_prim_idx=s.kd_prim_idx, kd_bounds=s.kd_bounds,
+                    kd_max_leaf=s.kd_max_leaf, tri_packed=s.tri_packed)
+        return accel_walk.kd_walk, accel_walk.kd_walk_plain, args
+    args.update(packed=s.bvh_packed, links=s.bvh_links,
+                max_leaf=s.max_leaf, tri_packed=s.tri_packed)
+    return accel_walk.bvh_walk, accel_walk.bvh_walk_plain, args
+
+
+def _walk_equal(fn, plain, args, name):
+    """The kernel's (t, prim) against the plain version's, bit for bit on
+    every lane, in one launch; returns (prim, the plain version's
+    counts)."""
+    from pbrt_tpu_torch.ops import accel_walk
+    accel_walk.reset_launch_counts()
+    t, prim = fn(**args)
+    torch.cuda.synchronize()
+    assert accel_walk.LAUNCHES[name] == 1
+    tp, pp, counts = plain(counts=True, **args)
+    assert torch.equal(prim, pp)
+    assert torch.equal(t.view(torch.int32), tp.view(torch.int32))
+    return prim, counts
+
+
 @pytest.mark.parametrize("accel", ["bvh", "kdtree"])
 @pytest.mark.parametrize("moving", [False, True], ids=["static", "motion"])
 def test_walk_equals_plain(device, accel, moving):
@@ -719,10 +749,12 @@ def test_walk_equals_plain(device, accel, moving):
     their plain versions on the same CUDA tensors: (t, prim) equal bit
     for bit on every lane, the closest-hit and the any-hit ones; rays from
     inside and outside the triangles' box, axis-parallel ones, dead lanes
-    and finite tmax, shutter times outside [0, 1] included."""
+    and finite tmax, shutter times outside [0, 1] included; then the
+    walks' edge cases (kernel_workloads.walk_edge_rays: split planes, the
+    2e20 reciprocal, face exits with t_cell <= 0, any-hit rays through the
+    sphere's pre-hit), and the batch's 1% of lanes with the most node
+    visits alone."""
     from pbrt_tpu_torch.core import geometry as geom
-    from pbrt_tpu_torch.ops import accel_walk
-    from pbrt_tpu_torch.ops import intersect as isect
     s = _walk_scene(device, accel, moving)
     rs = np.random.RandomState(9)
     B = 8192
@@ -740,26 +772,24 @@ def test_walk_equals_plain(device, accel, moving):
                                              .astype(np.float32),
                                              device=device))
     anyhit = torch.as_tensor(rs.rand(B) < 0.4, device=device)
-    args = isect._walk_args(s, ray, anyhit)
+    fn, plain, args = _walk_fns(s, accel, ray, anyhit)
     assert (args["time"] is not None) == moving
-    if accel == "kdtree":
-        fn, plain = accel_walk.kd_walk, accel_walk.kd_walk_plain
-        args.update(tmax=ray.tmax.contiguous(), kd_packed=s.kd_packed,
-                    kd_prim_idx=s.kd_prim_idx, kd_bounds=s.kd_bounds,
-                    kd_max_leaf=s.kd_max_leaf)
-    else:
-        fn, plain = accel_walk.bvh_walk, accel_walk.bvh_walk_plain
-        args.update(packed=s.bvh_packed, hit_links=s.bvh_hit,
-                    miss_links=s.bvh_miss, max_leaf=s.max_leaf)
-    accel_walk.reset_launch_counts()
-    t, prim = fn(tri_packed=s.tri_packed, **args)
-    torch.cuda.synchronize()
     name = ("kd_walk" if accel == "kdtree" else "bvh_walk") + (
         "_motion" if moving else "")
-    assert accel_walk.LAUNCHES[name] == 1
-    tp, pp = plain(tri_packed=s.tri_packed, **args)
-    assert torch.equal(prim, pp)
-    assert torch.equal(t.view(torch.int32), tp.view(torch.int32))
+    prim, counts = _walk_equal(fn, plain, args, name)
     found = prim >= 0
     assert 0.2 < found.float().mean().item() < 0.95
     assert (prim[~anyhit & found] >= 0).all()
+    # the edge cases
+    eo, ed, etmax, etime, eany = kernel_workloads.walk_edge_rays(
+        s, seed=1, aim=[(0.0, 0.0, 0.0)])
+    fn, plain, eargs = _walk_fns(s, accel, geom.Ray.make(
+        eo, ed, tmax=etmax, time=etime), eany)
+    eprim, _ = _walk_equal(fn, plain, eargs, name)
+    assert bool((eany & (eargs["prim_init"] >= 0)).any())
+    assert bool((eprim >= 0).any())
+    # the longest walks alone
+    top = torch.topk(counts.visits, B // 100).indices
+    sub = {k: (v[top].contiguous() if k in kernel_workloads.WALK_RAY_ARGS
+               and v is not None else v) for k, v in args.items()}
+    _walk_equal(fn, plain, sub, name)
