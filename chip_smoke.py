@@ -280,6 +280,29 @@ card against the CPU at 32x32 2 spp for lighttracer, bdpt and sppm
 paths, 16 mutations a chain) the image mean within MLT_CPU_GAP: an
 acceptance that flips on rounding sends a chain elsewhere.
 
+Phase 28 drives the last modules (~20 s on the H100), each with the
+counts set to 0 just before and read just after: (a) checkpoint and
+resume: the Cornell model at 256x256, Sobol, 4 spp, depth 5, 65,536 rays
+a pass, rendered whole, then to 2 spp with a checkpoint rewritten under
+the 4-spp fingerprint (film/checkpoint.py) and resumed to 4 spp: K1 and
+K2 12 times each on the resumed half, `weighted`, `weight` and `raw`
+within 1e-5 of the whole render relative to each array's largest value
+(the splat's f32 atomics order the sums differently), the save's and
+load's ms and the file's MiB; (b) the CLI's `main` on
+scenes/cornell_bench.pbrt at 2 spp with --checkpoint and its stats
+report: 131,072 camera rays, regular plus shadow tests equal to the rays
+`count_rays` counts on the same render, and a second `main` on the same
+checkpoint launching K1 / K2 0 times and writing the same image and
+.dat bytes; (c) `parallel/multihost.py` as two processes on this one
+card, gloo with CUDA tensors (NCCL refuses two ranks on one device, so
+its path waits for a machine with two cards), each building the kernels
+from the shared cache and rendering the tessellated Cornell model at
+256x256, 2 spp, depth 5, 32,768 rays a rank a pass, after one untimed
+spp of warm-up: the summed film against a one-process `render` of the
+same samples (image mean within 1e-5 relative, >= 99.9% of pixels within
+1e-4), each rank's ms a pass and its all-reduce's ms; (d) `tools/bsdftest.py` on the card for its 8
+materials at 100,000 samples each, each PASS.
+
 Every lens render is finite, non-negative and non-black.  Mitchell's
 and sinc's negative lobes make some developed pixels negative where the
 image has a sharp edge (the reference clamps them when it writes the
@@ -306,8 +329,10 @@ staging buffers and the merge keys' fills.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import io
 import json
 import os
 import subprocess
@@ -329,6 +354,7 @@ from pbrt_tpu_torch.cameras import projective  # noqa: E402
 from pbrt_tpu_torch.core import geometry as geom  # noqa: E402
 from pbrt_tpu_torch.core import spectrum  # noqa: E402
 from pbrt_tpu_torch.core import transform as tfm  # noqa: E402
+from pbrt_tpu_torch.film import checkpoint as ckpt  # noqa: E402
 from pbrt_tpu_torch.film import film as filmmod  # noqa: E402
 from pbrt_tpu_torch.film import io as filmio  # noqa: E402
 from pbrt_tpu_torch.integrators import bdpt  # noqa: E402
@@ -355,6 +381,7 @@ from pbrt_tpu_torch.scene.ir import (  # noqa: E402
 from pbrt_tpu_torch.textures.textures import RES as TEX_RES  # noqa: E402
 from pbrt_tpu_torch.textures.textures import TEX_IMAGE  # noqa: E402
 from pbrt_tpu_torch.tools import ablate_k2  # noqa: E402
+from pbrt_tpu_torch.tools import bsdftest  # noqa: E402
 from pbrt_tpu_torch.tools import dissect_intersect  # noqa: E402
 from pbrt_tpu_torch.tools import dump_tile  # noqa: E402
 from pbrt_tpu_torch.tools import kernel_workloads as kw  # noqa: E402
@@ -364,6 +391,7 @@ from pbrt_tpu_torch.tools import profile_pass  # noqa: E402
 from pbrt_tpu_torch.tools import pbrt as cli  # noqa: E402
 from pbrt_tpu_torch.tools import shapes_scene  # noqa: E402
 from pbrt_tpu_torch.tools import skin_scene  # noqa: E402
+from pbrt_tpu_torch.utils.stats import Stats  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BENCH_SCENE = os.path.join(ROOT, "scenes", "cornell_bench.pbrt")
@@ -695,6 +723,13 @@ def check_launches(counts, expect, what):
     for k, n in expect.items():
         check(counts[k] == n, f"{what}: {k} launched {counts[k]} times, "
               f"expected {n}")
+
+
+def stat_rays(stats):
+    """Regular plus shadow ray tests of a utils.stats.Stats (the rays
+    count_rays counts)."""
+    return (stats.counters["Intersections/Regular ray intersection tests"]
+            + stats.counters["Intersections/Shadow ray intersection tests"])
 
 
 def reference_gate(film, spp):
@@ -2317,7 +2352,7 @@ def phase24(run_path, card, device, res):
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    stats = {}
+    stats = Stats()
     t1 = time.perf_counter()
     (film, _), counts = run_path(
         "shapes render",
@@ -2334,8 +2369,8 @@ def phase24(run_path, card, device, res):
         path.trace_paths, light_strategy=strategy))
     idle = "not measured" if prof is None else f"{1 - prof[0] / ms:.3f}"
     print(f"phase 24c shapes render {W}x{H} {SPP} spp depth {DEPTH}: "
-          f"{passes} passes, {ms:.2f} ms/pass, {stats['rays']} rays, "
-          f"{stats['rays'] / dt:.4e} rays/s, image mean "
+          f"{passes} passes, {ms:.2f} ms/pass, {stat_rays(stats)} rays, "
+          f"{stat_rays(stats) / dt:.4e} rays/s, image mean "
           f"{img.mean().item():.6f}, {_prof(prof)}, idle share {idle}, "
           f"peak device memory {peak / 2**20:.1f} MiB above the scene's "
           f"{base / 2**20:.1f} MiB, launches {counts} on {card}")
@@ -2692,7 +2727,7 @@ def phase25(run_walk, card, device, res, shapes=None):
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    stats = {}
+    stats = Stats()
     t1 = time.perf_counter()
     (film, _), counts = run_walk(
         "shapes_1m render", lambda: cli.run_job(
@@ -2710,8 +2745,8 @@ def phase25(run_walk, card, device, res, shapes=None):
         light_strategy=dispatch.light_strategy(job.integrator_params)))
     idle = "not measured" if prof is None else f"{1 - prof[0] / ms:.3f}"
     print(f"phase 25d shapes_1m render {W}x{H} {WALK_PASSES} passes depth "
-          f"{DEPTH}: {ms:.2f} ms/pass, {stats['rays']} rays, "
-          f"{stats['rays'] / dt:.4e} rays/s, image mean "
+          f"{DEPTH}: {ms:.2f} ms/pass, {stat_rays(stats)} rays, "
+          f"{stat_rays(stats) / dt:.4e} rays/s, image mean "
           f"{img.mean().item():.6f}, {_prof(prof)}, idle share {idle}, peak "
           f"device memory {peak / 2**20:.1f} MiB above the scene's "
           f"{base / 2**20:.1f} MiB, launches {counts} on {card}")
@@ -2931,7 +2966,7 @@ def phase26(run_path, card, device, res):
     passes = SPP * (-(-W * H // RAYS_PER_PASS))
     cli.run_job(job, spp=1, max_rays_per_pass=RAYS_PER_PASS)
     torch.cuda.synchronize()
-    stats = {}
+    stats = Stats()
     t1 = time.perf_counter()
     (film, _), counts = run_path(
         "skin render",
@@ -2950,9 +2985,9 @@ def phase26(run_path, card, device, res):
         path.trace_paths, light_strategy=strategy))
     idle = "not measured" if prof is None else f"{1 - prof[0] / ms:.3f}"
     print(f"phase 26a skin render {W}x{H} {SPP} spp depth {DEPTH}: "
-          f"{passes} passes, {ms:.2f} ms/pass, {stats['rays']} rays "
+          f"{passes} passes, {ms:.2f} ms/pass, {stat_rays(stats)} rays "
           f"(probe lanes in the closest-hit count), "
-          f"{stats['rays'] / dt:.4e} rays/s, image mean "
+          f"{stat_rays(stats) / dt:.4e} rays/s, image mean "
           f"{img.mean().item():.6f}, {_prof(prof)}, idle share {idle}, "
           f"launches {counts} on {card}")
     t_render = time.perf_counter() - t0
@@ -3131,6 +3166,201 @@ def phase27(run_path, card, device, res):
           f"{time.perf_counter() - t0:.1f}")
 
 
+def _rel_max(a, b):
+    """Largest |a - b| over b's largest magnitude."""
+    return ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+
+
+def _card_main(argv):
+    """The CLI's main on the card; returns its stdout (also printed)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        check(cli.main(argv) == 0, f"main {argv}: non-zero return")
+    torch.cuda.synchronize()
+    return buf.getvalue()
+
+
+def _counter(text, name):
+    for line in text.splitlines():
+        if line.strip().startswith(name):
+            return int(line.split()[-1].replace(",", ""))
+    raise AssertionError(f"the stats report has no {name!r}")
+
+
+def phase28a(run_path, card, device, scene, camera, cfg, tmp):
+    """Checkpoint and resume (module docstring)."""
+    def fresh():
+        return filmmod.make_film(W, H, "gaussian", device=device)
+    whole = path.render(scene, camera, fresh(), cfg, SPP, max_depth=DEPTH,
+                        max_rays_per_pass=RAYS_PER_PASS)
+    cp = os.path.join(tmp, "film.ckpt")
+    part = path.render(scene, camera, fresh(), cfg, 2, max_depth=DEPTH,
+                       max_rays_per_pass=RAYS_PER_PASS, checkpoint_path=cp,
+                       checkpoint_every=0.0)
+    torch.cuda.synchronize()
+    fp = ckpt.render_fingerprint(scene, cfg, SPP, DEPTH, W, H)
+    t0 = time.perf_counter()
+    ckpt.save(cp, part, 2, fp)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    mib = os.path.getsize(cp) / 2 ** 20
+    probe = fresh()
+    t0 = time.perf_counter()
+    _, done = ckpt.load(cp, probe, fp)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    check(done == 2, f"checkpoint: resumed at {done} spp, expected 2")
+    calls = (DEPTH + 1) * (SPP - 2) * (-(-W * H // RAYS_PER_PASS))
+    out, counts = run_path(
+        "resumed render", lambda: path.render(
+            scene, camera, fresh(), cfg, SPP, max_depth=DEPTH,
+            max_rays_per_pass=RAYS_PER_PASS, checkpoint_path=cp,
+            checkpoint_every=1e9),
+        {"dense_queue": calls, "dense_queue_cull": 0, "dense_loop": calls,
+         "dense_loop_motion": 0}, scene)
+    errs = {k: _rel_max(getattr(out, k), getattr(whole, k))
+            for k in ("weighted", "weight", "raw")}
+    print(f"phase 28a checkpoint Cornell {W}x{H} {SPP} spp depth {DEPTH}: "
+          f"resumed at 2 spp, launches {counts}; max |resumed - whole| / "
+          f"max |whole|: " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                       errs.items())
+          + f" (limit 1e-5); save {save_ms:.2f} ms, load {load_ms:.2f} ms, "
+          f"file {mib:.3f} MiB on {card}")
+    for k, v in errs.items():
+        check(v <= 1e-5, f"checkpoint resume: {k} off by {v} of its max")
+
+
+def phase28b(run_path, card, device, tmp):
+    """The CLI with --checkpoint and the stats report (module
+    docstring)."""
+    job = parse_scene(BENCH_SCENE, device=device)
+    calls = (DEPTH + 1) * GATE_SPP * (-(-W * H // (1 << 18)))
+    cp = os.path.join(tmp, "cli.ckpt")
+    outs = [os.path.join(tmp, f"cli{i}.exr") for i in range(2)]
+
+    def argv(i):
+        return [BENCH_SCENE, "--spp", str(GATE_SPP), "--checkpoint", cp,
+                "-o", outs[i]]
+    text, counts = run_path(
+        "CLI with a checkpoint", lambda: _card_main(argv(0)),
+        {"dense_queue": calls, "dense_queue_cull": 0, "dense_loop": calls,
+         "dense_loop_motion": 0}, job.scene)
+    print(text.rstrip())
+    cam_rays = _counter(text, "Camera rays traced")
+    tests = (_counter(text, "Regular ray intersection tests")
+             + _counter(text, "Shadow ray intersection tests"))
+    film = filmmod.make_film(W, H, job.filter_name, device=device,
+                             **{k: v for k, v in job.filter_params.items()
+                                if k != "radius"})
+    _, n_rays = dispatch.render_with_integrator(
+        job, cli.build_camera(job, W, H, device), film,
+        SamplerConfig(job.sampler_kind, 0, GATE_SPP), GATE_SPP,
+        job.integrator_params["maxdepth"], count_rays=True)
+    text2, counts2 = run_path(
+        "CLI on a completed checkpoint", lambda: _card_main(argv(1)),
+        {"dense_queue": 0, "dense_queue_cull": 0, "dense_loop": 0,
+         "dense_loop_motion": 0}, job.scene)
+    same = all(open(outs[0][:-4] + e, "rb").read()
+               == open(outs[1][:-4] + e, "rb").read()
+               for e in (".exr", ".dat"))
+    print(f"phase 28b CLI cornell_bench.pbrt {W}x{H} {GATE_SPP} spp with "
+          f"--checkpoint: camera rays {cam_rays} (expected {W * H * GATE_SPP})"
+          f", regular + shadow tests {tests} against count_rays' {n_rays}; "
+          f"launches {counts}; on the completed checkpoint {counts2}, "
+          f"outputs equal {same} on {card}")
+    check(cam_rays == W * H * GATE_SPP, f"CLI stats: {cam_rays} camera rays")
+    check(tests == n_rays, f"CLI stats: {tests} ray tests, count_rays "
+          f"{n_rays}")
+    check(same, "CLI on a completed checkpoint wrote other outputs")
+    check("Camera rays traced" not in text2,
+          "CLI on a completed checkpoint rendered")
+
+
+def phase28c(card, device, tmp):
+    """The render split over two ranks on this card (module docstring)."""
+    out = os.path.join(tmp, "ranks.npz")
+    spp = 2
+    cmd = [sys.executable, "-m", "pbrt_tpu_torch.parallel.multihost",
+           "--init-method", f"file://{os.path.join(tmp, 'init')}",
+           "--world-size", "2", "--backend", "gloo", "--size", str(W),
+           "--spp", str(spp), "--depth", str(DEPTH), "--tessellate",
+           "--warmup", "1", "--out", out]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd + ["--rank", str(r)], cwd=ROOT,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    texts = []
+    try:
+        for p in procs:
+            texts.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for p, t in zip(procs, texts):
+        check(p.returncode == 0, f"multihost rank failed:\n{t[-3000:]}")
+    scene, cam_ctor = flagship.cornell(device=device)
+    one = path.render(scene, cam_ctor(W, H),
+                      filmmod.make_film(W, H, "box", device=device),
+                      SamplerConfig("sobol", 0, spp), spp, max_depth=DEPTH,
+                      max_rays_per_pass=W * H)
+    with np.load(out) as z:
+        ranks = dataclasses.replace(one, **{
+            k: torch.from_numpy(z[k]).to(device)
+            for k in ("weighted", "weight", "raw", "splat")})
+    a = filmmod.develop_spectral(ranks).cpu().numpy()
+    b = filmmod.develop_spectral(one).cpu().numpy()
+    mean_gap = abs(a.mean() / b.mean() - 1.0)
+    la, lb = a.sum(-1), b.sum(-1)
+    close = float((np.abs(la - lb) <= 1e-4 * np.abs(lb)).mean())
+    for t in texts:
+        for line in t.splitlines():
+            if line.startswith(("rank ", "MULTIHOST_OK")):
+                print("  " + line)
+    print(f"phase 28c two gloo ranks on one card (CUDA tensors), Cornell "
+          f"{W}x{H} {spp} spp depth {DEPTH}, {W * H // 2} rays a rank a "
+          f"pass: image mean off one process's by {mean_gap:.3e} (limit "
+          f"1e-5), pixels within 1e-4 {close:.6f} (>= 0.999); both ranks' "
+          f"wall {wall:.1f} s; NCCL not run: it waits for a machine with "
+          f"two cards (NCCL refuses two ranks on one device) on {card}")
+    check(mean_gap <= 1e-5, f"two ranks: image mean off by {mean_gap}")
+    check(close >= 0.999, f"two ranks: only {close} of pixels within 1e-4")
+
+
+def phase28d(card):
+    """bsdftest on the card (module docstring)."""
+    fails = []
+    for m in sorted(bsdftest.MATERIALS):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = bsdftest.main(["--material", m, "--samples", "100000"])
+        # its report on one line: valid, albedo, transmitted, the
+        # sample / evaluation differences, PASS or FAIL
+        print("  " + " | ".join(x.strip() for x in
+                                buf.getvalue().splitlines()))
+        if rc != 0:
+            fails.append(m)
+    print(f"phase 28d bsdftest, {len(bsdftest.MATERIALS)} materials at "
+          f"100,000 samples on {card}: failed {fails or 'none'}")
+    check(not fails, f"bsdftest failed: {fails}")
+
+
+def phase28(run_path, card, device, scene, camera, cfg):
+    """Checkpoint, the CLI's stats, ranks, bsdftest (module docstring)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, fn in (
+                ("28a", lambda: phase28a(run_path, card, device, scene,
+                                         camera, cfg, tmp)),
+                ("28b", lambda: phase28b(run_path, card, device, tmp)),
+                ("28c", lambda: phase28c(card, device, tmp)),
+                ("28d", lambda: phase28d(card))):
+            t0 = time.perf_counter()
+            fn()
+            print(f"phase {name} wall s {time.perf_counter() - t0:.1f}")
+
+
 def walk_rows(res, launches):
     """The walk kernels' rows of the kernels line (WALK_ROWS), each with
     its kernel's launches on phase 25's render paths."""
@@ -3257,7 +3487,7 @@ def main():
     # --- phase 6: the CLI on cornell_bench.pbrt against the reference ---
     job = parse_scene(BENCH_SCENE, device=device)
     gate_passes = GATE_SPP * (-(-W * H // (1 << 18)))
-    stats = {}
+    stats = Stats()
     t0 = time.perf_counter()
     (gfilm, _), counts = run_path(
         "CLI reference gate",
@@ -3270,7 +3500,8 @@ def main():
     print(f"phase 6 CLI reference gate cornell_bench.pbrt {W}x{H} "
           f"{GATE_SPP} spp: median rel err of lit 16x16 blocks {med:.4f} "
           f"(< 0.08), band ratio flat within {flat:.4f} (< 0.05), "
-          f"{dt:.2f} s, {stats['rays']} rays, launches {counts} on {card}")
+          f"{dt:.2f} s, {stat_rays(stats)} rays, launches {counts} on "
+          f"{card}")
     check(med < 0.08, f"reference gate: median block error {med}")
     check(flat < 0.05, f"reference gate: band ratio off by {flat}")
 
@@ -3278,7 +3509,7 @@ def main():
     cli.run_job(mjob, spp=1, max_depth=DEPTH,
                 max_rays_per_pass=RAYS_PER_PASS)
     torch.cuda.synchronize()
-    stats = {}
+    stats = Stats()
     t0 = time.perf_counter()
     (mfilm, _), counts = run_path(
         "motion render",
@@ -3291,7 +3522,7 @@ def main():
     check_image(filmmod.develop_spectral(mfilm), "motion render")
     print(f"phase 7 motion render cornell_motion.pbrt {W}x{H} {SPP} spp "
           f"depth {DEPTH}: {passes} passes, {dt * 1e3 / passes:.2f} "
-          f"ms/pass, {stats['rays']} rays, {stats['rays'] / dt:.4e} "
+          f"ms/pass, {stat_rays(stats)} rays, {stat_rays(stats) / dt:.4e} "
           f"rays/s, launches {counts} on {card}")
 
     compare_cpu([("Cornell", cornell_32), ("motion", motion_32)])
@@ -3357,7 +3588,7 @@ def main():
 
     # --- phase 12: the metadata integrator against the reference ---
     mdjob = parse_scene(META_SCENE, device=device)
-    stats = {}
+    stats = Stats()
     t0 = time.perf_counter()
     (mdfilm, _), counts = run_path(
         "metadata render", lambda: cli.run_job(mdjob, stats=stats),
@@ -3369,7 +3600,7 @@ def main():
           f"centre pixel off by {centre:.3e} (< 5e-3), median 6x6-block "
           f"error {med:.3e} (< 1e-2), largest {worst:.3e} (< 3e-2), "
           f"{dt:.2f} s, launches {counts} on {card}")
-    check("rays" not in stats, "metadata: counted rays")
+    check(not stats.counters, "metadata: counted rays")
     check(centre < 5e-3, f"metadata gate: centre pixel off by {centre}")
     check(med < 1e-2, f"metadata gate: median block error {med}")
     check(worst < 3e-2, f"metadata gate: largest block error {worst}")
@@ -3475,6 +3706,11 @@ def main():
     phase27(run_path, card, device, res)
     print(f"phase 27 light-side integrators; wall s "
           f"{time.perf_counter() - t0:.1f}")
+
+    # --- phase 28: checkpoint, the CLI's stats, ranks, bsdftest ---
+    t0 = time.perf_counter()
+    phase28(run_path, card, device, scene, camera, cfg)
+    print(f"phase 28 last modules; wall s {time.perf_counter() - t0:.1f}")
 
     rows = []
     for k, (src, rep) in KERNELS.items():

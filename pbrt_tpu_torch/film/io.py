@@ -5,10 +5,12 @@ library).
 
 `read_image` gives what the JAX package's gives: EXR and PFM linear,
 PNG and TGA as pbrt_tpu's PIL route decodes them (`convert("RGB")`,
-/255, ** 2.2).  EXR compressions other than NONE, ZIPS and ZIP, which the
-JAX package reads through a native OpenEXR shim, raise
-NotImplementedError naming the compression; so do image formats other
-than EXR, PFM, PNG and TGA."""
+/255, ** 2.2).  EXR compressions other than NONE, ZIPS and ZIP (PIZ,
+PXR24, B44, DWA...) read through the system OpenEXR by a native shim
+(native/exr_reader.cc), as in the JAX package; where its headers are
+missing they raise NotImplementedError naming the compression and the
+missing library.  Image formats other than EXR, PFM, PNG and TGA raise
+NotImplementedError."""
 
 from __future__ import annotations
 
@@ -17,6 +19,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from pbrt_tpu_torch.native import build
 
 
 def write_dat(path, spectral, scale=1.0):
@@ -127,7 +131,9 @@ def write_exr(path, rgb, compression="none"):
 def read_exr(path):
     """Scanline EXR -> [H,W,3] float32 (or the channels as stored when
     there is no R, G, B or Y): NONE / ZIPS / ZIP, HALF / FLOAT / UINT
-    channels, as the JAX package's numpy reader.  Other compressions
+    channels, as the JAX package's numpy reader; every other compression
+    through OpenEXR's RGBA interface (native.build.read_exr_native), as
+    the JAX package's shim reads it.  Without OpenEXR's headers those
     raise NotImplementedError naming the compression."""
     with open(path, "rb") as f:
         data = f.read()
@@ -151,9 +157,13 @@ def read_exr(path):
     w, h = x1 - x0 + 1, y1 - y0 + 1
     comp = attrs["compression"][1][0]
     if comp not in _EXR_LINES:
-        raise NotImplementedError(
-            f"{path}: EXR compression {EXR_COMPRESSIONS.get(comp, comp)} "
-            "is not ported (NONE, ZIPS and ZIP only)")
+        if not build.exr_headers_present():
+            raise NotImplementedError(
+                f"{path}: EXR compression "
+                f"{EXR_COMPRESSIONS.get(comp, comp)} needs the OpenEXR "
+                f"library, whose headers are missing ({build.EXR_INCLUDE[0]}"
+                "); NONE, ZIPS and ZIP read without it")
+        return build.read_exr_native(path)[..., :3].copy()
     lines_per_block = _EXR_LINES[comp]
     # channel list (file order = sorted names; per scanline in this order)
     ch = []
@@ -380,11 +390,14 @@ def write_png(path, rgb):
 
 
 def write_image(path, rgb):
-    """Extension dispatch (reference: imageio.cpp WriteImage): .exr or
-    .png; any other extension raises ValueError."""
+    """Extension dispatch (reference: imageio.cpp WriteImage): .exr, .pfm
+    or .png; any other extension raises ValueError (the JAX package
+    writes .tga, .jpg and .bmp through PIL)."""
     ext = os.path.splitext(path)[1].lower()
     if ext == ".exr":
         return write_exr(path, rgb)
+    if ext == ".pfm":
+        return write_pfm(path, rgb)
     if ext == ".png":
         return write_png(path, rgb)
     raise ValueError(f"unsupported image extension {ext}")

@@ -111,10 +111,15 @@ def integrator_trace(job, camera, width, height, max_depth):
 
 
 def render_with_integrator(job, camera, film, cfg, spp, max_depth,
-                           max_rays_per_pass=1 << 18, count_rays=False):
+                           max_rays_per_pass=1 << 18, count_rays=False,
+                           progress=None, checkpoint_path=None,
+                           checkpoint_every=60.0, stats=None):
     """Render job.scene into `film` with the job's integrator.  Returns
     the film, or (film, rays traced or None) with count_rays: only the
-    integrators that run trace_paths count their rays."""
+    integrators that run trace_paths count their rays.  progress,
+    checkpoint_path, checkpoint_every and stats go to `path.render`, as
+    the JAX package passes them; the LIGHT_SIDE drivers take none of
+    them (the JAX package gives them progress only)."""
     ip = job.integrator_params
     rr = ip.get("rrthreshold", pathmod.RR_THRESHOLD)
     if rr != pathmod.RR_THRESHOLD:
@@ -135,7 +140,9 @@ def render_with_integrator(job, camera, film, cfg, spp, max_depth,
                           trace_kwargs=trace_kwargs,
                           crop_window=job.crop_window,
                           max_sample_luminance=(None if msl >= INF_LUMINANCE
-                                                else msl))
+                                                else msl),
+                          progress=progress, checkpoint_path=checkpoint_path,
+                          checkpoint_every=checkpoint_every, stats=stats)
 
 
 def render_light_side(job, camera, film, cfg, spp, max_depth):

@@ -1,4 +1,5 @@
-"""Build and load the port's native code (ctypes, no pybind11).
+"""Build and load the port's native code (ctypes, no pybind11): the BVH
+and kd-tree builders, and the OpenEXR reader shim.
 
 Shared libraries are compiled into `pbrt_tpu_torch/_build/` (listed in
 .gitignore), named by a hash of their sources and compiler command, so a
@@ -20,15 +21,16 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 
-def build_shared_library(name, sources, command, timeout=600):
-    """Compile `sources` with `command + sources + ["-o", out]` unless a
+def build_shared_library(name, sources, command, timeout=600, libs=()):
+    """Compile `sources` with `command + sources + ["-o", out] + libs`
+    (the libraries after the sources, which the linker needs) unless a
     library built from the same sources and command already exists.
 
     The build writes a process-private file and renames it into place,
     so concurrent builders (test workers) never load a half-written
     library.  Returns (path, compiler log); the log is empty when an
     existing library was reused."""
-    h = hashlib.sha256(" ".join(command).encode())
+    h = hashlib.sha256(" ".join(list(command) + list(libs)).encode())
     for src in sources:
         with open(src, "rb") as f:
             h.update(f.read())
@@ -37,7 +39,8 @@ def build_shared_library(name, sources, command, timeout=600):
         return out, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.run(command + list(sources) + ["-o", tmp],
+    proc = subprocess.run(list(command) + list(sources) + ["-o", tmp]
+                          + list(libs),
                           capture_output=True, text=True, timeout=timeout)
     if proc.returncode != 0:
         raise RuntimeError(f"building {name} failed:\n{proc.stderr}")
@@ -148,3 +151,50 @@ def build_kdtree_native(lo, hi, max_depth, max_prims, isect_cost,
     finally:
         lib.kd_free(h)
     return nodes_f, nodes_i, prim_idx
+
+
+#: the system OpenEXR 3.1 the EXR shim compiles against and links
+EXR_INCLUDE = ("/usr/include/OpenEXR", "/usr/include/Imath")
+EXR_LIBS = ("-lOpenEXR-3_1", "-lIex-3_1", "-lImath-3_1", "-lIlmThread-3_1",
+            "-pthread")
+
+
+def exr_headers_present():
+    return os.path.exists(os.path.join(EXR_INCLUDE[0], "ImfRgbaFile.h"))
+
+
+@functools.lru_cache(maxsize=None)
+def _exr_lib():
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "exr_reader.cc")
+    path, _ = build_shared_library(
+        "pbrt_exr", [src],
+        ["g++", "-O2", "-shared", "-fPIC", "-std=c++17"]
+        + [f"-I{d}" for d in EXR_INCLUDE], libs=EXR_LIBS)
+    lib = ctypes.CDLL(path)
+    lib.pbrt_exr_size.restype = ctypes.c_int
+    lib.pbrt_exr_size.argtypes = [ctypes.c_char_p,
+                                  ctypes.POINTER(ctypes.c_int),
+                                  ctypes.POINTER(ctypes.c_int)]
+    lib.pbrt_exr_read_rgba.restype = ctypes.c_int
+    lib.pbrt_exr_read_rgba.argtypes = [ctypes.c_char_p,
+                                       ctypes.POINTER(ctypes.c_float)]
+    return lib
+
+
+def read_exr_native(path):
+    """[H,W,4] float32 RGBA of any scanline or tiled EXR through the
+    system OpenEXR (native/exr_reader.cc, built at first use; a compiler
+    error raises with its log).  A file OpenEXR cannot read raises
+    ValueError."""
+    lib = _exr_lib()
+    w, h = ctypes.c_int(), ctypes.c_int()
+    if lib.pbrt_exr_size(os.fsencode(path), ctypes.byref(w),
+                         ctypes.byref(h)) != 0:
+        raise ValueError(f"{path}: OpenEXR cannot read it")
+    out = np.zeros((h.value, w.value, 4), np.float32)
+    if lib.pbrt_exr_read_rgba(
+            os.fsencode(path),
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_float))) != 0:
+        raise ValueError(f"{path}: OpenEXR cannot read its pixels")
+    return out

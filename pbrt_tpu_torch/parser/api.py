@@ -4,9 +4,11 @@ src/core/api.{h,cpp}).
 Directives: Identity, Translate, Scale, Rotate, LookAt, Transform,
 ConcatTransform, CoordinateSystem / CoordSysTransform (with the "camera"
 and "world" systems that Camera and WorldBegin name), ActiveTransform,
-TransformTimes (0 1 only), TransformBegin/End, Camera "perspective"/
+TransformTimes (recorded and read nowhere: motion spans the shutter
+[0, 1]), TransformBegin/End, Camera "perspective"/
 "orthographic"/"environment"/"realistic"/"omni"/"realisticEye" (and its
-aliases), Film "image" (its cropwindow and maxsampleluminance too),
+aliases; another kind renders as perspective), Film (any name read as
+"image"; its cropwindow and maxsampleluminance too),
 PixelFilter "box"/"triangle"/"gaussian"/"mitchell"/"sinc", Sampler (its
 aliases mapped, an unknown kind falling back to halton with a warning,
 as in the JAX package), Integrator, Accelerator (a scene under the dense
@@ -26,7 +28,7 @@ SubsurfaceFromDiffuse), with texture-valued Kd / Ks, "string
 distribution" ("ggx" or "beckmann") and "texture bumpmap", LightSource
 "point"/"spot"/"distant"/"infinite"/"exinfinite" (an env map in any
 format film/io.py reads)/"goniometric"/"projection", AreaLightSource
-"diffuse" on any shape,
+on any shape (every kind diffuse),
 MakeNamedMedium (homogeneous, and "heterogeneous" / "grid" density grids
 under the CTM at their creation; presets, sigma_a, sigma_s, scale, g),
 MediumInterface (the camera's medium resolved at WorldEnd), and Shape
@@ -39,11 +41,12 @@ and the imagemap or ptex file that cannot be read becoming a 0.5
 constant and the fourier file a matte material.
 
 A directive, light, shape or material the JAX package does not know is
-skipped with a warning, as there (an unknown material is matte).  The
-kinds the JAX package renders and the port does not yet (the goniometric
-area light, other cameras, films and filters, TransformTimes other than
-0 1) raise NotImplementedError naming them: the parser never renders
-something other than what the scene asks for.
+skipped with a warning, as there (an unknown material is matte).  A
+camera, film or area light kind that the JAX package renders as another
+(perspective, "image", diffuse) and TransformTimes other than 0 1 are
+read as there, with a warning naming what the render does instead.  A
+PixelFilter other than those above raises NotImplementedError, as the
+JAX package raises on it.
 """
 
 from __future__ import annotations
@@ -173,6 +176,7 @@ class PbrtAPI:
         self.graphics_stack = []
         self.builder = SceneBuilder()
         self.camera_kind = "perspective"
+        self.transform_times = (0.0, 1.0)
         self.camera_params = ParamSet()
         self.camera_to_world = tfm.Transform()
         self.camera_to_world1 = None
@@ -288,11 +292,12 @@ class PbrtAPI:
         self.active_bits = {"StartTime": 1, "EndTime": 2, "All": 3}[which]
 
     def _d_TransformTimes(self, s):
-        times = (float(s.next()), float(s.next()))
-        if times != (0.0, 1.0):
-            # motion is interpolated over the shutter [0, 1], as in the
-            # JAX package
-            raise _unported(f"TransformTimes {times[0]} {times[1]}")
+        self.transform_times = (float(s.next()), float(s.next()))
+        if self.transform_times != (0.0, 1.0):
+            # recorded and read nowhere, as in the JAX package
+            log.warning("TransformTimes %g %g is ignored: motion is "
+                        "interpolated over the shutter [0, 1], as in the "
+                        "JAX package", *self.transform_times)
 
     def _d_TransformBegin(self, s):
         self.transform_stack.append(
@@ -306,7 +311,9 @@ class PbrtAPI:
     def _d_Camera(self, s):
         self.camera_kind = unquote(s.next())
         if self.camera_kind not in CAMERA_KINDS:
-            raise _unported(f'Camera "{self.camera_kind}"')
+            # the job keeps the name; the CLI's build_camera renders it
+            log.warning('Camera "%s" renders as "perspective", as in the '
+                        "JAX package", self.camera_kind)
         self.camera_params = parse_param_list(s, self.scene_dir)
         self.camera_to_world = self.ctm[0].inverse()
         self.camera_to_world1 = (None if np.allclose(self.ctm[1].m,
@@ -321,7 +328,8 @@ class PbrtAPI:
     def _d_Film(self, s):
         name = unquote(s.next())
         if name != "image":
-            raise _unported(f'Film "{name}"')
+            log.warning('Film "%s" is read as Film "image" (its name '
+                        "dropped), as in the JAX package", name)
         self.film_params = parse_param_list(s, self.scene_dir)
 
     def _d_PixelFilter(self, s):
@@ -921,7 +929,8 @@ class PbrtAPI:
     def _d_AreaLightSource(self, s):
         lname = unquote(s.next())
         if lname not in ("diffuse", "area"):
-            raise _unported(f'AreaLightSource "{lname}"')
+            log.warning('AreaLightSource "%s" is a diffuse area light, as '
+                        "in the JAX package", lname)
         ps = parse_param_list(s, self.scene_dir)
         L = ps.find_one_spectrum("L", 1.0) * ps.find_one_spectrum("scale",
                                                                   1.0)

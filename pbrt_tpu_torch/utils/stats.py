@@ -1,0 +1,78 @@
+"""Render statistics and profiling phases (port of pbrt_tpu.utils.stats;
+reference: src/core/stats.{h,cpp}).
+
+* counters: accumulated on the host per render (the wavefront passes
+  count their real work: `trace_paths(count_rays="full")`, summed by
+  `integrators.path.render(stats=...)`);
+* phases: wall-clock timers, each inside a
+  `torch.profiler.record_function(name)`, so a torch.profiler trace shows
+  the same phase breakdown the report prints.  A phase does not
+  synchronise the card: a caller timing device work synchronises before
+  the phase ends (the CLI does at the end of its render phase).
+
+`report` prints the JAX package's text for the same counters and times.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import defaultdict
+from contextlib import contextmanager
+
+import torch
+
+
+class Stats:
+    """Category/name counters + phase timers (PrintStats, api.cpp:1726)."""
+
+    def __init__(self):
+        self.counters = defaultdict(int)
+        self.ratios = {}           # name -> (num, den), printed num/den
+        self.times = defaultdict(float)
+
+    def add(self, name, value=1):
+        self.counters[name] += int(value)
+
+    @contextmanager
+    def phase(self, name):
+        """Timer + torch.profiler range (ProfilePhase, stats.h:141)."""
+        t0 = time.time()
+        try:
+            with torch.profiler.record_function(name):
+                yield
+        finally:
+            self.times[name] += time.time() - t0
+
+    def report(self, out=print):
+        out("Statistics:")
+        cats = defaultdict(list)
+        for name, v in sorted(self.counters.items()):
+            cat, _, item = name.partition("/")
+            cats[cat].append((item or cat, f"{v:>16,d}"))
+        for name, (num, den) in sorted(self.ratios.items()):
+            cat, _, item = name.partition("/")
+            cats[cat].append((item or cat,
+                              f"{num / max(den, 1e-9):>16.3f} avg"))
+        for cat in sorted(cats):
+            out(f"  {cat}")
+            for item, v in cats[cat]:
+                out(f"    {item:<42}{v}")
+        if self.times:
+            total = sum(self.times.values())
+            out("  Profile (wall clock)")
+            for name, t in sorted(self.times.items(), key=lambda kv: -kv[1]):
+                pct = 100.0 * t / max(total, 1e-9)
+                out(f"    {name:<42}{t:>10.2f}s ({pct:4.1f}%)")
+
+
+#: process-wide collector (the reference's static registry)
+GLOBAL = Stats()
+
+
+def count_scene(stats, n_prims, n_lights, n_nodes=0):
+    """Static scene-size counters (the reference's Scene/Memory stats);
+    ray and path counters come from the render's own counts."""
+    stats.add("Scene/Primitives", n_prims)
+    stats.add("Scene/Lights", n_lights)
+    if n_nodes:
+        stats.add("Scene/BVH nodes", n_nodes)

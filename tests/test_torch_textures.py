@@ -1,6 +1,7 @@
 """The port's textures (Perlin noise, every texture kind on the finest,
 cone and EWA branches, pyramids, the texture table) and image readers
-(PNG, TGA, EXR, PFM) against pbrt_tpu on the same inputs (CPU).
+(PNG, TGA, EXR with every compression, PFM) against pbrt_tpu on the
+same inputs (CPU).
 
 Tolerances: the host-side pyramid, resampling and table code is the same
 numpy and is held equal; Perlin noise and the procedural kinds, the same
@@ -23,6 +24,8 @@ from PIL import Image
 from pbrt_tpu.film import io as jio
 from pbrt_tpu.textures import textures as jtex
 from pbrt_tpu_torch.film import io as tio
+from pbrt_tpu_torch.native import build as native_build
+from pbrt_tpu_torch.native.build import exr_headers_present
 from pbrt_tpu_torch.textures import textures as ttex
 from test_torch_core import one_torch_thread  # noqa: F401  (autouse)
 
@@ -241,10 +244,9 @@ def test_exr_written_by_port_read_by_both(tmp_path, compression):
 
 
 def test_unported_formats_raise(tmp_path):
-    for name, comp in (("exr_piz.exr", "PIZ"), ("exr_pxr24.exr", "PXR24"),
-                       ("exr_b44.exr", "B44")):
-        with pytest.raises(NotImplementedError, match=comp):
-            tio.read_image(os.path.join(DATA, name))
+    """.jpg and palette PNGs raise.  The PIZ, PXR24 and B44 files, which
+    raised before the port read them through OpenEXR, read equal to
+    pbrt_tpu's native reader (half data: exact)."""
     path = str(tmp_path / "x.jpg")
     Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(path)
     with pytest.raises(NotImplementedError, match="jpg"):
@@ -253,3 +255,21 @@ def test_unported_formats_raise(tmp_path):
     Image.fromarray(np.zeros((4, 4, 3), np.uint8)).convert("P").save(path)
     with pytest.raises(NotImplementedError, match="colour type 3"):
         tio.read_image(path)
+    if not exr_headers_present():
+        pytest.skip("the OpenEXR headers are missing: PIZ, PXR24 and B44 "
+                    "need the OpenEXR library")
+    for name in ("exr_piz.exr", "exr_pxr24.exr", "exr_b44.exr"):
+        path = os.path.join(DATA, name)
+        img = tio.read_image(path)
+        assert img.dtype == np.float32 and img.shape == (23, 37, 3)
+        assert np.array_equal(img, jio.read_image(path)), name
+        assert np.array_equal(tio.read_exr(path), img), name
+
+
+def test_exr_without_openexr_raises_naming_it(monkeypatch):
+    """Without OpenEXR's headers a PIZ file raises naming its compression
+    and the missing library, in place of pbrt_tpu's silent failure."""
+    monkeypatch.setattr(native_build, "EXR_INCLUDE",
+                        ("/nonexistent/OpenEXR", "/nonexistent/Imath"))
+    with pytest.raises(NotImplementedError, match="PIZ.*OpenEXR"):
+        tio.read_image(os.path.join(DATA, "exr_piz.exr"))
