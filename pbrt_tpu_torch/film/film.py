@@ -21,6 +21,7 @@ import torch
 
 from pbrt_tpu_torch.core import device as devmod
 from pbrt_tpu_torch.core import spectrum as spec
+from pbrt_tpu_torch.utils.stats import span
 
 FILTER_TABLE_WIDTH = 16
 _RADIUS = {"box": (0.5, 0.5), "triangle": (2.0, 2.0),
@@ -109,6 +110,7 @@ class Film:
             filter_table=self.filter_table.to(device))
 
 
+@span("film")
 def make_film(width, height, filter_name="box", radius=None, device=None,
               pbrt_boundary=False, **filter_params):
     """An empty film on `device` (None: the first CUDA card) with the
@@ -143,6 +145,7 @@ def make_film(width, height, filter_name="box", radius=None, device=None,
         pbrt_boundary=pbrt_boundary)
 
 
+@span("film")
 def add_samples(film: Film, pfilm, L, ray_weight=None) -> Film:
     """Splat a batch of samples, in place; returns the film.
 

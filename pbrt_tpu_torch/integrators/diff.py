@@ -34,6 +34,7 @@ import torch
 from pbrt_tpu_torch.cameras import projective
 from pbrt_tpu_torch.integrators import path as pathmod
 from pbrt_tpu_torch.samplers.samplers import SamplerConfig
+from pbrt_tpu_torch.utils.stats import span
 
 # scene leaves that are differentiable targets
 DIFFERENTIABLE_FIELDS = ("mat_kd", "mat_ks", "mat_kr", "mat_kt", "light_L",
@@ -184,21 +185,26 @@ def make_train_step(scene, camera, W, H, cfg, target, max_depth=4,
     loss, state) -> (params, state)."""
 
     def forward(params, pixel_ids, sample_idx):
-        p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        return p, render_loss(p, scene, camera, W, H, cfg, pixel_ids,
-                              (sample_idx,), target, max_depth)
+        with span("forward"):
+            p = {k: v.detach().requires_grad_(True)
+                 for k, v in params.items()}
+            return p, render_loss(p, scene, camera, W, H, cfg, pixel_ids,
+                                  (sample_idx,), target, max_depth)
 
     def backward(p, loss, state):
-        grads = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+        with span("backward"):
+            grads = dict(zip(p, torch.autograd.grad(loss,
+                                                    list(p.values()))))
         new, state = adam_update(p, grads, state, learning_rate)
         return {k: (v if k in CAMERA_PARAM_KEYS
                     else torch.maximum(v, torch.zeros((), device=v.device)))
                 for k, v in new.items()}, state
 
     def step(params, state, pixel_ids, sample_idx):
-        p, loss = forward(params, pixel_ids, sample_idx)
-        new, state = backward(p, loss, state)
-        return new, state, loss.detach()
+        with span("step"):
+            p, loss = forward(params, pixel_ids, sample_idx)
+            new, state = backward(p, loss, state)
+            return new, state, loss.detach()
 
     step.forward, step.backward = forward, backward
     return adam_init, step

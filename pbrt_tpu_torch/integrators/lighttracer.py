@@ -33,8 +33,10 @@ from pbrt_tpu_torch.materials import bsdf
 from pbrt_tpu_torch.ops import intersect as isect
 from pbrt_tpu_torch.samplers.samplers import sample_dim
 from pbrt_tpu_torch.scene import ir
+from pbrt_tpu_torch.utils.stats import span
 
 
+@span("lights")
 def sample_le(scene: ir.SceneData, l, u1, u2, u3, u4):
     """Sample an emitted ray from light l [B] (Light::Sample_Le).
 

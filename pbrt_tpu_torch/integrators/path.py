@@ -64,6 +64,7 @@ from pbrt_tpu_torch.materials import bssrdf as bssrdfmod
 from pbrt_tpu_torch.ops import intersect as isect
 from pbrt_tpu_torch.samplers.samplers import SamplerConfig, sample_dim
 from pbrt_tpu_torch.scene import ir
+from pbrt_tpu_torch.utils.stats import span
 
 # sampler dimension layout (shared with the JAX package)
 DIM_PIXEL_X = 0
@@ -528,6 +529,7 @@ def camera_samples(cfg, W, pid, sidx):
     return pfilm, ulens, sample_dim(cfg, pid, sidx, DIM_TIME)
 
 
+@span("camera")
 def camera_rays_for_pixels(camera, W, H, cfg, pixel_id, sample_idx,
                            generate_rays=None):
     """Camera rays for a chunk of pixel ids (int64 tensor of 32-bit words;
@@ -567,6 +569,7 @@ def camera_pixel_spread(camera):
     return float(np.linalg.norm(p1 - p0) / max(np.linalg.norm(p0), 1e-6))
 
 
+@span("camera")
 def camera_ray_differentials(camera, W, H, cfg, pid, sidx, generate_rays,
                              spp):
     """Probe-ray camera differentials (reference camera.cpp:60-95 and the
@@ -608,6 +611,7 @@ def trace_options(scene, camera, trace_fn):
     return kw, use_ray_diff
 
 
+@span("job")
 def render(scene, camera, film, cfg: SamplerConfig, spp, max_depth=5,
            max_rays_per_pass=1 << 18, count_rays=False, trace_fn=None,
            generate_rays=None, trace_kwargs=None, crop_window=None,
@@ -682,26 +686,28 @@ def render(scene, camera, film, cfg: SamplerConfig, spp, max_depth=5,
     done, total = start_spp * n_chunks, spp * n_chunks
     for s in range(start_spp, spp):
         for chunk_ids in id_chunks:
-            ray, weight, pfilm, pid, sidx = camera_rays_for_pixels(
-                camera, W, H, cfg, chunk_ids, s, generate_rays)
-            kw = dict(tkw)
-            if use_ray_diff:
-                kw["ray_diff"] = camera_ray_differentials(
-                    camera, W, H, cfg, pid, sidx, generate_rays, spp)
-            if measure:
-                L, n = trace_fn(scene, ray, pid, sidx, cfg,
-                                max_depth=max_depth, count_rays="full", **kw)
-                n_vec += n
-            else:
-                L = trace_fn(scene, ray, pid, sidx, cfg, max_depth=max_depth,
-                             **kw)
-            if max_sample_luminance is not None:
-                y = spec.luminance(L)
-                L = L * torch.where(
-                    y > max_sample_luminance,
-                    max_sample_luminance / torch.clamp(y, min=1e-9),
-                    1.0)[:, None]
-            filmmod.add_samples(film, pfilm, L, weight)
+            with span("pass"):
+                ray, weight, pfilm, pid, sidx = camera_rays_for_pixels(
+                    camera, W, H, cfg, chunk_ids, s, generate_rays)
+                kw = dict(tkw)
+                if use_ray_diff:
+                    kw["ray_diff"] = camera_ray_differentials(
+                        camera, W, H, cfg, pid, sidx, generate_rays, spp)
+                if measure:
+                    L, n = trace_fn(scene, ray, pid, sidx, cfg,
+                                    max_depth=max_depth, count_rays="full",
+                                    **kw)
+                    n_vec += n
+                else:
+                    L = trace_fn(scene, ray, pid, sidx, cfg,
+                                 max_depth=max_depth, **kw)
+                if max_sample_luminance is not None:
+                    y = spec.luminance(L)
+                    L = L * torch.where(
+                        y > max_sample_luminance,
+                        max_sample_luminance / torch.clamp(y, min=1e-9),
+                        1.0)[:, None]
+                filmmod.add_samples(film, pfilm, L, weight)
             done += 1
             if progress is not None:
                 progress(done, total)

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from pbrt_tpu_torch.scene import ir
+from pbrt_tpu_torch.utils.stats import span
 
 GRID = 8
 
@@ -113,6 +114,7 @@ def _area_light_centroid(builder, light_idx):
 # selection on the device
 # ---------------------------------------------------------------------------
 
+@span("lights")
 def select_light(scene, strategy, p, u):
     """Pick a light per lane at points p [B,3] from u [B]; returns
     (l [B] int64, selection pdf [B])."""
@@ -130,6 +132,7 @@ def select_light(scene, strategy, p, u):
     return l, scene.light_spatial_pmf[vox, l]
 
 
+@span("lights")
 def selection_pdf(scene, strategy, p, l):
     """The probability that the strategy at points p [B,3] picks light l
     [B] (MIS at hit vertices); 1 for "all", which samples every light

@@ -34,6 +34,7 @@ from pbrt_tpu_torch.core import sampling
 from pbrt_tpu_torch.core import spectrum as spec
 from pbrt_tpu_torch.scene import ir
 from pbrt_tpu_torch.textures.textures import eval_texture
+from pbrt_tpu_torch.utils.stats import span
 
 _MAPPED = {ir.LIGHT_GONIO, ir.LIGHT_PROJECTION}
 _POINTISH = {ir.LIGHT_POINT, ir.LIGHT_SPOT} | _MAPPED
@@ -142,6 +143,7 @@ def _spot_falloff(cos_t, params):
                        torch.where(cos_t > cos_fall, 1.0, delta ** 4))
 
 
+@span("lights")
 def sample_li(scene: ir.SceneData, l, p, n, u1, u2):
     """Sample an incident direction from light l [B] toward points p [B,3].
 
@@ -248,6 +250,7 @@ def sample_li(scene: ir.SceneData, l, p, n, u1, u2):
     return wi, li, pdf, dist, is_delta
 
 
+@span("lights")
 def pdf_li_area(scene: ir.SceneData, light_idx, prev_p, wi, hit_t, hit_ng):
     """Solid-angle pdf that NEE at prev_p samples direction wi hitting an
     area light at distance hit_t with normal hit_ng (shape.cpp:136): mesh
@@ -336,6 +339,7 @@ def _env_cell(scene, d):
     return y, x, theta
 
 
+@span("lights")
 def pdf_li_infinite(scene: ir.SceneData, wi):
     """Solid-angle pdf of the infinite light's sampler for directions wi
     (InfiniteAreaLight::Pdf_Li, infinite.cpp:136+)."""
@@ -351,6 +355,7 @@ def pdf_li_infinite(scene: ir.SceneData, wi):
                        pdf_u * pdf_v / (2 * np.pi * np.pi * sin_t), 0.0)
 
 
+@span("lights")
 def area_le(scene: ir.SceneData, light_idx, ng, wo):
     """Emitted radiance of an area-light prim toward wo (diffuse.h:55-76)."""
     if ir.LIGHT_AREA not in scene.light_kinds:
@@ -395,6 +400,7 @@ def _env_radiance(scene: ir.SceneData, d):
     return scene.env_map.reshape(He * We, NS).index_select(0, y * We + x)
 
 
+@span("lights")
 def env_le(scene: ir.SceneData, d):
     """Radiance of the infinite light for escaped rays (infinite.h Le)."""
     if not scene.has_infinite:

@@ -41,6 +41,7 @@ from pbrt_tpu_torch.materials import hair as hairmod
 from pbrt_tpu_torch.materials.bssrdf import fresnel_moment1_torch
 from pbrt_tpu_torch.scene import ir
 from pbrt_tpu_torch.textures.textures import eval_texture
+from pbrt_tpu_torch.utils.stats import span
 
 INV_PI = sampling.INV_PI
 PI = sampling.PI
@@ -112,6 +113,7 @@ def _texture(scene, idx, uv, p, **kw):
                         kinds=scene.tex_kinds, **kw)
 
 
+@span("shading")
 def bump_shading_normal(scene: ir.SceneData, material_idx, hit):
     """The shading normal perturbed by the material's bump map (reference:
     Material::Bump, material.cpp:50+): finite differences of the bound
@@ -166,6 +168,7 @@ def hair_shading_frame(scene: ir.SceneData, hit, ss, ts):
             torch.where(use, geom.cross(hit.ns, tang), ts))
 
 
+@span("shading")
 def shading_frame(scene: ir.SceneData, hit):
     """(ss, ts) about hit.ns, fiber-aligned on hair lanes when the scene
     has hair (the reference's dpdu-aligned frame,
@@ -197,6 +200,7 @@ def resolve_mix(scene: ir.SceneData, material_idx, u_mix=None, p=None):
     return torch.where(is_mix, resolved, material_idx)
 
 
+@span("shading")
 def gather_materials(scene: ir.SceneData, material_idx, uv=None, p=None,
                      u_mix=None, uv_width=None, duv=None,
                      face=None) -> MaterialParams:
@@ -816,6 +820,7 @@ def _hair_args(params):
                 beta_n=params.rough_v, alpha=params.sigma * (PI / 180.0))
 
 
+@span("shading")
 def eval_f(params: MaterialParams, wo, wi):
     """f(wo, wi) of the non-delta lobes, local frame; [B,31]."""
     t = params.type
@@ -922,6 +927,7 @@ def eval_f(params: MaterialParams, wo, wi):
     return torch.where(valid[..., None], f, 0.0)
 
 
+@span("shading")
 def pdf_f(params: MaterialParams, wo, wi):
     t = params.type
     fam = params.families
@@ -984,6 +990,7 @@ def pdf_f(params: MaterialParams, wo, wi):
     return torch.where(mk.is_delta(), 0.0, pdf)
 
 
+@span("shading")
 def sample_f(params: MaterialParams, wo, u_lobe, u1, u2, u3=None):
     """Sample wi; returns (wi, f, pdf, is_specular, transmitted, eta_fac).
 

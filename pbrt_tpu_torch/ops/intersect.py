@@ -38,6 +38,7 @@ from pbrt_tpu_torch.ops import dense_intersect as dense
 from pbrt_tpu_torch.scene.ir import (MAT_NONE, PRIM_CONE, PRIM_CYLINDER,
                                      PRIM_DISK, PRIM_PARABOLOID,
                                      PRIM_TRIANGLE, SceneData)
+from pbrt_tpu_torch.utils.stats import span
 
 
 @dataclass
@@ -285,6 +286,7 @@ def _coherence_order(scene: SceneData, o, d, t_init, anyhit_mask=None):
     return torch.sort(key, stable=True).indices
 
 
+@span("intersect")
 @torch.no_grad()
 def intersect(scene: SceneData, ray: geom.Ray, presorted=False,
               anyhit_mask=None):
@@ -428,6 +430,7 @@ def quadric_normal_obj(qtype, params, ph, kinds):
     return n
 
 
+@span("interaction")
 def make_hit(scene: SceneData, ray: geom.Ray, t, prim, found,
              exact_p=False, ray_diff=None) -> Hit:
     """Surface-interaction record of the winning primitives.

@@ -22,6 +22,7 @@ from typing import NamedTuple
 import torch
 
 from pbrt_tpu_torch.core import lds, rng
+from pbrt_tpu_torch.utils.stats import span
 
 SAMPLER_TYPES = ("independent", "random", "stratified", "sobol", "halton",
                  "zerotwosequence", "maxmindist")
@@ -41,6 +42,7 @@ def _sample_02(pixel_id, sample_idx, dim, seed):
     return x if dim % 2 == 0 else y
 
 
+@span("sampler")
 def sample_dim(cfg: SamplerConfig, pixel_id, sample_idx, dim: int):
     """pixel_id, sample_idx: int64 tensors of 32-bit words; dim: int."""
     seed = rng.u32(cfg.seed)

@@ -8,18 +8,29 @@ reference: src/core/stats.{h,cpp}).
   `torch.profiler.record_function(name)`, so a torch.profiler trace shows
   the same phase breakdown the report prints.  A phase does not
   synchronise the card: a caller timing device work synchronises before
-  the phase ends (the CLI does at the end of its render phase).
+  the phase ends (the CLI does at the end of its render phase);
+* layer spans: `span(name)` marks a layer boundary of the render and
+  gradient paths (the sampler, camera, intersect, interaction, shading,
+  lights, film, gather, pass, job, step, forward and backward layers).
+  Off, which is the default, a span opens nothing.  Inside `tracing()`
+  each span opens a `torch.profiler.record_function` range named
+  "pbrt.<name>", so a profiler trace puts every kernel down to the
+  innermost layer whose range holds its launch.
 
 `report` prints the JAX package's text for the same counters and times.
 """
 
 from __future__ import annotations
 
+import functools
 import time
 from collections import defaultdict
 from contextlib import contextmanager
 
 import torch
+
+#: the profiler ranges of the layer spans are named PREFIX + name
+PREFIX = "pbrt."
 
 
 class Stats:
@@ -36,12 +47,12 @@ class Stats:
     @contextmanager
     def phase(self, name):
         """Timer + torch.profiler range (ProfilePhase, stats.h:141)."""
-        t0 = time.time()
+        t0 = time.perf_counter()
         try:
             with torch.profiler.record_function(name):
                 yield
         finally:
-            self.times[name] += time.time() - t0
+            self.times[name] += time.perf_counter() - t0
 
     def report(self, out=print):
         out("Statistics:")
@@ -65,8 +76,62 @@ class Stats:
                 out(f"    {name:<42}{t:>10.2f}s ({pct:4.1f}%)")
 
 
-#: process-wide collector (the reference's static registry)
-GLOBAL = Stats()
+# True inside `tracing()`: the layer spans open their profiler ranges
+_on = False
+
+
+@contextmanager
+def tracing():
+    """Turn the layer spans on inside the block."""
+    global _on
+    outer, _on = _on, True
+    try:
+        yield
+    finally:
+        _on = outer
+
+
+class _Off:
+    """A span while tracing is off: a no-op context manager, and a
+    decorator whose wrapper opens the span's range around each call made
+    while tracing is on."""
+
+    __slots__ = ("name",)
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def __call__(self, fn):
+        label = PREFIX + self.name
+
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            if not _on:
+                return fn(*args, **kwargs)
+            with torch.profiler.record_function(label):
+                return fn(*args, **kwargs)
+        return spanned
+
+
+_OFF = {}
+
+
+def span(name):
+    """The layer span `name`, as a decorator (`@span("sampler")`, applied
+    where tracing is off, as at import) or as a context manager (`with
+    span("pass"):`).  Off, it is a shared no-op; on, a profiler range."""
+    if _on:
+        return torch.profiler.record_function(PREFIX + name)
+    off = _OFF.get(name)
+    if off is None:
+        off = _OFF[name] = _Off(name)
+    return off
 
 
 def count_scene(stats, n_prims, n_lights, n_nodes=0):
