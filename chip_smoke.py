@@ -267,9 +267,12 @@ iteration) and mlt at its defaults (4,096 chains, 65,536 bootstrap paths,
 finite, non-negative and non-black, its wall time over its units
 (passes, iterations or, with the bootstrap, mutation steps), one unit
 timed alone and profiled: its ms, launches, device ms and idle share,
-and peak device memory; (b) image means against `path` through
-`run_job` at the same spp: bdpt within BDPT_GAP, mlt within MLT_GAP;
-lighttracer's and sppm's ratios printed (neither sees the emitter or the
+and peak device memory; SPPM's gather kernel G1 (csrc/sppm_gather.cu)
+counted too, its count set to 0 just before each render: 4 launches an
+sppm iteration, none for the others, and the plain loop never run; (b)
+image means against `path` through `run_job` at the same spp: bdpt
+within BDPT_GAP, mlt within MLT_GAP; lighttracer's and sppm's ratios
+printed (neither sees the emitter or the
 mirror through its camera connection, and sppm's visible point keeps
 plastic's diffuse part only); (c) K1 and K2 against their plain versions
 on kernel_workloads.bdpt_batches (rays leaving the light, the (2,2) and
@@ -278,7 +281,17 @@ through compare_kernels with seams (LIGHT_SKIPS lanes a batch); (d) the
 card against the CPU at 32x32 2 spp for lighttracer, bdpt and sppm
 (phase 8's limits), and for mlt (MLT_32: 256 chains, 1,024 bootstrap
 paths, 16 mutations a chain) the image mean within MLT_CPU_GAP: an
-acceptance that flips on rounding sends a chain elsewhere.
+acceptance that flips on rounding sends a chain elsewhere; (e) SPPM's
+photon gather kernel (csrc/sppm_gather.cu) against gather_plain on the
+gather calls of one iteration of cornell_bench at the benchmark's
+362x362 (131,044 visible points and photons, depth 5): M equal but on
+points with a pair within 4 ulp of r2, tau_add within 1e-5 relative; the
+kernel's device ms on bounce 1's call (the profiler's, or if no trace
+holds it CUDA events on a held stream; neither read fails the smoke)
+beside the plain loop's (one 1,024-photon chunk, scaled to P), the bound
+(pairs x 8 f32 instructions at 33.5e12/s) and the kernel's share of it,
+and its registers; the kernels line's `sppm_gather` row takes these and
+(a)'s launches.
 
 Phase 28 drives the last modules (~20 s on the H100), each with the
 counts set to 0 just before and read just after: (a) checkpoint and
@@ -364,6 +377,7 @@ from pbrt_tpu_torch.integrators import mlt  # noqa: E402
 from pbrt_tpu_torch.integrators import path  # noqa: E402
 from pbrt_tpu_torch.integrators import refpath  # noqa: E402
 from pbrt_tpu_torch.integrators import spectralpath  # noqa: E402
+from pbrt_tpu_torch.integrators import sppm  # noqa: E402
 from pbrt_tpu_torch.integrators import volpath  # noqa: E402
 from pbrt_tpu_torch.lights import lights  # noqa: E402
 from pbrt_tpu_torch.materials import bsdf  # noqa: E402
@@ -3085,18 +3099,32 @@ def phase27(run_path, card, device, res):
     cam = cli.build_camera(pjob, W, H, device)
     cfg = SamplerConfig("sobol", 0, LIGHT_SIDE_SPP)
     means = {}
+    plain_gather = sppm.gather_plain
     for kind in dispatch.LIGHT_SIDE:
         job = _bench_as(kind, {}, device, W)
         units, calls = light_side_units(kind, LIGHT_SIDE_SPP, DEPTH, W)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        # G1 a photon bounce on the card, and never the plain loop
+        sppm.gather_plain = _refuse_plain_gather
+        sppm.LAUNCHES["sppm_gather"] = 0
         t1 = time.perf_counter()
-        (film, _), counts = run_path(
-            f"{kind} render", lambda: cli.run_job(job, spp=LIGHT_SIDE_SPP,
-                                                  max_depth=DEPTH),
-            {"dense_queue": calls, "dense_queue_cull": 0,
-             "dense_loop": calls, "dense_loop_motion": 0}, job.scene)
+        try:
+            (film, _), counts = run_path(
+                f"{kind} render", lambda: cli.run_job(
+                    job, spp=LIGHT_SIDE_SPP, max_depth=DEPTH),
+                {"dense_queue": calls, "dense_queue_cull": 0,
+                 "dense_loop": calls, "dense_loop_motion": 0}, job.scene)
+        finally:
+            sppm.gather_plain = plain_gather
         wall = time.perf_counter() - t1
+        g1 = sppm.LAUNCHES["sppm_gather"]
+        expect = units * (DEPTH - 1) if kind == "sppm" else 0
+        check(g1 == expect, f"{kind} render: {g1} sppm_gather launches, "
+              f"expected {expect}")
+        counts = dict(counts, sppm_gather=g1)
+        if kind == "sppm":
+            g1_launches = g1
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         img = filmmod.develop_spectral(film)
         check_image(img, f"{kind} render")
@@ -3164,6 +3192,106 @@ def phase27(run_path, card, device, res):
     print(f"phase 27 light-side integrators pass; wall s renders + gates "
           f"{t_render:.1f}, kernels {t_kernels:.1f}, GPU vs CPU "
           f"{time.perf_counter() - t0:.1f}")
+    return g1_launches
+
+
+def _refuse_plain_gather(*args):
+    raise AssertionError("sppm.gather_plain ran on a card render")
+
+
+GATHER_RES = 362      # the benchmark's cornell.sppm-362
+GATHER_SOURCE = "pbrt_tpu_torch/csrc/sppm_gather.cu"
+# the XLA chunk loop G1 replaces (no pl.pallas_call)
+GATHER_REPLACES = "pbrt_tpu/integrators/sppm.py:161"
+GATHER_TAU_REL = 1e-5
+
+
+def phase27_gather(device, card):
+    """(e) G1, SPPM's photon gather kernel, against gather_plain (module
+    docstring).  Returns the kernels line's measurements of G1."""
+    t0 = time.perf_counter()
+    job = _bench_as("sppm", {}, device, GATHER_RES)
+    cam = cli.build_camera(job, GATHER_RES, GATHER_RES, device)
+    V = GATHER_RES * GATHER_RES
+    sppm.LAUNCHES["sppm_gather"] = 0
+    calls = kw.gather_batches(
+        job.scene, cam, SamplerConfig("sobol", 0, LIGHT_SIDE_SPP),
+        GATHER_RES, GATHER_RES, V, DEPTH,
+        float(job.scene.world_radius) * 0.01)
+    check(len(calls) == DEPTH - 1
+          and sppm.LAUNCHES["sppm_gather"] == DEPTH - 1,
+          f"sppm gather: {len(calls)} calls, "
+          f"{sppm.LAUNCHES['sppm_gather']} launches")
+    abs_err = rel_err = 0.0
+    for b, args in enumerate(calls, 1):
+        tau_ref, M_ref = sppm.gather_plain(*args)
+        tau, M = sppm.gather(*args)
+        differ = (M != M_ref).nonzero().flatten()
+        near = kw.gather_near_ties(*args[:5], rows=differ)
+        same = M == M_ref
+        err = (tau - tau_ref).abs()[same]
+        rel = (err / tau_ref.abs()[same].clamp_min(1e-30)).max().item()
+        abs_err, rel_err = max(abs_err, err.max().item()), max(rel_err, rel)
+        hits = int((M_ref - args[7]).sum().item())
+        print(f"phase 27e gather bounce {b}: {int(args[4].sum())} live "
+              f"photons of {args[3].shape[0]}, {hits} hits on "
+              f"{int(args[1].sum())} valid points of {V}; M differs on "
+              f"{differ.numel()} points ({int(near.sum())} with a pair "
+              f"within 4 ulp of r2), tau_add max rel {rel:.3e} (limit "
+              f"{GATHER_TAU_REL}) on {card}")
+        check(bool(near.all()), f"sppm gather bounce {b}: M differs off a "
+              "near tie")
+        check(rel <= GATHER_TAU_REL, f"sppm gather bounce {b}: tau_add "
+              f"rel {rel}")
+    args = calls[0]
+    C = sppm.PHOTON_CHUNK
+    chunk = args[:3] + tuple(a[:C] for a in args[3:6]) + args[6:]
+    kernel = _device_time(lambda: sppm.gather(*args))
+    plain = _device_time(lambda: sppm.gather_plain(*chunk))
+    event = kw.time_ms(lambda: sppm.gather(*args), 4, device)
+    check(kernel is not None, "sppm gather: no device time of the kernel "
+          "(no trace held it, and the held stream ran dry)")
+    check(kernel[1] in (None, 1.0), f"sppm gather: {kernel[1]} kernels a "
+          "call, expected 1")
+    P = args[3].shape[0]
+    bound = kw.gather_bound(V, P)
+    try:
+        regs = next((v for k, v in cuda_kernels.ptxas_report().items()
+                     if "sppm_gather_kernel" in k), {})
+    except FileNotFoundError:
+        regs = "not reported (the library was built by another process)"
+    plain_ms = None if plain is None else plain[0] * P / C
+    print(f"phase 27e gather {V} x {P} (bounce 1's call): kernel "
+          f"{kernel[0]:.3f} ms device ({kernel[2]}; events "
+          f"{event:.3f} ms), plain "
+          + ("not measured" if plain is None else
+             f"{plain_ms:.2f} ms (one {C}-photon chunk {plain[0]:.4f} ms "
+             f"device ({plain[2]}) x {P / C:.2f})")
+          + f", bound {bound:.3f} ms (operations: {V * P:.4g} pairs x "
+          f"{kw.GATHER_PAIR_INSTR} f32 instructions at 33.5e12/s), share "
+          f"{bound / kernel[0]:.1%}, ptxas {regs}, launches in this phase "
+          f"{sppm.LAUNCHES['sppm_gather']} on {card}")
+    print(f"phase 27e sppm gather pass; wall s "
+          f"{time.perf_counter() - t0:.1f}")
+    return {"max_abs_err": abs_err, "max_rel_err": rel_err,
+            "ms": event, "device_ms": kernel[0], "device_ms_from": kernel[2],
+            "plain_ms": plain_ms, "bound_ms": bound,
+            "registers": regs.get("registers") if isinstance(regs, dict)
+            else None,
+            "launches_harnesses": sppm.LAUNCHES["sppm_gather"]}
+
+
+def _device_time(fn):
+    """(device ms a call, kernels a call or None, how it was read) of fn():
+    the profiler's kernel times (kernel_workloads.device_ms); if no trace
+    held a kernel, CUDA events on a stream held until every call was
+    queued (kernel_workloads.queued_ms), which time the calls back to
+    back on the card.  None if neither read."""
+    prof = kw.device_ms(fn, reps=4, traces=6)
+    if prof is not None:
+        return prof[0], prof[1], "profiler"
+    q = kw.queued_ms(fn, 4)
+    return None if q is None else (q, None, "events on a held stream")
 
 
 def _rel_max(a, b):
@@ -3412,7 +3540,7 @@ def main():
     print(f"phase 2 build: {build_s:.2f} s (one nvcc, sm_90a; kernels "
           "dense_queue (its lists and its cull alone), dense_loop (5 "
           "modes and the tile dump), dense_loop_motion, bvh_walk and "
-          "kd_walk (static and motion))")
+          "kd_walk (static and motion), sppm_gather)")
     for line in log.splitlines():
         if any(k in line for k in ("registers", "Compiling entry",
                                    "spill")):
@@ -3703,7 +3831,8 @@ def main():
 
     # --- phase 27: lighttracer, bdpt, sppm and mlt ---
     t0 = time.perf_counter()
-    phase27(run_path, card, device, res)
+    g1_launches = phase27(run_path, card, device, res)
+    g1 = phase27_gather(device, card)
     print(f"phase 27 light-side integrators; wall s "
           f"{time.perf_counter() - t0:.1f}")
 
@@ -3775,6 +3904,11 @@ def main():
         rows.append(row)
     rows += harness["rows"]
     rows += walk_rows(res, walk_launches)
+    # G1: its launches are phase 27a's SPPM render's, its times phase 27e's
+    rows.append(dict(
+        {"name": "sppm_gather", "route": "cuda", "source": GATHER_SOURCE,
+         "replaces": GATHER_REPLACES, "launches": g1_launches,
+         "bound_by": "operations", "library_ms": None}, **g1))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

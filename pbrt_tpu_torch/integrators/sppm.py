@@ -3,12 +3,18 @@ pbrt_tpu.integrators.sppm; reference: src/integrators/sppm.cpp).
 
 The reference walks photons through a spatial hash grid over the
 pixels' visible points with atomic flux adds (sppm.cpp:87-107).  As in
-the JAX package the gather is dense: each 1,024-photon chunk is tested
-against every visible point, d2 [V, Pc] from the [V, Pc, 3] differences,
-and the deposit is the masked product tau_add += mask [V,Pc] @ beta
-[Pc,31] (torch.matmul; the caller keeps TF32 off).  At 256x256 one
-chunk's difference tensor is 0.8 GB; a ROADMAP perf_opt item fuses the
-distance test and the deposit.
+the JAX package the gather is dense: every photon is tested against every
+visible point, d2 = (dx*dx + dy*dy) + dz*dz against the point's r2.  On
+the card `gather` is one launch of csrc/sppm_gather.cu a call: a thread
+keeps its visible point's tau_add [31] and M in registers, tests every
+photon staged in shared memory and adds the rows of its hits in photon
+order, so no pair's intermediate reaches device memory and two launches
+give the same bits.  Its plain twin `gather_plain`, which the CPU runs,
+is the JAX package's chunk loop: per 1,024-photon chunk d2 [V, Pc] from
+the [V, Pc, 3] differences and the masked product tau_add += mask [V,Pc]
+@ beta [Pc,31] (torch.matmul; the caller keeps TF32 off).  The two test
+the same pairs with the same expression; only the order of the f32
+additions into tau_add differs.
 
 Per-pixel state follows the reference: the radius shrinks as
 r' = r sqrt((N + a M) / (N + M)), the flux rescales by r'^2 / r^2
@@ -33,6 +39,7 @@ from pbrt_tpu_torch.integrators import path as pathmod
 from pbrt_tpu_torch.integrators.lighttracer import sample_le
 from pbrt_tpu_torch.lights import lights
 from pbrt_tpu_torch.materials import bsdf
+from pbrt_tpu_torch.ops import dense_intersect as dense
 from pbrt_tpu_torch.ops import intersect as isect
 from pbrt_tpu_torch.samplers.samplers import sample_dim
 from pbrt_tpu_torch.scene import ir
@@ -45,6 +52,9 @@ PHOTON_CHUNK = 1024
 PHOTON_ID_BASE = 0x50000000
 _DIFFUSE = (ir.MAT_MATTE, ir.MAT_PLASTIC, ir.MAT_UBER, ir.MAT_SUBSTRATE,
             ir.MAT_RETRO)
+#: launches of csrc/sppm_gather.cu made by `gather` (gather_plain never
+#: counts): an SPPM iteration at depth d makes d - 1
+LAUNCHES = {"sppm_gather": 0}
 
 
 def camera_pass(scene, camera, W, H, cfg, it, max_depth, generate_rays=None):
@@ -133,9 +143,45 @@ def camera_pass(scene, camera, W, H, cfg, it, max_depth, generate_rays=None):
 @span("gather")
 def gather(vp_p, vp_valid, r2, p, alive, beta, tau_add, M):
     """Deposit photons at p [P,3] (live where `alive`, throughput beta
-    [P,31]) on the visible points within their radius (r2 [V] squared),
-    dense and pairwise, a photon chunk at a time; adds into tau_add
-    [V,31] and M [V] and returns them."""
+    [P,31]) on the visible points vp_p [V,3] (valid where vp_valid) within
+    their radius (r2 [V] squared): returns tau_add [V,31] and M [V] with
+    the deposits and the counts added.  It writes none of its inputs, on
+    either device.
+
+    CUDA tensors: one launch of csrc/sppm_gather.cu (f32, contiguous, one
+    device; vp_valid and alive bool); a wrong input raises, and so does the
+    launch's error.  CPU tensors: gather_plain."""
+    if dense._on_cpu(vp_p, vp_valid, r2, p, alive, beta, tau_add, M):
+        return gather_plain(vp_p, vp_valid, r2, p, alive, beta, tau_add, M)
+    V, P = vp_p.shape[0], p.shape[0]
+    NS = spec.N_SPECTRAL_SAMPLES
+    f32, b = torch.float32, torch.bool
+    for name, x, dtype, shape in (
+            ("vp_p", vp_p, f32, (V, 3)), ("vp_valid", vp_valid, b, (V,)),
+            ("r2", r2, f32, (V,)), ("p", p, f32, (P, 3)),
+            ("alive", alive, b, (P,)), ("beta", beta, f32, (P, NS)),
+            ("tau_add", tau_add, f32, (V, NS)), ("M", M, f32, (V,))):
+        dense._check(name, x, dtype, shape)
+        if x.device != vp_p.device:
+            raise ValueError(f"gather: {name} is on {x.device}, vp_p on "
+                             f"{vp_p.device}")
+    if V == 0 or P == 0:
+        return tau_add, M
+    from pbrt_tpu_torch.ops import cuda_kernels
+    tau_out, M_out = torch.empty_like(tau_add), torch.empty_like(M)
+    err = cuda_kernels.library().pbrt_sppm_gather(
+        dense._ptr(vp_p), dense._ptr(vp_valid), dense._ptr(r2),
+        dense._ptr(p), dense._ptr(alive), dense._ptr(beta),
+        dense._ptr(tau_add), dense._ptr(M), V, P, dense._ptr(tau_out),
+        dense._ptr(M_out), dense._stream())
+    dense._raise_on(err, "sppm_gather")
+    LAUNCHES["sppm_gather"] += 1
+    return tau_out, M_out
+
+
+def gather_plain(vp_p, vp_valid, r2, p, alive, beta, tau_add, M):
+    """gather's plain twin: dense and pairwise, a photon chunk at a time
+    (the JAX package's loop)."""
     dep_beta = torch.where(alive[:, None], beta, 0.0)
     for c0 in range(0, p.shape[0], PHOTON_CHUNK):
         pc = slice(c0, c0 + PHOTON_CHUNK)

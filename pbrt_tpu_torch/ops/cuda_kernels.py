@@ -1,5 +1,6 @@
 """Build and bind the port's CUDA kernels (csrc/*.cu): the dense
-intersector's K1 and K2, and the BVH and kd-tree walks.
+intersector's K1 and K2, the BVH and kd-tree walks, and SPPM's photon
+gather.
 
 The sources are compiled by `nvcc` for sm_90a into one shared library
 with a plain C interface, loaded with ctypes.  The build runs at first
@@ -22,7 +23,8 @@ from pbrt_tpu_torch.native.build import build_shared_library
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 SOURCES = tuple(os.path.join(CSRC, f)
-                for f in ("dense_queue.cu", "dense_loop.cu", "accel_walk.cu"))
+                for f in ("dense_queue.cu", "dense_loop.cu", "accel_walk.cu",
+                        "sppm_gather.cu"))
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -75,6 +77,8 @@ def library():
     lib.pbrt_bvh_walk.argtypes = [p] * 10 + [i] * 4 + [p] * 3
     lib.pbrt_kd_walk.restype = ctypes.c_int
     lib.pbrt_kd_walk.argtypes = [p] * 12 + [i] * 5 + [p] * 3
+    lib.pbrt_sppm_gather.restype = ctypes.c_int
+    lib.pbrt_sppm_gather.argtypes = [p] * 8 + [i] * 2 + [p] * 3
     return lib
 
 

@@ -37,6 +37,10 @@ from the same numpy seeds by the port's own code.
                     dense cap, as its BVH or kd walk receives them, and
                     walk_bound, the walks' bound from the plain version's
                     counts; walk_edge_rays, the walks' edge cases.
+  gather_batches    the arguments of each SPPM photon gather of one
+                    iteration (G1, csrc/sppm_gather.cu) on a scene;
+                    gather_cases, a synthetic batch of the gather's edge
+                    cases; gather_bound, its bound; gather_near_ties.
 
 Each takes a device and a seed; nothing is built at import.  The s3
 script drew its rays with jax.random; here numpy draws them from the same
@@ -482,6 +486,100 @@ def photon_batch(scene, cfg, photons, depth):
     return _record(run, depth)[0]
 
 
+def gather_batches(scene, camera, cfg, width, height, photons, depth,
+                   radius):
+    """The arguments (vp_p, vp_valid, r2, p, alive, beta, tau_add, M) of
+    each `sppm.gather` call of one SPPM iteration at sample 0 (the camera
+    pass and the photon pass to `depth`, every pixel's radius `radius`),
+    cloned as each call received them: depth - 1 tuples."""
+    from pbrt_tpu_torch.integrators import sppm
+    _, vp_p, _, vp_valid, _ = sppm.camera_pass(scene, camera, width, height,
+                                                cfg, 0, depth)
+    calls = []
+    inner = sppm.gather
+
+    def record(*args):
+        calls.append(tuple(a.clone() for a in args))
+        return inner(*args)
+
+    sppm.gather = record
+    try:
+        sppm.photon_pass(scene, cfg, 0, photons, depth, vp_p, vp_valid,
+                         torch.full((width * height,), float(radius),
+                                    device=vp_p.device))
+    finally:
+        sppm.gather = inner
+    return calls
+
+
+GATHER_TIE = 0.125     # the exact ties' offset: d2 = r2 = 1/64, dyadic
+
+
+def gather_cases(device, seed=0, V=1000, P=3001):
+    """A synthetic gather batch (gather_batches' tuple) of the kernel's edge
+    cases, V and P multiples of no tile size: points on a 1/64 grid in
+    [-1, 1]^3, a tenth invalid; random photons, a fifth dead; photons on
+    points (d2 = 0), on dead and on invalid points; duplicate photons; and
+    exact ties, photons GATHER_TIE from a point whose r2 is GATHER_TIE^2
+    (d2 == r2 in any order of the sums: each term is dyadic).  beta,
+    tau_add and M are positive, so deposits add onto earlier ones."""
+    rs = np.random.RandomState(seed)
+    vp_p = (rs.randint(-64, 65, (V, 3)) / 64.0).astype(np.float32)
+    vp_valid = rs.rand(V) > 0.1
+    r2 = (rs.uniform(0.05, 0.3, V) ** 2).astype(np.float32)
+    p = rs.uniform(-1, 1, (P, 3)).astype(np.float32)
+    alive = rs.rand(P) > 0.2
+    n = P // 10
+    on = rs.randint(0, V, n)                       # photons on points
+    p[:n] = vp_p[on]
+    ties = rs.randint(0, V, n)                     # exact ties
+    axis = rs.randint(0, 3, n)
+    p[n:2 * n] = vp_p[ties]
+    p[n + np.arange(n), axis] += np.float32(GATHER_TIE)
+    r2[ties] = np.float32(GATHER_TIE * GATHER_TIE)
+    p[2 * n:3 * n] = p[rs.randint(0, n, n)]        # duplicate photons
+    beta = rs.uniform(0.01, 2.0, (P, 31)).astype(np.float32)
+    tau_add = rs.uniform(0.0, 1.0, (V, 31)).astype(np.float32)
+    M = rs.randint(0, 5, V).astype(np.float32)
+    return tuple(torch.as_tensor(x, device=device) for x in (
+        vp_p, vp_valid, r2, p, alive, beta, tau_add, M))
+
+
+GATHER_PAIR_INSTR = 8    # f32 instructions a pair test (3 sub, 3 mul, 2 add)
+
+
+def gather_bound(V, P):
+    """The least ms the card could take for V P pair tests, at 33.5e12 f32
+    instructions/s (F32_PEAK with an FMA counted once): the gather is
+    bound by operations, its bytes being a few tens of MB a call."""
+    return V * P * GATHER_PAIR_INSTR / (F32_PEAK / 2) * 1e3
+
+
+GATHER_NEAR_ULPS = 4
+
+
+def gather_near_ties(vp_p, vp_valid, r2, p, alive, rows=None):
+    """[len(rows)] bool (rows: point indices, default all): the valid
+    points with a live photon whose d2, evaluated in float64, lies within
+    GATHER_NEAR_ULPS ulp of r2 but not on it, where two f32 orders of the
+    sum may fall on either side (exact ties, as gather_cases' dyadic ones,
+    fall on no side).  Runs on the inputs' device, a slice of photons at a time."""
+    if rows is None:
+        rows = torch.arange(vp_p.shape[0], device=vp_p.device)
+    vp, r = vp_p[rows].double(), r2[rows]
+    rr = r.double()
+    ulp = (torch.nextafter(r, torch.full_like(r, float("inf"))) - r
+           ).double() * GATHER_NEAR_ULPS
+    pp = p[alive].double()
+    near = torch.zeros(rows.shape[0], dtype=torch.bool, device=vp.device)
+    step = max(1, (1 << 22) // max(rows.shape[0], 1))
+    for c0 in range(0, pp.shape[0], step):
+        d2 = ((vp[:, None, :] - pp[None, c0:c0 + step, :]) ** 2).sum(-1)
+        gap = (d2 - rr[:, None]).abs()
+        near |= ((gap <= ulp[:, None]) & (gap > 0)).any(-1)
+    return near & vp_valid[rows]
+
+
 def probe_repeats(scene, camera, cfg, width, height, rays, depth,
                   **trace_kw):
     """The probe march's re-hits in one main-path pass: for each bounce,
@@ -884,6 +982,30 @@ def time_ms(fn, reps, device, warmup=True):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+HOLD_CYCLES = 10 ** 8    # ~50 ms of the H100's SM clock
+
+
+def queued_ms(fn, reps):
+    """Device ms per call of fn() from CUDA events that the host's launches
+    cannot reach: a spin kernel (torch.cuda._sleep, HOLD_CYCLES) holds the
+    stream while the start event, `reps` calls and the end event are
+    queued behind it, so the events time the calls back to back on the
+    card.  For a call of one kernel that is the kernel's device time.
+    None if the hold ran out before the end event was queued."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    held = not start.query()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps if held else None
 
 
 def device_us(event):
